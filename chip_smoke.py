@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit; nothing is caught):
+
+  1. card   — print the card's name and power limit; TF32 off.
+  2. build  — compile the path's CUDA kernel from src/repro_torch.
+  3. kernel — hold ``consensus_round`` against its plain PyTorch version on
+              the card at three shapes in working dtypes, with real qwen3-4b
+              leaf structure: J=2/deg=1 bf16 native wire (one full-width
+              layer, ~101M elements per row), the same with an int8 wire,
+              and J=4/deg=2 (one layer's attention, ~26M per row).
+  4. slice  — ``launch.train.run`` on qwen3-4b at full width (d_model 2560,
+              32/8 heads, head_dim 128, d_ff 9728, vocab 151,936, untied
+              head) with depth cut from 36 to 4 layers, so that two node
+              replicas with bf16 params, f32 AdamW moments and the f32 dual
+              and neighbor-mean buffers fit in 80 GB: 2 nodes, nap, ring,
+              2 local steps, 8 steps (4 consensus rounds), 4 x 512 tokens
+              per node, AdamW lr 3e-4. Every round must launch the kernel.
+              The run is traced with torch.profiler (CUDA activity): the
+              kernel's time in each round, the device's idle share and its
+              time by kernel family come from that trace.
+  4b. agree — the reduced qwen3-4b trainer in float32 on the card against
+              the same trainer on the CPU from the same weights (the CPU
+              path is the one the tests hold against the JAX reference).
+  5. full   — the kernel at the slice's own shape (1,181,941,760 elements
+              per row) against the plain version run in block-aligned
+              column chunks (whole, its f32 temporaries do not fit).
+
+The second-to-last line holds every kernel's numbers as JSON; the last line
+is the run's verdict.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+DEV = "cuda"
+KERNEL_NAME = "consensus_round_kernel"      # the CUDA kernel, in a trace
+SLICE_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
+              "--local-steps", "2", "--steps", "8", "--batch-per-node", "4",
+              "--seq", "512", "--lr", "3e-4", "--device", DEV]
+SLICE_LAYERS = 4
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def round_bound(theta, lam, bar_prev, wires, scales, e_sym, block_leaf):
+    """(bound_ms, bound_by, bytes, ops) of one fused round on these inputs:
+    each input read once, each output written once (theta', lam', bar and
+    the [J] residuals); about 17 + 4 deg f32 operations per element."""
+    j, total = theta.shape
+    deg = wires.shape[0]
+    read = sum(nbytes(t) for t in (theta, lam, bar_prev, wires, scales,
+                                   e_sym, block_leaf)) + 3 * 4 * j
+    written = nbytes(theta) + nbytes(lam) + 4 * j * total + 2 * 4 * j
+    ops = j * total * (17 + 4 * deg)
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), read + written, ops
+
+
+def time_cuda(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_profile(prof, top_n: int = 8):
+    """From a CUDA-activity profile: the fused kernel's launch times in
+    order (ms), the device's busy ms (the union of every kernel, copy and
+    set on the card), device ms by kernel family, and the ``top_n`` kernel
+    names by device time with their counts."""
+    from torch.autograd import DeviceType
+    spans, per_name, fused = [], {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end        # us
+        spans.append((t0, t1))
+        n, ms = per_name.get(ev.name, (0, 0.0))
+        per_name[ev.name] = (n + 1, ms + (t1 - t0) / 1e3)
+        if KERNEL_NAME in ev.name:
+            fused.append((t0, (t1 - t0) / 1e3))
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    families = {"consensus_round": 0.0, "gemm": 0.0, "copy/set": 0.0,
+                "other": 0.0}
+    for name, (_, ms) in per_name.items():
+        low = name.lower()
+        fam = ("consensus_round" if KERNEL_NAME in name
+               else "copy/set" if low.startswith(("memcpy", "memset"))
+               else "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
+                                                     "cutlass", "sm90_"))
+               else "other")
+        families[fam] += ms
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    return [ms for _, ms in sorted(fused)], busy / 1e3, families, top
+
+
+def bf16_ulp_ok(a, b) -> bool:
+    """Every element of bf16 ``a`` within one bf16 ulp of ``b``."""
+    import torch
+    af, bf = a.float(), b.float()
+    _, e = torch.frexp(bf)
+    ulp = torch.ldexp(torch.ones_like(bf), e - 8)   # 8 significand bits
+    return bool(((af - bf).abs() <= ulp).all())
+
+
+def compare(name, k_out, r_out, theta_dtype):
+    """Hold kernel outputs against the plain version's; returns max abs err
+    over theta', lam' and bar."""
+    import torch
+    tn_k, ln_k, bar_k, rsq_k, ssq_k = k_out
+    tn_r, ln_r, bar_r, rsq_r, ssq_r = r_out
+    if theta_dtype == torch.bfloat16:
+        check(bf16_ulp_ok(tn_k, tn_r), f"{name}: theta' beyond one bf16 ulp")
+    else:
+        check(torch.allclose(tn_k, tn_r, rtol=1e-5, atol=1e-6),
+              f"{name}: theta' mismatch")
+    # lam' and bar: float32 round-off (FMA contraction would be ~1 ulp)
+    check(torch.allclose(ln_k, ln_r, rtol=1e-5, atol=1e-6),
+          f"{name}: lam' mismatch")
+    check(torch.allclose(bar_k, bar_r, rtol=1e-5, atol=1e-6),
+          f"{name}: bar mismatch")
+    # r^2, s^2: summation order inside a block differs
+    check(torch.allclose(rsq_k, rsq_r, rtol=1e-4, atol=0),
+          f"{name}: r_sq {rsq_k.tolist()} vs {rsq_r.tolist()}")
+    check(torch.allclose(ssq_k, ssq_r, rtol=1e-4, atol=0),
+          f"{name}: s_sq {ssq_k.tolist()} vs {ssq_r.tolist()}")
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in ((tn_k, tn_r), (ln_k, ln_r), (bar_k, bar_r)))
+
+
+def make_round_inputs(layout, j, offsets, theta_dtype, codec_name, seed):
+    """A round's inputs on the card for ``layout``: node params ~N(0, 0.02)
+    in the packed layout (zero padding), duals and last means nearby, the
+    wire encoded by the codec and rolled once per offset (copies)."""
+    import torch
+    from repro_torch import wire as wire_lib
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    total = layout.total
+    mask = torch.zeros(total, dtype=torch.bool, device=dev)
+    for lf in layout.leaves:
+        mask[lf.offset:lf.offset + lf.size] = True
+    theta = torch.randn(j, total, generator=g, device=dev).mul_(0.02) \
+        .mul_(mask).to(theta_dtype)
+    lam = torch.randn(j, total, generator=g, device=dev).mul_(1e-3) \
+        .mul_(mask)
+    bar_prev = torch.randn(j, total, generator=g, device=dev).mul_(1e-3) \
+        .add_(theta.float()).mul_(mask)
+    codec = wire_lib.get_codec(codec_name, layout)
+    wire = codec.encode(theta)
+    rolled = torch.stack([torch.roll(wire, -off, 0) for off in offsets])
+    del wire
+    payload, scales = codec.decode(rolled)
+    wires = payload.contiguous()
+    del rolled, payload
+    deg = len(offsets)
+    if scales is None:
+        scales = torch.ones(deg, j, layout.num_leaves, device=dev)
+    e_sym = 0.05 + 0.2 * torch.rand(deg, j, generator=g, device=dev)
+    eta_sum = e_sym.sum(0)
+    alpha = 0.5 / (1.0 + 2.0 * eta_sum)
+    eta_node = eta_sum / deg
+    block_leaf = torch.as_tensor(layout.block_leaf, dtype=torch.int32,
+                                 device=dev)
+    return (theta, lam, bar_prev, wires, scales.contiguous(), e_sym, alpha,
+            eta_sum, eta_node, block_leaf)
+
+
+def kernel_case(name, layout, j, offsets, theta_dtype, codec_name, seed):
+    """Phase 3: one shape, kernel vs plain version, both timed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args = make_round_inputs(layout, j, offsets, theta_dtype, codec_name,
+                             seed)
+    theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum, eta_node, \
+        block_leaf = args
+    kw = dict(block_leaf=block_leaf, block_size=layout.block_size)
+    rest = (wires, scales, e_sym, alpha, eta_sum, eta_node)
+    r_out = ref.consensus_round_ref(theta, lam, bar_prev, *rest, **kw)
+    k_out = ops.consensus_round(theta.clone(), lam.clone(), bar_prev.clone(),
+                                *rest, **kw)
+    torch.cuda.synchronize()
+    err = compare(name, k_out, r_out, theta_dtype)
+    del k_out, r_out
+    tk, lk, bk = theta.clone(), lam.clone(), bar_prev.clone()
+    k_ms = time_cuda(lambda: ops.consensus_round(tk, lk, bk, *rest, **kw),
+                     reps=20)
+    del tk, lk, bk
+    p_ms = time_cuda(lambda: ref.consensus_round_ref(theta, lam, bar_prev,
+                                                     *rest, **kw), reps=10)
+    bound_ms, by, nb, _ = round_bound(theta, lam, bar_prev, wires, scales,
+                                      e_sym, block_leaf)
+    print(f"kernel {name}: J={j} deg={len(offsets)} total={layout.total} "
+          f"max_abs_err={err:.3g} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({by}, {nb / 1e9:.3f} GB)", flush=True)
+
+
+def full_shape_check(layout, offsets):
+    """Phase 5: the kernel at the slice's own shape, and the plain version
+    over block-aligned column chunks of the same inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    j = 2
+    args = make_round_inputs(layout, j, offsets, torch.bfloat16, "native",
+                             seed=5)
+    theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum, eta_node, \
+        block_leaf = args
+    bound_ms, by, nb, _ = round_bound(theta, lam, bar_prev, wires, scales,
+                                      e_sym, block_leaf)
+    rest = (scales, e_sym, alpha, eta_sum, eta_node)
+    kw = dict(block_leaf=block_leaf, block_size=layout.block_size)
+    tk, lk, bk = theta.clone(), lam.clone(), bar_prev.clone()
+    k_out = ops.consensus_round(tk, lk, bk, wires, *rest, **kw)
+    torch.cuda.synchronize()
+
+    bs = layout.block_size
+    chunk = 1024 * bs
+    rsq = torch.zeros(j, device=DEV)
+    ssq = torch.zeros(j, device=DEV)
+    err = 0.0
+    t_plain = 0.0
+    for c0 in range(0, layout.total, chunk):
+        c1 = min(c0 + chunk, layout.total)
+        sl = slice(c0, c1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = ref.consensus_round_ref(
+            theta[:, sl], lam[:, sl], bar_prev[:, sl], wires[:, :, sl],
+            scales, e_sym, alpha, eta_sum, eta_node,
+            block_leaf=block_leaf[c0 // bs:c1 // bs], block_size=bs)
+        b.record()
+        torch.cuda.synchronize()
+        t_plain += a.elapsed_time(b)
+        tn_r, ln_r, bar_r, r_c, s_c = out
+        check(bf16_ulp_ok(k_out[0][:, sl], tn_r), "full: theta' beyond ulp")
+        check(torch.allclose(k_out[1][:, sl], ln_r, rtol=1e-5, atol=1e-6),
+              "full: lam' mismatch")
+        check(torch.allclose(k_out[2][:, sl], bar_r, rtol=1e-5, atol=1e-6),
+              "full: bar mismatch")
+        err = max(err, *(float((x[:, sl].float() - y.float()).abs().max())
+                         for x, y in zip(k_out[:3], out[:3])))
+        rsq += r_c
+        ssq += s_c
+        del out
+    check(torch.allclose(k_out[3], rsq, rtol=1e-4), "full: r_sq mismatch")
+    check(torch.allclose(k_out[4], ssq, rtol=1e-4), "full: s_sq mismatch")
+    k_ms = time_cuda(lambda: ops.consensus_round(tk, lk, bk, wires, *rest,
+                                                 **kw), reps=10)
+    print(f"kernel full shape: J={j} deg={len(offsets)} total={layout.total}"
+          f" max_abs_err={err:.3g} kernel {k_ms:.3f} ms, plain (chunked) "
+          f"{t_plain:.3f} ms, bound {bound_ms:.3f} ms ({by}, "
+          f"{nb / 1e9:.3f} GB)", flush=True)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=t_plain,
+                bound_ms=bound_ms, bound_by=by)
+
+
+def agree_with_cpu(steps: int = 6) -> None:
+    """Reduced qwen3-4b, float32: losses, r_max and eta per round on the
+    card equal the CPU run's to rtol 1e-3 (float32 matmul round-off; TF32
+    is off)."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.penalty import PenaltyConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    params1 = model.init(torch.Generator().manual_seed(0), "cpu")
+    traces = {}
+    for dev in (DEV, "cpu"):
+        tr = ConsensusTrainer(
+            model, num_nodes=2, device=dev, adamw=AdamWConfig(lr=1e-2),
+            consensus=ConsensusConfig(
+                penalty=PenaltyConfig(scheme="nap", eta0=0.1),
+                topology="ring", local_steps=2))
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          batch_per_node=4, num_nodes=2),
+                               device=dev)
+        state = tr.init_state(params1)
+        trace = []
+        for step in range(steps):
+            state, m = tr.train_step(state, data.batch(step))
+            trace.append(float(m["loss"]))
+            if tr.should_sync(step):
+                state, cm = tr.consensus_step(state, data.batch(10**6 + step))
+                trace += [float(cm["r_max"]), float(cm["eta_mean"])]
+        traces[dev] = np.asarray(trace)
+    card, cpu = traces[DEV], traces["cpu"]
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    check(bool(np.all(np.isfinite(card))) and rel < 1e-3,
+          f"card vs cpu trace: {card.tolist()} vs {cpu.tolist()}")
+    print(f"agree: reduced float32 trainer, {steps} steps, card vs cpu "
+          f"max relative difference {rel:.3g}", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import stacked_defs
+    from repro_torch.optim.flatten import FlatLayout
+
+    # -- 1. card ----------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    card_line = smi[0].strip()
+    print(card_line, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # -- 2. build ---------------------------------------------------------
+    built = build.build("consensus_round")
+    print(f"build: consensus_round {built['seconds']:.2f} s", flush=True)
+    for ln in built["log"].splitlines():
+        if "registers" in ln or "spill" in ln:
+            print(f"  consensus_round: {ln.strip()}")
+
+    # -- 3. kernel vs plain version at three shapes -------------------------
+    full = get_config("qwen3-4b")
+    one_layer = stacked_defs(dataclasses.replace(full, n_layers=1),
+                             torch.bfloat16)["blocks"]
+    lay_layer = FlatLayout.for_tree(one_layer, block_size=65536,
+                                    node_axis=False)
+    lay_attn = FlatLayout.for_tree(one_layer["attn"], block_size=65536,
+                                   node_axis=False)
+    kernel_case("bf16/native", lay_layer, 2, [1], torch.bfloat16, "native",
+                seed=1)
+    kernel_case("bf16/int8", lay_layer, 2, [1], torch.bfloat16, "int8",
+                seed=2)
+    kernel_case("J4/deg2", lay_attn, 4, [1, 3], torch.bfloat16, "native",
+                seed=3)
+    torch.cuda.empty_cache()
+
+    # -- 4. the slice -----------------------------------------------------
+    cfg = dataclasses.replace(full, n_layers=SLICE_LAYERS)
+    args = train_lib.parse_args(SLICE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    ops.consensus_round.launches = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t0 = time.perf_counter()
+        record = train_lib.run(cfg, args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.consensus_round.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    in_round, busy_ms, families, top = device_profile(prof)
+    del prof
+    losses, rounds = record["losses"], record["rounds"]
+    n_rounds = args.steps // args.local_steps
+    check(len(losses) == args.steps and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(len(rounds) == n_rounds, f"{len(rounds)} rounds, want {n_rounds}")
+    for r in rounds:
+        check(math.isfinite(r["r_max"]) and math.isfinite(r["eta_mean"]),
+              f"round metrics {r}")
+    check(any(abs(r["eta_mean"] - args.eta0) > 1e-6 for r in rounds),
+          "nap never moved eta off eta0")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == n_rounds,
+          f"consensus_round launched {launches} times in {n_rounds} rounds")
+    check(len(in_round) == n_rounds,
+          f"the trace holds {len(in_round)} {KERNEL_NAME} launches, "
+          f"want {n_rounds}")
+    layout = record["layout"]
+    deg = 1
+    main_bound = (2 * layout.total * (2 + 4 + 4 + 2 * deg)
+                  + 2 * layout.total * (2 + 4 + 4)) / HBM_BYTES_PER_S * 1e3
+    print(f"slice: {cfg.arch_id} x{SLICE_LAYERS} layers at full width, "
+          f"{build_model(cfg).param_count()} parameters per node, "
+          f"{layout.total} elements per node row, {len(rounds)} rounds, "
+          f"launches {launches}", flush=True)
+    print("slice step seconds: "
+          + " ".join(f"{t:.3f}" for t in record["step_seconds"]), flush=True)
+    print("slice losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print("slice rounds: " + json.dumps(rounds), flush=True)
+    print(f"slice kernel in rounds: median {np.median(in_round):.3f} ms "
+          f"(each {', '.join(f'{t:.3f}' for t in in_round)}), "
+          f"bound {main_bound:.3f} ms; peak memory {peak_gb:.2f} GB "
+          f"[{card_line}]", flush=True)
+    print(f"slice trace: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms,"
+          f" idle share {1 - busy_ms / wall_ms:.4f}; device ms by family: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in families.items()),
+          flush=True)
+    for name, (n, ms) in top:
+        print(f"  {ms:10.1f} ms {n:6d}x  {name[:110]}")
+    del record
+    torch.cuda.empty_cache()
+
+    # -- 4b. the same trainer on the card and on the CPU -------------------
+    agree_with_cpu()
+
+    # -- 5. the kernel at the slice's own shape ---------------------------
+    full_numbers = full_shape_check(layout, offsets=[1])
+
+    kernels = [{
+        "name": "consensus_round", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/consensus_round.cu",
+        "replaces": "src/repro/kernels/consensus_update.py:141",
+        "launches": launches,
+        "max_abs_err": full_numbers["max_abs_err"],
+        "ms": full_numbers["ms"],
+        "plain_ms": full_numbers["plain_ms"],
+        "bound_ms": full_numbers["bound_ms"],
+        "bound_by": full_numbers["bound_by"],
+        "library_ms": None,
+        "in_round_ms": float(np.median(in_round)),
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

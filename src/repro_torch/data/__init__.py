@@ -1,0 +1,4 @@
+"""Synthetic token data."""
+from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+
+__all__ = ["DataConfig", "SyntheticTokens"]

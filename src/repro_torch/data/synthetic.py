@@ -1,0 +1,65 @@
+"""Deterministic synthetic token pipeline (port of
+``repro/data/synthetic.py``).
+
+Batches are pure in (seed, step, node) and drawn with numpy exactly as the
+reference draws them, so both packages see identical tokens and labels. The
+"corpus" is Zipf-ish with induced bigram structure so that cross-entropy
+actually falls during smoke training.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    seq_len: int
+    batch_per_node: int
+    num_nodes: int = 1
+    seed: int = 0
+    zipf_a: float = 1.2
+
+
+def _zipf_probs(vocab: int, a: float) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-a)
+    return (p / p.sum()).astype(np.float32)
+
+
+class SyntheticTokens:
+    """Stateless batch source: batch(step) is pure in (seed, step, node)."""
+
+    def __init__(self, cfg: DataConfig, *, device: torch.device | str,
+                 dtype: torch.dtype = torch.int64):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self._probs = _zipf_probs(cfg.vocab, cfg.zipf_a)
+
+    def batch_numpy(self, step: int, *, probe: bool = False) -> dict:
+        """{tokens, labels: [J, B, S] int32} as the reference draws them."""
+        cfg = self.cfg
+        domain = 1_000_003 if probe else 0
+        out_tok = np.empty((cfg.num_nodes, cfg.batch_per_node, cfg.seq_len),
+                           np.int32)
+        for node in range(cfg.num_nodes):
+            rng = np.random.default_rng(
+                (cfg.seed * 7_919 + domain + node) * 2_654_435_761 + step)
+            toks = rng.choice(cfg.vocab, p=self._probs,
+                              size=(cfg.batch_per_node, cfg.seq_len))
+            # induced bigram structure: every even position hints the next
+            toks[:, 1::2] = (toks[:, 0::2] * 31 + 7) % cfg.vocab
+            out_tok[node] = toks
+        labels = np.roll(out_tok, -1, axis=-1)
+        labels[:, :, -1] = -1                      # masked final position
+        return {"tokens": out_tok, "labels": labels}
+
+    def batch(self, step: int, *, probe: bool = False) -> dict:
+        """{tokens, labels: [J, B, S]} tensors on the source's device."""
+        return {k: torch.from_numpy(v).to(device=self.device,
+                                          dtype=self.dtype)
+                for k, v in self.batch_numpy(step, probe=probe).items()}

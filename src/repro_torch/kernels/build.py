@@ -1,0 +1,86 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``build/kernels/<name>-<hash>.so`` at the repository root (the hash
+covers the source and the flags, so an edited source is never served from a
+stale library). Nothing is compiled when this module is imported: the first
+call that needs a kernel builds it.
+
+There is no fallback: without ``nvcc`` (or without a card) a kernel cannot
+be built, and the caller gets an error saying so.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# sm_90a (not sm_90): Hopper's full target. -fmad=false: round after every
+# multiply and add, as the plain PyTorch versions do (see the sources).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels under src/repro_torch/kernels/csrc "
+        "are compiled at first use and need the CUDA toolkit (nvcc on PATH "
+        "or under /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+
+    Returns {"path", "seconds", "log"}, where ``log`` is nvcc's output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel); a
+    library that was already built reports 0 seconds and no log.
+    """
+    path = library_path(name)
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "log": ""}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile into a file of this process, then rename: a reader never sees
+    # a half-written library
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: nvcc exited "
+                           f"{proc.returncode} on {name}.cu\n{log}")
+    os.replace(tmp, path)
+    return {"path": str(path), "seconds": seconds, "log": log}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(build(name)["path"])
+    return lib

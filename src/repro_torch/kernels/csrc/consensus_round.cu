@@ -1,0 +1,247 @@
+// Fused consensus-ADMM round over the flat [J, total] buffers, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel `_round_kernel` in
+// src/repro/kernels/consensus_update.py:141 (reached from `consensus_round`
+// at :380, the ungated path; the whole-row `_row_kernel` at :175 is the
+// same function under another TPU tiling and needs no kernel of its own).
+//
+// For node i, layout block b and graph offsets d = 0..deg-1:
+//   x_d    = float(wire[d, i, :]) * scales[d, i, block_leaf[b]]
+//   nbr_w  = sum_d e_sym[d, i] * x_d        nbr_p = sum_d x_d  (increasing d)
+//   bar    = nbr_p * (1 / deg)              nbr   = nbr_w / max(eta_sum, 1e-12)
+//   theta' = theta - alpha (2 lam + eta_sum (theta - nbr))
+//   lam'   = lam + (0.5 eta_sum) (theta' - nbr)
+//   rsq[i, b] = sum (theta' - bar)^2               (f32 theta', before rounding)
+//   ssq[i, b] = eta_node^2 * sum (bar - bar_prev)^2
+// theta' is stored in theta's dtype over theta, lam' over lam and bar (f32)
+// over bar_prev: each element is read and then written by the same thread,
+// so the update is safe in place. The wires must not alias any of them.
+// block_leaf holds ids in [0, nleaves): the flat layout's table does by
+// construction, and its owner checks it once where it builds the table.
+//
+// Bound. Every element is touched once: read theta (2 B bf16), lam (4 B),
+// bar_prev (4 B) and deg wire rows (2 B bf16 or 1 B int8 each); write
+// theta' (2 B), lam' (4 B) and bar (4 B). At the trainer's full-width
+// qwen3-4b shape (J = 2, deg = 1, bf16 theta and wire, 1,181,941,760
+// elements per row) that is 22 B/element, about 52.0 GB per round, or about
+// 15.5 ms at the H100's 3.35 TB/s. The arithmetic (about 20 f32 operations
+// per element) is far below the card's rate, so the kernel is bound by the
+// bytes it moves and nothing else.
+//
+// Design. A first, simple, memory-bound version: grid (nblocks, J), one CUDA
+// block of 256 threads per (layout block, node). Each thread walks its block
+// with 16-byte vector loads (8 elements per step), keeps nothing but the
+// running residual partials, and the block reduces them with warp shuffles
+// and shared memory into the [J, nblocks] partials; the wrapper sums those
+// per node. The TPU kept the per-node scalars and the block->leaf table in
+// SMEM via scalar prefetch; here each block reads its leaf id and scalars
+// once from device memory. Tens of thousands of blocks of 64k elements give
+// every SM plenty of independent loads in flight, which is what a streaming
+// kernel needs; TMA pipelines or persistent blocks are later work.
+//
+// The file is compiled with -fmad=false so that the kernel rounds after
+// every multiply and add exactly as the plain PyTorch version does; the cost
+// is nil for a kernel bound by memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVec = 8;  // elements per thread per step: 16 B of bf16
+
+struct RoundArgs {
+  const void* wires;       // [deg, J, total], theta's dtype or int8
+  const float* scales;     // [deg, J, nleaves]
+  const int* block_leaf;   // [nblocks]
+  const float* e_sym;      // [deg, J]
+  const float* alpha;      // [J]
+  const float* eta_sum;    // [J]
+  const float* eta_node;   // [J]
+  void* theta;             // [J, total] in/out
+  float* lam;              // [J, total] in/out
+  float* bar;              // [J, total] in: bar_prev, out: bar
+  float* rsq;              // [J, nblocks] out
+  float* ssq;              // [J, nblocks] out
+  long long total;
+  int J;
+  int deg;
+  int block_size;
+  int nleaves;
+};
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    out[2 * k] = f.x;
+    out[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = static_cast<float>(c[k]);
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// TT: theta's type (float or bf16); WT: the wire's (TT or int8).
+// DEG > 0 unrolls the offset loop at compile time; DEG == 0 loops over
+// a.deg at run time.
+template <typename TT, typename WT, int DEG>
+__global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundArgs a) {
+  const int deg = DEG > 0 ? DEG : a.deg;
+  const int b = blockIdx.x;
+  const int i = blockIdx.y;
+  const int nblocks = gridDim.x;
+  const int leaf = a.block_leaf[b];
+  const float alpha = a.alpha[i];
+  const float eta_sum = a.eta_sum[i];
+  const float eta_node = a.eta_node[i];
+  const float eta_div = fmaxf(eta_sum, 1e-12f);
+  const float half_eta = 0.5f * eta_sum;
+  const float inv_deg = 1.0f / static_cast<float>(deg);
+  const long long row = static_cast<long long>(i) * a.total
+                        + static_cast<long long>(b) * a.block_size;
+  const long long wire_stride = static_cast<long long>(a.J) * a.total;
+
+  TT* theta = static_cast<TT*>(a.theta) + row;
+  float* lam = a.lam + row;
+  float* bar = a.bar + row;
+  const WT* wires = static_cast<const WT*>(a.wires) + row;
+
+  float r_acc = 0.0f, s_acc = 0.0f;
+  for (int e0 = threadIdx.x * kVec; e0 < a.block_size; e0 += kThreads * kVec) {
+    float th[kVec], lm[kVec], bp[kVec];
+    float nw[kVec], np[kVec];
+    load8(theta + e0, th);
+    load8(lam + e0, lm);
+    load8(bar + e0, bp);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) { nw[k] = 0.0f; np[k] = 0.0f; }
+    // deg is a compile-time constant when DEG > 0, and the loop unrolls
+#pragma unroll 4
+    for (int d = 0; d < deg; ++d) {
+      const float sc = a.scales[(static_cast<long long>(d) * a.J + i) * a.nleaves + leaf];
+      const float ew = a.e_sym[d * a.J + i];
+      float x[kVec];
+      load8(wires + d * wire_stride + e0, x);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float xv = x[k] * sc;
+        nw[k] = nw[k] + ew * xv;
+        np[k] = np[k] + xv;
+      }
+    }
+    float tn[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float barv = np[k] * inv_deg;
+      const float nbr = nw[k] / eta_div;
+      tn[k] = th[k] - alpha * (2.0f * lm[k] + eta_sum * (th[k] - nbr));
+      lm[k] = lm[k] + half_eta * (tn[k] - nbr);
+      const float dr = tn[k] - barv;
+      r_acc = r_acc + dr * dr;
+      const float db = barv - bp[k];
+      s_acc = s_acc + db * db;
+      bp[k] = barv;
+    }
+    store8(theta + e0, tn);
+    store8(lam + e0, lm);
+    store8(bar + e0, bp);
+  }
+
+  __shared__ float red[2][kThreads / 32];
+  r_acc = warp_sum(r_acc);
+  s_acc = warp_sum(s_acc);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[0][warp] = r_acc;
+    red[1][warp] = s_acc;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    r_acc = lane < kThreads / 32 ? red[0][lane] : 0.0f;
+    s_acc = lane < kThreads / 32 ? red[1][lane] : 0.0f;
+    r_acc = warp_sum(r_acc);
+    s_acc = warp_sum(s_acc);
+    if (lane == 0) {
+      const long long p = static_cast<long long>(i) * nblocks + b;
+      a.rsq[p] = r_acc;
+      a.ssq[p] = (eta_node * eta_node) * s_acc;
+    }
+  }
+}
+
+template <typename TT, typename WT>
+void launch_typed(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
+  switch (a.deg) {
+    case 1: consensus_round_kernel<TT, WT, 1><<<grid, kThreads, 0, stream>>>(a); break;
+    case 2: consensus_round_kernel<TT, WT, 2><<<grid, kThreads, 0, stream>>>(a); break;
+    case 3: consensus_round_kernel<TT, WT, 3><<<grid, kThreads, 0, stream>>>(a); break;
+    case 4: consensus_round_kernel<TT, WT, 4><<<grid, kThreads, 0, stream>>>(a); break;
+    default: consensus_round_kernel<TT, WT, 0><<<grid, kThreads, 0, stream>>>(a); break;
+  }
+}
+
+}  // namespace
+
+// theta_kind: 0 = float32, 1 = bfloat16.  wire_kind: 0 = theta's dtype,
+// 1 = int8. Returns a cudaError_t: the launch's own (cudaGetLastError) or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int consensus_round_launch(
+    int theta_kind, int wire_kind, int J, int deg, long long total,
+    int block_size, int nleaves, const void* wires, const float* scales,
+    const int* block_leaf, const float* e_sym, const float* alpha,
+    const float* eta_sum, const float* eta_node, void* theta, float* lam,
+    float* bar, float* rsq, float* ssq, void* stream) {
+  if (J < 1 || J > 65535 || deg < 1 || block_size < kVec
+      || block_size % kVec != 0 || total % block_size != 0 || nleaves < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nblocks = total / block_size;
+  if (nblocks < 1 || nblocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RoundArgs a{wires, scales, block_leaf, e_sym, alpha, eta_sum, eta_node,
+              theta, lam, bar, rsq, ssq, total, J, deg, block_size, nleaves};
+  const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(J));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (theta_kind == 0 && wire_kind == 0) launch_typed<float, float>(a, grid, st);
+  else if (theta_kind == 0 && wire_kind == 1) launch_typed<float, int8_t>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 0) launch_typed<__nv_bfloat16, __nv_bfloat16>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 1) launch_typed<__nv_bfloat16, int8_t>(a, grid, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,54 @@
+"""Public wrappers of the port's kernels.
+
+A tensor's device picks the path, nothing else: CPU tensors go to the plain
+PyTorch version in ``kernels/ref.py``; CUDA tensors go to the hand-written
+kernel, or the call raises. No path falls back to the other.
+
+Each wrapper counts its kernel launches in a plain integer attribute
+(``consensus_round.launches``), so that a run can show that it went through
+the kernel.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import consensus_update as _cu
+from repro_torch.kernels import ref as _ref
+
+
+def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
+                    alpha, eta_sum, eta_node, *, block_leaf, block_size: int):
+    """Whole-round fused consensus update over the flat buffer (the ungated
+    round of ``repro.kernels.ops.consensus_round``).
+
+    Args:
+      theta: [J, total] f32 or bf16 node parameters (total = blocks * bs).
+      lam, bar_prev: [J, total] f32 duals and last round's neighbor means.
+      wires: [deg, J, total] rolled wire payloads, theta's dtype or int8;
+        row d holds theta_{(i+off_d) % J} at node i.
+      scales: [deg, J, L] f32 per-leaf dequant scales (ones for a native
+        wire).
+      e_sym: [deg, J] f32 symmetrized per-edge penalties.
+      alpha, eta_sum, eta_node: [J] f32 per-node scalars.
+      block_leaf: [num_blocks] int32 owning leaf id per block (the layout
+        table); every id must lie in [0, L), which the caller checks once
+        where it builds the table.
+      block_size: elements per block; must divide total.
+
+    Returns (theta_new [J, total], lam_new [J, total], bar [J, total] f32,
+    r_sq [J], s_sq [J]). On a CUDA tensor the kernel writes theta_new, lam_new
+    and bar IN PLACE over theta, lam and bar_prev and returns those tensors;
+    on the CPU the plain version returns new tensors.
+    """
+    dev = theta.device
+    if dev.type == "cpu":
+        return _ref.consensus_round_ref(
+            theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
+            eta_node, block_leaf=block_leaf, block_size=block_size)
+    if dev.type != "cuda":
+        raise ValueError(f"consensus_round: no kernel for device {dev}")
+    rsq, ssq = _cu.launch(theta, lam, bar_prev, wires, scales, e_sym, alpha,
+                          eta_sum, eta_node, block_leaf, block_size)
+    consensus_round.launches += 1
+    return theta, lam, bar_prev, rsq.sum(dim=1), ssq.sum(dim=1)
+
+
+consensus_round.launches = 0

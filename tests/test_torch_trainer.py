@@ -1,0 +1,188 @@
+"""The port's sync consensus trainer against the reference ConsensusTrainer.
+
+A subprocess runs the reference on a (2, 1, 1) ("pod", "data", "model") mesh
+of two fake CPU devices: reduced qwen3-4b in float32, nap, ring,
+local_steps=2, 6 steps, the fused Pallas round (interpret mode), plus one
+int8-wire round. It saves the initial parameters and the per-step losses,
+r_max and eta. The port runs the same schedule in-process from the
+transplanted parameters.
+
+Tolerances: the two frameworks round float32 matmuls and transcendentals
+differently at the last bit, and six steps of AdamW carry that forward, so
+losses hold to rtol 1e-4 and the round metrics (a square root of a sum over
+every parameter, and the penalties that follow from the probes) to rtol
+1e-3.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.core.penalty import PenaltyConfig
+from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.models import build_model
+from repro_torch.models.params import from_jax
+from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+from repro_torch.optim.adamw import AdamWConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 6
+
+_REFERENCE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import dataclasses
+import jax, numpy as np
+from repro.configs import get_reduced_config
+from repro.core.penalty import PenaltyConfig
+from repro.data import DataConfig, SyntheticTokens
+from repro.launch.mesh import make_mesh
+from repro.models import build_model
+from repro.optim import ConsensusConfig, ConsensusTrainer
+from repro.optim.adamw import AdamWConfig
+
+out_path, steps = sys.argv[1], int(sys.argv[2])
+cfg = dataclasses.replace(get_reduced_config("qwen3-4b"), dtype="float32")
+model = build_model(cfg)
+mesh = make_mesh((2, 1, 1), ("pod", "data", "model"))
+data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  batch_per_node=4, num_nodes=2))
+
+
+def trainer(codec):
+    return ConsensusTrainer(model, mesh, adamw=AdamWConfig(lr=1e-2),
+                            consensus=ConsensusConfig(
+                                penalty=PenaltyConfig(scheme="nap", eta0=0.1),
+                                topology="ring", local_steps=2,
+                                wire_codec=codec, use_fused_kernel=True))
+
+
+tr = trainer("native")
+state = tr.init_state(jax.random.PRNGKey(0))
+out = {}
+for path, leaf in jax.tree_util.tree_flatten_with_path(state.params)[0]:
+    out["p/" + "/".join(k.key for k in path)] = np.asarray(leaf[0])
+train, cons = jax.jit(tr.train_step), jax.jit(tr.consensus_step)
+losses, r_max, eta = [], [], []
+for step in range(steps):
+    state, m = train(state, data.batch(step))
+    losses.append(float(m["loss"]))
+    if tr.should_sync(step):
+        state, cm = cons(state, data.batch(10**6 + step))
+        r_max.append(float(cm["r_max"]))
+        eta.append(float(cm["eta_mean"]))
+out.update(losses=np.asarray(losses), r_max=np.asarray(r_max),
+           eta=np.asarray(eta), eta_final=np.asarray(state.penalty.eta))
+
+tr8 = trainer("int8")
+st8 = tr8.init_state(jax.random.PRNGKey(0))
+st8, m8 = jax.jit(tr8.train_step)(st8, data.batch(0))
+st8, cm8 = jax.jit(tr8.consensus_step)(st8, data.batch(10**6))
+out.update(int8_loss=float(m8["loss"]), int8_r_max=float(cm8["r_max"]),
+           int8_s_max=float(cm8["s_max"]), int8_eta=float(cm8["eta_mean"]))
+np.savez(out_path, **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ref") / "trainer.npz"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _REFERENCE, str(path),
+                           str(STEPS)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _transplanted(ref):
+    tree = {}
+    for key, arr in ref.items():
+        if key.startswith("p/"):
+            node = tree
+            *parents, leaf = key[2:].split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = arr
+    return from_jax(tree)
+
+
+def _trainer(codec: str):
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    tr = ConsensusTrainer(
+        model, num_nodes=2, device="cpu", adamw=AdamWConfig(lr=1e-2),
+        consensus=ConsensusConfig(
+            penalty=PenaltyConfig(scheme="nap", eta0=0.1), topology="ring",
+            local_steps=2, wire_codec=codec))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      batch_per_node=4, num_nodes=2),
+                           device="cpu")
+    return tr, data
+
+
+def test_trainer_trajectory_matches_reference(reference):
+    tr, data = _trainer("native")
+    state = tr.init_state(_transplanted(reference))
+    losses, r_max, eta = [], [], []
+    for step in range(STEPS):
+        state, m = tr.train_step(state, data.batch(step))
+        losses.append(float(m["loss"]))
+        if tr.should_sync(step):
+            state, cm = tr.consensus_step(state, data.batch(10**6 + step))
+            r_max.append(float(cm["r_max"]))
+            eta.append(float(cm["eta_mean"]))
+    assert len(r_max) == STEPS // 2
+    np.testing.assert_allclose(losses, reference["losses"], rtol=1e-4)
+    np.testing.assert_allclose(r_max, reference["r_max"], rtol=1e-3)
+    np.testing.assert_allclose(eta, reference["eta"], rtol=1e-3)
+    np.testing.assert_allclose(state.penalty.eta.numpy(),
+                               reference["eta_final"], rtol=1e-3)
+    # nap moved the penalties off eta0
+    assert np.any(np.abs(np.asarray(eta) - 0.1) > 1e-6)
+
+
+def test_int8_wire_round_matches_reference(reference):
+    tr, data = _trainer("int8")
+    state = tr.init_state(_transplanted(reference))
+    state, m = tr.train_step(state, data.batch(0))
+    state, cm = tr.consensus_step(state, data.batch(10**6))
+    np.testing.assert_allclose(float(m["loss"]), reference["int8_loss"],
+                               rtol=1e-5)
+    for k in ("r_max", "s_max"):
+        np.testing.assert_allclose(float(cm[k]), reference[f"int8_{k}"],
+                                   rtol=1e-3, err_msg=k)
+    np.testing.assert_allclose(float(cm["eta_mean"]), reference["int8_eta"],
+                               rtol=1e-3)
+
+
+def test_launcher_runs_on_cpu(capsys):
+    from repro_torch.launch.train import main
+    assert main(["--reduced", "--steps", "4", "--local-steps", "2",
+                 "--device", "cpu", "--wire-codec", "int8"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("consensus r=") == 2
+
+
+def test_launcher_rejects_unported_flags():
+    from repro_torch.launch.train import parse_args
+    for flag in (["--async"], ["--obs-dir", "x"], ["--mesh", "debug"],
+                 ["--wire-codec", "fp8_e4m3"]):
+        with pytest.raises(SystemExit):
+            parse_args(flag)
+
+
+def test_trainer_rejects_non_circulant_topology():
+    cfg = get_reduced_config("qwen3-4b")
+    with pytest.raises(ValueError, match="circulant"):
+        ConsensusTrainer(build_model(cfg), num_nodes=4, device="cpu",
+                         adamw=AdamWConfig(),
+                         consensus=ConsensusConfig(topology="star"))
