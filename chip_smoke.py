@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
   1. card   — print the card's name and power limit; TF32 off.
-  2. build  — compile the path's CUDA kernel from src/repro_torch.
+  2. build  — compile the paths' CUDA kernels from src/repro_torch (one
+              source, both the ungated and the edge-gated round).
   3. kernel — hold ``consensus_round`` against its plain PyTorch version on
               the card at three shapes in working dtypes, with real qwen3-4b
               leaf structure: J=2/deg=1 bf16 native wire (one full-width
@@ -30,6 +31,31 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   5. full   — the kernel at the slice's own shape (1,181,941,760 elements
               per row) against the plain version run in block-aligned
               column chunks (whole, its f32 temporaries do not fit).
+  6. masked — the edge-gated kernel against its plain version at one
+              full-width layer's row (~101M elements): J=4, offsets 1, 2, 3,
+              bf16 native wire, gates mixed 0/1 with a ghost row (inv_deg 0)
+              and an offset dead for every node, with and without non-zero
+              kicks on gated edges, and once with an int8 wire. theta', lam'
+              and bar must equal the plain version's bit for bit.
+  7. dyn    — the dynamic-topology path: ``launch.train.run`` on qwen3-4b at
+              full width with depth cut from 36 to 1 layer, 3 nodes on a ring
+              (offsets 1, 2), nap, the budget scheduler, node 1 dropped after
+              step 3, 2 local steps, 8 steps, 4 x 512 tokens per node, lr
+              3e-4, under torch.profiler. Every round must launch the gated
+              kernel once and the ungated one never; node 1 is a ghost after
+              step 3 and the active edge fraction falls from 1.00 to 2/6.
+  7b. dagree — the reduced float32 trainer on the card against the CPU on a
+              dynamic topology: J=4, complete, round_robin with churn, node 1
+              dropped after step 3, so that edges gate and non-zero kicks
+              reach the kernel.
+  8. dfull  — the gated kernel at the dynamic slice's own shape (J=3,
+              offsets 1, 2, one layer's row) with kicks, against the plain
+              version in column chunks.
+  9. sdpa   — the library's attention (scaled_dot_product_attention with
+              GQA) at full-width qwen3-4b attention, 32/8 heads, head_dim
+              128, causal, 4 x 512 tokens: the library time beside the TPU
+              flash_attention kernel, which is not yet ported; and the
+              bounds of the other unported TPU kernels, from their shapes.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -52,13 +78,20 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 DEV = "cuda"
-KERNEL_NAME = "consensus_round_kernel"      # the CUDA kernel, in a trace
+KERNEL_NAME = "consensus_round_kernel"      # the CUDA kernels, in a trace
+MASKED_NAME = "consensus_round_masked_kernel"
 SLICE_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
               "--local-steps", "2", "--steps", "8", "--batch-per-node", "4",
               "--seq", "512", "--lr", "3e-4", "--device", DEV]
 SLICE_LAYERS = 4
+DYN_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
+            "--topo-scheduler", "budget", "--drop-node", "3:1",
+            "--local-steps", "2", "--steps", "8", "--batch-per-node", "4",
+            "--seq", "512", "--lr", "3e-4", "--device", DEV]
+DYN_LAYERS = 1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -70,16 +103,26 @@ def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def round_bound(theta, lam, bar_prev, wires, scales, e_sym, block_leaf):
+def round_bound(theta, lam, bar_prev, wires, scales, e_sym, block_leaf,
+                gates=None):
     """(bound_ms, bound_by, bytes, ops) of one fused round on these inputs:
     each input read once, each output written once (theta', lam', bar and
-    the [J] residuals); about 17 + 4 deg f32 operations per element."""
+    the [J] residuals); about 17 + 4 deg f32 operations per element, and
+    with ``gates`` (the gated round's keywords) 2 deg more for the gated
+    mean and, with a kick, 2 deg + 3 more."""
     j, total = theta.shape
     deg = wires.shape[0]
+    gates = gates or {}
     read = sum(nbytes(t) for t in (theta, lam, bar_prev, wires, scales,
-                                   e_sym, block_leaf)) + 3 * 4 * j
+                                   e_sym, block_leaf, *gates.values())) \
+        + 3 * 4 * j
     written = nbytes(theta) + nbytes(lam) + 4 * j * total + 2 * 4 * j
-    ops = j * total * (17 + 4 * deg)
+    per_elem = 17 + 4 * deg
+    if gates:
+        per_elem += 2 * deg
+    if "kick_w" in gates:
+        per_elem += 2 * deg + 3
+    ops = j * total * per_elem
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -103,11 +146,11 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def device_profile(prof, top_n: int = 8):
-    """From a CUDA-activity profile: the fused kernel's launch times in
-    order (ms), the device's busy ms (the union of every kernel, copy and
-    set on the card), device ms by kernel family, and the ``top_n`` kernel
-    names by device time with their counts."""
+def device_profile(prof, top_n: int = 8, kernel: str = KERNEL_NAME):
+    """From a CUDA-activity profile: the launch times in order (ms) of the
+    fused kernel named ``kernel``, the device's busy ms (the union of every
+    kernel, copy and set on the card), device ms by kernel family, and the
+    ``top_n`` kernel names by device time with their counts."""
     from torch.autograd import DeviceType
     spans, per_name, fused = [], {}, []
     for ev in prof.events():
@@ -117,7 +160,7 @@ def device_profile(prof, top_n: int = 8):
         spans.append((t0, t1))
         n, ms = per_name.get(ev.name, (0, 0.0))
         per_name[ev.name] = (n + 1, ms + (t1 - t0) / 1e3)
-        if KERNEL_NAME in ev.name:
+        if kernel in ev.name:
             fused.append((t0, (t1 - t0) / 1e3))
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
@@ -128,7 +171,8 @@ def device_profile(prof, top_n: int = 8):
                 "other": 0.0}
     for name, (_, ms) in per_name.items():
         low = name.lower()
-        fam = ("consensus_round" if KERNEL_NAME in name
+        fam = ("consensus_round" if (KERNEL_NAME in name
+                                     or MASKED_NAME in name)
                else "copy/set" if low.startswith(("memcpy", "memset"))
                else "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
                                                      "cutlass", "sm90_"))
@@ -239,20 +283,24 @@ def kernel_case(name, layout, j, offsets, theta_dtype, codec_name, seed):
           f"bound {bound_ms:.3f} ms ({by}, {nb / 1e9:.3f} GB)", flush=True)
 
 
-def full_shape_check(layout, offsets):
-    """Phase 5: the kernel at the slice's own shape, and the plain version
-    over block-aligned column chunks of the same inputs."""
+def full_shape_check(layout, j, offsets, gated=False, seed=5):
+    """Phases 5 and 8: the kernel (ungated, or gated with kicks) at a
+    slice's own shape, and the plain version over block-aligned column
+    chunks of the same inputs. The gated kernel must equal the plain
+    version bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
-    j = 2
     args = make_round_inputs(layout, j, offsets, torch.bfloat16, "native",
-                             seed=5)
+                             seed=seed)
+    gates = {}
+    if gated:
+        args, gates = gate_round_inputs(args, kick=True, seed=seed)
     theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum, eta_node, \
         block_leaf = args
     bound_ms, by, nb, _ = round_bound(theta, lam, bar_prev, wires, scales,
-                                      e_sym, block_leaf)
+                                      e_sym, block_leaf, gates)
     rest = (scales, e_sym, alpha, eta_sum, eta_node)
-    kw = dict(block_leaf=block_leaf, block_size=layout.block_size)
+    kw = dict(block_leaf=block_leaf, block_size=layout.block_size, **gates)
     tk, lk, bk = theta.clone(), lam.clone(), bar_prev.clone()
     k_out = ops.consensus_round(tk, lk, bk, wires, *rest, **kw)
     torch.cuda.synchronize()
@@ -272,16 +320,24 @@ def full_shape_check(layout, offsets):
         out = ref.consensus_round_ref(
             theta[:, sl], lam[:, sl], bar_prev[:, sl], wires[:, :, sl],
             scales, e_sym, alpha, eta_sum, eta_node,
-            block_leaf=block_leaf[c0 // bs:c1 // bs], block_size=bs)
+            block_leaf=block_leaf[c0 // bs:c1 // bs], block_size=bs,
+            **gates)
         b.record()
         torch.cuda.synchronize()
         t_plain += a.elapsed_time(b)
         tn_r, ln_r, bar_r, r_c, s_c = out
-        check(bf16_ulp_ok(k_out[0][:, sl], tn_r), "full: theta' beyond ulp")
-        check(torch.allclose(k_out[1][:, sl], ln_r, rtol=1e-5, atol=1e-6),
-              "full: lam' mismatch")
-        check(torch.allclose(k_out[2][:, sl], bar_r, rtol=1e-5, atol=1e-6),
-              "full: bar mismatch")
+        if gated:
+            for x, y, what in zip(k_out[:3], out[:3], ("theta'", "lam'",
+                                                       "bar")):
+                check(torch.equal(x[:, sl], y), f"full gated: {what} "
+                      "differs from the plain version")
+        else:
+            check(bf16_ulp_ok(k_out[0][:, sl], tn_r),
+                  "full: theta' beyond ulp")
+            check(torch.allclose(k_out[1][:, sl], ln_r, rtol=1e-5,
+                                 atol=1e-6), "full: lam' mismatch")
+            check(torch.allclose(k_out[2][:, sl], bar_r, rtol=1e-5,
+                                 atol=1e-6), "full: bar mismatch")
         err = max(err, *(float((x[:, sl].float() - y.float()).abs().max())
                          for x, y in zip(k_out[:3], out[:3])))
         rsq += r_c
@@ -289,14 +345,308 @@ def full_shape_check(layout, offsets):
         del out
     check(torch.allclose(k_out[3], rsq, rtol=1e-4), "full: r_sq mismatch")
     check(torch.allclose(k_out[4], ssq, rtol=1e-4), "full: s_sq mismatch")
+    rel = rs_rel_err(k_out[3:], (rsq, ssq))
     k_ms = time_cuda(lambda: ops.consensus_round(tk, lk, bk, wires, *rest,
                                                  **kw), reps=10)
-    print(f"kernel full shape: J={j} deg={len(offsets)} total={layout.total}"
-          f" max_abs_err={err:.3g} kernel {k_ms:.3f} ms, plain (chunked) "
+    print(f"kernel full shape{' gated+kick' if gated else ''}: J={j} "
+          f"deg={len(offsets)} total={layout.total} max_abs_err={err:.3g} "
+          f"r2/s2 rel {rel:.3g} kernel {k_ms:.3f} ms, plain (chunked) "
           f"{t_plain:.3f} ms, bound {bound_ms:.3f} ms ({by}, "
           f"{nb / 1e9:.3f} GB)", flush=True)
+    del args, theta, lam, bar_prev, wires, tk, lk, bk, k_out
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=k_ms, plain_ms=t_plain,
                 bound_ms=bound_ms, bound_by=by)
+
+
+def rs_rel_err(k_rs, r_rs) -> float:
+    """Largest relative difference of r^2 and s^2 (where the plain version
+    is non-zero; a zero must be matched by a zero)."""
+    worst = 0.0
+    for x, y in zip(k_rs, r_rs):
+        nz = y != 0
+        check(bool((x[~nz] == 0).all()), "a zero residual came out non-zero")
+        if bool(nz.any()):
+            worst = max(worst, float(((x[nz] - y[nz]).abs()
+                                      / y[nz].abs()).max()))
+    return worst
+
+
+def gate_round_inputs(args, kick: bool, seed: int):
+    """Turn ``make_round_inputs``' ungated round into a gated one, as the
+    dynamic trainer builds it: gates mixed 0/1 with node J-1 a ghost
+    (inv_deg 0), offset 0 dead for every node (zero payload, unit scales),
+    gated edges' weights zeroed in e_sym, and with ``kick`` non-zero
+    zero-kick weights on the gated edges of live offsets. Returns (args,
+    gate keywords)."""
+    import torch
+    theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum, eta_node, \
+        block_leaf = args
+    deg, j = e_sym.shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    bar_w = torch.randint(0, 2, (deg, j), generator=g, device=DEV).float()
+    bar_w[:, j - 1] = 0.0                          # ghost row
+    bar_w[0, :] = 0.0                              # dead offset
+    if deg > 1:
+        bar_w[1, 0] = 1.0                          # a live edge
+        bar_w[deg - 1, 1] = 0.0                    # a gated edge
+    wires[0].zero_()
+    scales[0] = 1.0
+    e_sym = (e_sym * bar_w).contiguous()
+    act = bar_w.sum(0)
+    inv_deg = torch.where(act > 0, 1.0 / act.clamp_min(1.0), 0.0)
+    eta_sum = e_sym.sum(0)
+    alpha = 0.5 / (1.0 + 2.0 * eta_sum)
+    eta_node = eta_sum * inv_deg
+    gates = dict(bar_w=bar_w, inv_deg=inv_deg)
+    if kick:
+        kw = (0.05 + 0.2 * torch.rand(deg, j, generator=g, device=DEV)) \
+            * (1.0 - bar_w)
+        kw[0] = 0.0
+        kw[:, j - 1] = 0.0
+        check(bool((kw > 0).any()), "no gated edge carries a kick")
+        gates["kick_w"] = kw.contiguous()
+    return (theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
+            eta_node, block_leaf), gates
+
+
+def masked_case(name, layout, j, offsets, codec_name, kick, seed):
+    """Phase 6: the gated kernel at one shape against its plain version
+    (theta', lam' and bar bit for bit), both timed and printed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args, gates = gate_round_inputs(
+        make_round_inputs(layout, j, offsets, torch.bfloat16, codec_name,
+                          seed), kick, seed)
+    theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum, eta_node, \
+        block_leaf = args
+    kw = dict(block_leaf=block_leaf, block_size=layout.block_size, **gates)
+    rest = (wires, scales, e_sym, alpha, eta_sum, eta_node)
+    r_out = ref.consensus_round_ref(theta, lam, bar_prev, *rest, **kw)
+    k_out = ops.consensus_round(theta.clone(), lam.clone(), bar_prev.clone(),
+                                *rest, **kw)
+    torch.cuda.synchronize()
+    for x, y, what in zip(k_out[:3], r_out[:3], ("theta'", "lam'", "bar")):
+        check(torch.equal(x, y), f"masked {name}: {what} differs from the "
+              f"plain version (max {float((x.float() - y.float()).abs().max()):.3g})")
+    rel = rs_rel_err(k_out[3:], r_out[3:])
+    check(rel < 1e-5, f"masked {name}: r^2/s^2 relative error {rel:.3g}")
+    del k_out, r_out
+    tk, lk, bk = theta.clone(), lam.clone(), bar_prev.clone()
+    k_ms = time_cuda(lambda: ops.consensus_round(tk, lk, bk, *rest, **kw),
+                     reps=20)
+    del tk, lk, bk
+    p_ms = time_cuda(lambda: ref.consensus_round_ref(theta, lam, bar_prev,
+                                                     *rest, **kw), reps=5)
+    bound_ms, by, nb, _ = round_bound(theta, lam, bar_prev, wires, scales,
+                                      e_sym, block_leaf, gates)
+    print(f"masked kernel {name}: J={j} deg={len(offsets)} "
+          f"total={layout.total} max_abs_err=0 r2/s2 rel {rel:.3g} kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({by}, {nb / 1e9:.3f} GB)", flush=True)
+
+
+def dynamic_slice(full, card_line):
+    """Phase 7: the dynamic-topology path at full width, one layer, under
+    torch.profiler; returns the gated kernel's launches and in-round
+    times."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(full, n_layers=DYN_LAYERS)
+    args = train_lib.parse_args(DYN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    ops.consensus_round.launches = 0
+    ops.consensus_round.masked_launches = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t0 = time.perf_counter()
+        record = train_lib.run(cfg, args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ungated, masked = (ops.consensus_round.launches,
+                       ops.consensus_round.masked_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    in_round, busy_ms, families, top = device_profile(prof,
+                                                      kernel=MASKED_NAME)
+    ungated_traced = device_profile(prof)[0]
+    del prof
+    losses, rounds = record["losses"], record["rounds"]
+    n_rounds = args.steps // args.local_steps
+    check(record["offsets"] == [1, 2], f"offsets {record['offsets']}")
+    check(len(losses) == args.steps and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(len(rounds) == n_rounds, f"{len(rounds)} rounds, want {n_rounds}")
+    for r in rounds:
+        check(math.isfinite(r["r_max"]) and math.isfinite(r["eta_mean"]),
+              f"round metrics {r}")
+        check(r["masked_launches"] == 1 and r["launches"] == 0,
+              f"a round launched {r['masked_launches']} gated and "
+              f"{r['launches']} ungated kernels")
+    check(any(abs(r["eta_mean"] - args.eta0) > 1e-6 for r in rounds),
+          "nap never moved eta off eta0")
+    # rounds at steps 1, 3 | node 1 dropped after step 3 | rounds at 5, 7
+    for r in rounds[:2]:
+        check(r["alive"] == [True] * 3 and abs(r["active_edges"] - 1) < 1e-6,
+              f"before the drop: {r}")
+    for r in rounds[2:]:
+        check(r["alive"] == [True, False, True]
+              and abs(r["active_edges"] - 2 / 6) < 1e-6,
+              f"after the drop: {r}")
+    check(ungated == 0 and masked == n_rounds,
+          f"launches: {masked} gated, {ungated} ungated in {n_rounds} rounds")
+    check(len(in_round) == n_rounds and not ungated_traced,
+          f"the trace holds {len(in_round)} {MASKED_NAME} and "
+          f"{len(ungated_traced)} {KERNEL_NAME} launches")
+    layout = record["layout"]
+    j, deg = 3, 2
+    bound = j * layout.total * (2 + 2 + 4 + 4 + 4 + 4 + 2 * deg) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"dyn slice: {cfg.arch_id} x{DYN_LAYERS} layer at full width, "
+          f"{build_model(cfg).param_count()} parameters per node, "
+          f"{layout.total} elements per node row, {len(rounds)} rounds, "
+          f"gated launches {masked}, ungated {ungated}", flush=True)
+    print("dyn step seconds: "
+          + " ".join(f"{t:.3f}" for t in record["step_seconds"])
+          + f" [{card_line}]", flush=True)
+    print("dyn losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print("dyn rounds: " + json.dumps(rounds), flush=True)
+    print(f"dyn kernel in rounds: median {np.median(in_round):.3f} ms "
+          f"(each {', '.join(f'{t:.3f}' for t in in_round)}), bound "
+          f"{bound:.3f} ms; peak memory {peak_gb:.2f} GB [{card_line}]",
+          flush=True)
+    print(f"dyn trace: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f}; device ms by family: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in families.items()),
+          flush=True)
+    for name, (n, ms) in top:
+        print(f"  {ms:10.1f} ms {n:6d}x  {name[:110]}")
+    return dict(launches=masked, in_round_ms=float(np.median(in_round)),
+                layout=layout)
+
+
+def agree_dynamic_with_cpu(steps: int = 6) -> None:
+    """Phase 7b: the reduced float32 trainer on a dynamic topology (J=4,
+    complete, round_robin with churn, node 1 dropped after step 3): losses,
+    r_max, eta and the active edge fraction on the card equal the CPU's to
+    rtol 1e-3, masks and liveness exactly, and non-zero kicks reached the
+    card's kernel."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.penalty import PenaltyConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.topology import TopologyConfig
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    params1 = model.init(torch.Generator().manual_seed(0), "cpu")
+    traces, masks, kicked = {}, {}, {}
+    for dev in (DEV, "cpu"):
+        tr = ConsensusTrainer(
+            model, num_nodes=4, device=dev, adamw=AdamWConfig(lr=1e-2),
+            consensus=ConsensusConfig(
+                penalty=PenaltyConfig(scheme="nap", eta0=0.1),
+                topology="complete", local_steps=1,
+                dyn_topology=TopologyConfig(scheduler="round_robin",
+                                            churn=True)))
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          batch_per_node=4, num_nodes=4),
+                               device=dev)
+        state = tr.init_state(params1)
+        before = ops.consensus_round.masked_launches
+        trace, mk, kicks = [], [], 0
+        for step in range(steps):
+            state, m = tr.train_step(state, data.batch(step))
+            kicks += int(bool((state.topo.kick != 0).any()))
+            state, cm = tr.consensus_step(state, data.batch(10**6 + step))
+            trace += [float(m["loss"]), float(cm["r_max"]),
+                      float(cm["eta_mean"]), float(cm["active_edges"])]
+            if step == 3:
+                state = tr.apply_churn(state, 1)
+            mk.append(state.topo.mask.cpu().numpy())
+        if dev == DEV:
+            check(ops.consensus_round.masked_launches - before == steps,
+                  "the card's dynamic rounds did not all launch the gated "
+                  "kernel")
+        traces[dev], masks[dev], kicked[dev] = np.asarray(trace), mk, kicks
+    card, cpu = traces[DEV], traces["cpu"]
+    rel = float(np.max(np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-12)))
+    check(bool(np.all(np.isfinite(card))) and rel < 1e-3,
+          f"dynamic card vs cpu trace: {card.tolist()} vs {cpu.tolist()}")
+    check(all(np.array_equal(a, b) for a, b in zip(masks[DEV],
+                                                    masks["cpu"])),
+          "dynamic card vs cpu: masks differ")
+    check(kicked[DEV] > 0, "no round carried a non-zero kick")
+    print(f"dagree: reduced float32 dynamic trainer, {steps} rounds, "
+          f"{kicked[DEV]} with non-zero kicks, card vs cpu max relative "
+          f"difference {rel:.3g}, masks equal", flush=True)
+
+
+def sdpa_library_time(card_line) -> None:
+    """Phase 9: the library's GQA attention at full-width qwen3-4b
+    attention, timed beside its bound (the TPU flash_attention kernel is
+    not yet ported)."""
+    import torch
+    import torch.nn.functional as F
+    b, h, kv, s, hd = 4, 32, 8, 512, 128
+    g = torch.Generator(device=DEV).manual_seed(9)
+    q = torch.randn(b, h, s, hd, generator=g, device=DEV,
+                    dtype=torch.bfloat16)
+    k = torch.randn(b, kv, s, hd, generator=g, device=DEV,
+                    dtype=torch.bfloat16)
+    v = torch.randn(b, kv, s, hd, generator=g, device=DEV,
+                    dtype=torch.bfloat16)
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    out = call()
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+          "sdpa output")
+    ms = time_cuda(call, reps=50)
+    flops = 4 * b * h * s * s * hd / 2             # causal: half the tiles
+    by = sum(nbytes(t) for t in (q, k, v, out))
+    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    t_b = by / HBM_BYTES_PER_S * 1e3
+    print(f"sdpa (library, GQA {h}/{kv}, hd {hd}, causal, {b}x{s}): "
+          f"{ms:.4f} ms, bound {max(t_f, t_b):.4f} ms "
+          f"({'operations' if t_f >= t_b else 'bytes'}: {flops / 1e9:.2f} "
+          f"GFLOP, {by / 1e6:.1f} MB) [{card_line}]", flush=True)
+
+
+def unported_bounds(total: int) -> None:
+    """The least time of the TPU kernels not yet ported, from their shapes
+    (printed for PERF.md's table; nothing runs): the per-block-scale fp8
+    round and the flat ``consensus_update`` at the static slice's row of
+    ``total`` elements, and the RWKV6 scan at one rwkv6-7b layer."""
+    j = 2
+    # fp8 round: theta bf16 2+2, lam 4+4, bar_prev/bar 4+4, one 1 B wire row
+    fp8 = j * total * (2 + 2 + 4 + 4 + 4 + 4 + 1)
+    # consensus_update on one f32 row: 5 inputs read, theta'/lam' written
+    cu = total * 4 * (5 + 2)
+    # rwkv6 scan, B 4, T 512, H 64, hd 64, chunk 32: per token and head
+    # 2 hd^2 + 2 C hd multiply-adds (inter-chunk, state, intra-chunk pair),
+    # f32 state; r/k/v/y bf16, log-decay f32, initial and final state f32
+    b, t, h, hd, c = 4, 512, 64, 64, 32
+    rw_ops = b * t * h * 2 * (2 * hd * hd + 2 * c * hd)
+    rw_bytes = b * h * t * hd * (3 * 2 + 4 + 2) + 2 * b * h * hd * hd * 4
+    for name, by, ops in (("fp8 per-block round", fp8, 0),
+                          ("consensus_update", cu, 0),
+                          ("rwkv6_scan", rw_bytes, rw_ops)):
+        t_b = by / HBM_BYTES_PER_S * 1e3
+        t_o = ops / F32_OPS_PER_S * 1e3
+        print(f"unported bound {name}: {max(t_b, t_o):.4f} ms "
+              f"({'operations' if t_o > t_b else 'bytes'}: "
+              f"{by / 1e9:.3f} GB, {ops / 1e9:.3f} GFLOP f32)", flush=True)
 
 
 def agree_with_cpu(steps: int = 6) -> None:
@@ -388,11 +738,23 @@ def main() -> int:
                 seed=3)
     torch.cuda.empty_cache()
 
+    # -- 6. the gated kernel vs its plain version ---------------------------
+    masked_case("bf16/native+kick", lay_layer, 4, [1, 2, 3], "native",
+                kick=True, seed=11)
+    torch.cuda.empty_cache()
+    masked_case("bf16/native", lay_layer, 4, [1, 2, 3], "native",
+                kick=False, seed=12)
+    torch.cuda.empty_cache()
+    masked_case("bf16/int8+kick", lay_layer, 4, [1, 2, 3], "int8",
+                kick=True, seed=13)
+    torch.cuda.empty_cache()
+
     # -- 4. the slice -----------------------------------------------------
     cfg = dataclasses.replace(full, n_layers=SLICE_LAYERS)
     args = train_lib.parse_args(SLICE_ARGS)
     torch.cuda.reset_peak_memory_stats()
     ops.consensus_round.launches = 0
+    ops.consensus_round.masked_launches = 0
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
@@ -401,6 +763,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.consensus_round.launches
+    check(ops.consensus_round.masked_launches == 0,
+          "the static slice launched the gated kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     in_round, busy_ms, families, top = device_profile(prof)
     del prof
@@ -448,8 +812,23 @@ def main() -> int:
     # -- 4b. the same trainer on the card and on the CPU -------------------
     agree_with_cpu()
 
+    # -- 7. the dynamic-topology slice --------------------------------------
+    dyn = dynamic_slice(full, card_line)
+    torch.cuda.empty_cache()
+
+    # -- 7b. the dynamic trainer on the card and on the CPU ----------------
+    agree_dynamic_with_cpu()
+
     # -- 5. the kernel at the slice's own shape ---------------------------
-    full_numbers = full_shape_check(layout, offsets=[1])
+    full_numbers = full_shape_check(layout, 2, offsets=[1])
+
+    # -- 8. the gated kernel at the dynamic slice's own shape --------------
+    dyn_full = full_shape_check(dyn["layout"], 3, offsets=[1, 2],
+                                gated=True, seed=8)
+
+    # -- 9. the library's attention, for the unported flash_attention ------
+    sdpa_library_time(card_line)
+    unported_bounds(layout.total)
 
     kernels = [{
         "name": "consensus_round", "route": "cuda",
@@ -463,6 +842,18 @@ def main() -> int:
         "bound_by": full_numbers["bound_by"],
         "library_ms": None,
         "in_round_ms": float(np.median(in_round)),
+    }, {
+        "name": "consensus_round_masked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/consensus_round.cu",
+        "replaces": "src/repro/kernels/consensus_update.py:221",
+        "launches": dyn["launches"],
+        "max_abs_err": dyn_full["max_abs_err"],
+        "ms": dyn_full["ms"],
+        "plain_ms": dyn_full["plain_ms"],
+        "bound_ms": dyn_full["bound_ms"],
+        "bound_by": dyn_full["bound_by"],
+        "library_ms": None,
+        "in_round_ms": dyn["in_round_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Communication-graph topologies for consensus ADMM (the port's copy of
-``repro/core/graph.py``, numpy only; node churn comes with its slice).
+``repro/core/graph.py``, numpy only).
 
 The paper (AAAI'16, §2) formulates consensus optimization on a connected graph
 G = (V, E); the penalty schemes of §3 attach state to *directed* edges e_ij.
@@ -232,3 +232,49 @@ def build_graph(name: str, j: int, **kw) -> Graph:
     if name == "expander":
         return expander_graph(j, degree=kw.get("degree", 4))
     raise ValueError(f"unknown topology {name!r}; options: {TOPOLOGIES}")
+
+
+def connected_components(adj: np.ndarray) -> list[list[int]]:
+    """Connected components of a boolean adjacency (sorted node lists)."""
+    adj = np.asarray(adj, dtype=bool)
+    n = adj.shape[0]
+    seen = np.zeros(n, dtype=bool)
+    comps: list[list[int]] = []
+    for s in range(n):
+        if seen[s]:
+            continue
+        comp = [s]
+        seen[s] = True
+        frontier = [s]
+        while frontier:
+            i = frontier.pop()
+            for j in np.nonzero(adj[i])[0]:
+                if not seen[j]:
+                    seen[j] = True
+                    comp.append(int(j))
+                    frontier.append(int(j))
+        comps.append(sorted(comp))
+    return comps
+
+
+def drop_node(g: Graph, node: int) -> Graph:
+    """Elastic-rescale helper: remove a failed node, keep the graph connected.
+
+    If removal disconnects the graph, repair with a spanning chain over the
+    resulting components (one bridge edge per adjacent component pair),
+    choosing each bridge endpoint among the dropped node's former neighbors
+    when possible. ``Graph.__post_init__`` asserts the result connected.
+    """
+    keep = [i for i in range(g.num_nodes) if i != node]
+    adj = g.adj[np.ix_(keep, keep)].copy()
+    if len(keep) > 1:
+        comps = connected_components(adj)
+        if len(comps) > 1:
+            old_nbrs = {keep.index(i) for i in g.neighbors(node)
+                        if i != node}
+            # one representative per component, preferring former neighbors
+            reps = [min(set(c) & old_nbrs) if set(c) & old_nbrs else c[0]
+                    for c in comps]
+            for a, b in zip(reps[:-1], reps[1:]):
+                adj[a, b] = adj[b, a] = True
+    return Graph(len(keep), adj, g.name)

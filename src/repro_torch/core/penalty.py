@@ -236,3 +236,13 @@ def effective_eta(cfg: PenaltyConfig, state: PenaltyState,
     """eta applied to edge (i, j) this iteration, zero on non-edges."""
     del cfg
     return torch.where(adj.to(torch.bool), state.eta, 0.0)
+
+
+def budget_exhausted(state: PenaltyState) -> torch.Tensor:
+    """[J, J] bool — directed edges whose eq. (9) budget is spent.
+
+    The topology's ``budget`` scheduler deactivates an edge when BOTH
+    directions are exhausted; a top-up (eq. 10) raises T_ij above cum_tau
+    and revives it.
+    """
+    return state.cum_tau >= state.budget

@@ -1,10 +1,14 @@
 // Fused consensus-ADMM round over the flat [J, total] buffers, for Hopper
 // (sm_90a).
 //
-// Replaces the TPU kernel `_round_kernel` in
-// src/repro/kernels/consensus_update.py:141 (reached from `consensus_round`
-// at :380, the ungated path; the whole-row `_row_kernel` at :175 is the
-// same function under another TPU tiling and needs no kernel of its own).
+// Replaces two TPU kernels of src/repro/kernels/consensus_update.py, both
+// reached from `consensus_round` at :380:
+//   * `_round_kernel` (:141), the ungated round -> consensus_round_kernel;
+//   * `_round_kernel_masked` (:221), the edge-gated round of the dynamic
+//     topology with the optional zero-kick -> consensus_round_masked_kernel.
+// The whole-row `_row_kernel` (:175) and `_row_kernel_masked` (:269) are
+// the same functions under another TPU tiling and need no kernel of their
+// own.
 //
 // For node i, layout block b and graph offsets d = 0..deg-1:
 //   x_d    = float(wire[d, i, :]) * scales[d, i, block_leaf[b]]
@@ -14,6 +18,14 @@
 //   lam'   = lam + (0.5 eta_sum) (theta' - nbr)
 //   rsq[i, b] = sum (theta' - bar)^2               (f32 theta', before rounding)
 //   ssq[i, b] = eta_node^2 * sum (bar - bar_prev)^2
+// The edge-gated round (MASKED) takes per-(d, i) gates bar_w and a per-node
+// inv_deg (1 / active degree, 0 for an isolated or ghost node):
+//   nbr_p  = sum_d bar_w[d, i] * x_d        bar = nbr_p * inv_deg[i]
+// and with KICK the per-(d, i) zero-kick weights kick_w:
+//   kick_x = sum_d kick_w[d, i] * x_d       ksum = sum_d kick_w[d, i]
+//   lam'   = lam' + 0.5 (ksum * theta - kick_x)      (round-start theta)
+// The kick term is compiled only when kick_w is passed: adding 0.0 would
+// turn a -0.0 dual into +0.0.
 // theta' is stored in theta's dtype over theta, lam' over lam and bar (f32)
 // over bar_prev: each element is read and then written by the same thread,
 // so the update is safe in place. The wires must not alias any of them.
@@ -22,7 +34,8 @@
 //
 // Bound. Every element is touched once: read theta (2 B bf16), lam (4 B),
 // bar_prev (4 B) and deg wire rows (2 B bf16 or 1 B int8 each); write
-// theta' (2 B), lam' (4 B) and bar (4 B). At the trainer's full-width
+// theta' (2 B), lam' (4 B) and bar (4 B). The gated round moves the same
+// bytes (its gates are [deg, J] scalars). At the trainer's full-width
 // qwen3-4b shape (J = 2, deg = 1, bf16 theta and wire, 1,181,941,760
 // elements per row) that is 22 B/element, about 52.0 GB per round, or about
 // 15.5 ms at the H100's 3.35 TB/s. The arithmetic (about 20 f32 operations
@@ -39,6 +52,10 @@
 // once from device memory. Tens of thousands of blocks of 64k elements give
 // every SM plenty of independent loads in flight, which is what a streaming
 // kernel needs; TMA pipelines or persistent blocks are later work.
+//
+// The gated kernel is the same body with two compile-time flags, MASKED and
+// KICK; with both off it is the ungated kernel, instruction for
+// instruction. Each block reads its node's gates as it reads e_sym.
 //
 // The file is compiled with -fmad=false so that the kernel rounds after
 // every multiply and add exactly as the plain PyTorch version does; the cost
@@ -61,6 +78,9 @@ struct RoundArgs {
   const float* alpha;      // [J]
   const float* eta_sum;    // [J]
   const float* eta_node;   // [J]
+  const float* bar_w;      // [deg, J] edge gates (MASKED only)
+  const float* inv_deg;    // [J] 1 / active degree (MASKED only)
+  const float* kick_w;     // [deg, J] zero-kick weights (KICK only)
   void* theta;             // [J, total] in/out
   float* lam;              // [J, total] in/out
   float* bar;              // [J, total] in: bar_prev, out: bar
@@ -119,9 +139,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // TT: theta's type (float or bf16); WT: the wire's (TT or int8).
 // DEG > 0 unrolls the offset loop at compile time; DEG == 0 loops over
-// a.deg at run time.
-template <typename TT, typename WT, int DEG>
-__global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundArgs a) {
+// a.deg at run time. MASKED: the edge-gated round; KICK (MASKED only): the
+// zero-kick dual term.
+template <typename TT, typename WT, int DEG, bool MASKED, bool KICK>
+__device__ __forceinline__ void round_body(const RoundArgs& a) {
+  static_assert(MASKED || !KICK, "the kick needs the gated round");
   const int deg = DEG > 0 ? DEG : a.deg;
   const int b = blockIdx.x;
   const int i = blockIdx.y;
@@ -132,7 +154,11 @@ __global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundAr
   const float eta_node = a.eta_node[i];
   const float eta_div = fmaxf(eta_sum, 1e-12f);
   const float half_eta = 0.5f * eta_sum;
-  const float inv_deg = 1.0f / static_cast<float>(deg);
+  const float inv_deg = MASKED ? a.inv_deg[i] : 1.0f / static_cast<float>(deg);
+  float ksum = 0.0f;
+  if constexpr (KICK) {
+    for (int d = 0; d < deg; ++d) ksum = ksum + a.kick_w[d * a.J + i];
+  }
   const long long row = static_cast<long long>(i) * a.total
                         + static_cast<long long>(b) * a.block_size;
   const long long wire_stride = static_cast<long long>(a.J) * a.total;
@@ -145,24 +171,28 @@ __global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundAr
   float r_acc = 0.0f, s_acc = 0.0f;
   for (int e0 = threadIdx.x * kVec; e0 < a.block_size; e0 += kThreads * kVec) {
     float th[kVec], lm[kVec], bp[kVec];
-    float nw[kVec], np[kVec];
+    float nw[kVec], np[kVec], kx[kVec];
     load8(theta + e0, th);
     load8(lam + e0, lm);
     load8(bar + e0, bp);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) { nw[k] = 0.0f; np[k] = 0.0f; }
+    for (int k = 0; k < kVec; ++k) { nw[k] = 0.0f; np[k] = 0.0f; kx[k] = 0.0f; }
     // deg is a compile-time constant when DEG > 0, and the loop unrolls
 #pragma unroll 4
     for (int d = 0; d < deg; ++d) {
       const float sc = a.scales[(static_cast<long long>(d) * a.J + i) * a.nleaves + leaf];
       const float ew = a.e_sym[d * a.J + i];
+      const float bw = MASKED ? a.bar_w[d * a.J + i] : 1.0f;
+      const float kw = KICK ? a.kick_w[d * a.J + i] : 0.0f;
       float x[kVec];
       load8(wires + d * wire_stride + e0, x);
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         const float xv = x[k] * sc;
         nw[k] = nw[k] + ew * xv;
-        np[k] = np[k] + xv;
+        if constexpr (MASKED) np[k] = np[k] + bw * xv;
+        else np[k] = np[k] + xv;
+        if constexpr (KICK) kx[k] = kx[k] + kw * xv;
       }
     }
     float tn[kVec];
@@ -172,6 +202,7 @@ __global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundAr
       const float nbr = nw[k] / eta_div;
       tn[k] = th[k] - alpha * (2.0f * lm[k] + eta_sum * (th[k] - nbr));
       lm[k] = lm[k] + half_eta * (tn[k] - nbr);
+      if constexpr (KICK) lm[k] = lm[k] + 0.5f * (ksum * th[k] - kx[k]);
       const float dr = tn[k] - barv;
       r_acc = r_acc + dr * dr;
       const float db = barv - bp[k];
@@ -206,6 +237,19 @@ __global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundAr
   }
 }
 
+// The ungated round (TPU `_round_kernel`).
+template <typename TT, typename WT, int DEG>
+__global__ void __launch_bounds__(kThreads) consensus_round_kernel(const RoundArgs a) {
+  round_body<TT, WT, DEG, false, false>(a);
+}
+
+// The edge-gated round, with or without the zero-kick (TPU
+// `_round_kernel_masked`).
+template <typename TT, typename WT, int DEG, bool KICK>
+__global__ void __launch_bounds__(kThreads) consensus_round_masked_kernel(const RoundArgs a) {
+  round_body<TT, WT, DEG, true, KICK>(a);
+}
+
 template <typename TT, typename WT>
 void launch_typed(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
   switch (a.deg) {
@@ -217,31 +261,56 @@ void launch_typed(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
   }
 }
 
+template <typename TT, typename WT, bool KICK>
+void launch_masked(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
+  switch (a.deg) {
+    case 1: consensus_round_masked_kernel<TT, WT, 1, KICK><<<grid, kThreads, 0, stream>>>(a); break;
+    case 2: consensus_round_masked_kernel<TT, WT, 2, KICK><<<grid, kThreads, 0, stream>>>(a); break;
+    case 3: consensus_round_masked_kernel<TT, WT, 3, KICK><<<grid, kThreads, 0, stream>>>(a); break;
+    case 4: consensus_round_masked_kernel<TT, WT, 4, KICK><<<grid, kThreads, 0, stream>>>(a); break;
+    default: consensus_round_masked_kernel<TT, WT, 0, KICK><<<grid, kThreads, 0, stream>>>(a); break;
+  }
+}
+
+template <typename TT, typename WT>
+void launch_any(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
+  if (a.bar_w == nullptr) launch_typed<TT, WT>(a, grid, stream);
+  else if (a.kick_w == nullptr) launch_masked<TT, WT, false>(a, grid, stream);
+  else launch_masked<TT, WT, true>(a, grid, stream);
+}
+
 }  // namespace
 
 // theta_kind: 0 = float32, 1 = bfloat16.  wire_kind: 0 = theta's dtype,
-// 1 = int8. Returns a cudaError_t: the launch's own (cudaGetLastError) or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// 1 = int8. bar_w and inv_deg (both or neither) select the gated round;
+// kick_w (gated round only) adds the zero-kick; null pointers leave them
+// out. Returns a cudaError_t: the launch's own (cudaGetLastError) or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int consensus_round_launch(
     int theta_kind, int wire_kind, int J, int deg, long long total,
     int block_size, int nleaves, const void* wires, const float* scales,
     const int* block_leaf, const float* e_sym, const float* alpha,
-    const float* eta_sum, const float* eta_node, void* theta, float* lam,
+    const float* eta_sum, const float* eta_node, const float* bar_w,
+    const float* inv_deg, const float* kick_w, void* theta, float* lam,
     float* bar, float* rsq, float* ssq, void* stream) {
   if (J < 1 || J > 65535 || deg < 1 || block_size < kVec
       || block_size % kVec != 0 || total % block_size != 0 || nleaves < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((bar_w == nullptr) != (inv_deg == nullptr)
+      || (kick_w != nullptr && bar_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nblocks = total / block_size;
   if (nblocks < 1 || nblocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a{wires, scales, block_leaf, e_sym, alpha, eta_sum, eta_node,
+              bar_w, inv_deg, kick_w,
               theta, lam, bar, rsq, ssq, total, J, deg, block_size, nleaves};
   const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(J));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (theta_kind == 0 && wire_kind == 0) launch_typed<float, float>(a, grid, st);
-  else if (theta_kind == 0 && wire_kind == 1) launch_typed<float, int8_t>(a, grid, st);
-  else if (theta_kind == 1 && wire_kind == 0) launch_typed<__nv_bfloat16, __nv_bfloat16>(a, grid, st);
-  else if (theta_kind == 1 && wire_kind == 1) launch_typed<__nv_bfloat16, int8_t>(a, grid, st);
+  if (theta_kind == 0 && wire_kind == 0) launch_any<float, float>(a, grid, st);
+  else if (theta_kind == 0 && wire_kind == 1) launch_any<float, int8_t>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 0) launch_any<__nv_bfloat16, __nv_bfloat16>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 1) launch_any<__nv_bfloat16, int8_t>(a, grid, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@ A tensor's device picks the path, nothing else: CPU tensors go to the plain
 PyTorch version in ``kernels/ref.py``; CUDA tensors go to the hand-written
 kernel, or the call raises. No path falls back to the other.
 
-Each wrapper counts its kernel launches in a plain integer attribute
-(``consensus_round.launches``), so that a run can show that it went through
-the kernel.
+Each wrapper counts its kernel launches in plain integer attributes
+(``consensus_round.launches`` for the ungated round,
+``consensus_round.masked_launches`` for the edge-gated one), so that a run
+can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ from repro_torch.kernels import ref as _ref
 
 
 def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
-                    alpha, eta_sum, eta_node, *, block_leaf, block_size: int):
-    """Whole-round fused consensus update over the flat buffer (the ungated
-    round of ``repro.kernels.ops.consensus_round``).
+                    alpha, eta_sum, eta_node, *, block_leaf, block_size: int,
+                    bar_w=None, inv_deg=None, kick_w=None,
+                    scales_per_block: bool = False):
+    """Whole-round fused consensus update over the flat buffer (the
+    reference's ``repro.kernels.ops.consensus_round``).
 
     Args:
       theta: [J, total] f32 or bf16 node parameters (total = blocks * bs).
@@ -26,29 +29,47 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
         row d holds theta_{(i+off_d) % J} at node i.
       scales: [deg, J, L] f32 per-leaf dequant scales (ones for a native
         wire).
-      e_sym: [deg, J] f32 symmetrized per-edge penalties.
+      e_sym: [deg, J] f32 symmetrized per-edge penalties (zero on gated
+        edges).
       alpha, eta_sum, eta_node: [J] f32 per-node scalars.
       block_leaf: [num_blocks] int32 owning leaf id per block (the layout
         table); every id must lie in [0, L), which the caller checks once
         where it builds the table.
       block_size: elements per block; must divide total.
+      bar_w: optional [deg, J] f32 edge gates (1 = active) weighting the
+        neighbor mean — the dynamic topology's mask.
+      inv_deg: optional [J] f32, 1 / active degree (0 for isolated or ghost
+        nodes); given together with ``bar_w``. Both None: the ungated round.
+      kick_w: optional [deg, J] f32 zero-kick weights (gated round only):
+        the dual also absorbs ``0.5 * sum_d kick_w[d] * (theta - x_d)``.
+      scales_per_block: per-block dequant scales (the fp8 wires); not yet
+        ported.
 
     Returns (theta_new [J, total], lam_new [J, total], bar [J, total] f32,
     r_sq [J], s_sq [J]). On a CUDA tensor the kernel writes theta_new, lam_new
     and bar IN PLACE over theta, lam and bar_prev and returns those tensors;
     on the CPU the plain version returns new tensors.
     """
+    if scales_per_block:
+        raise NotImplementedError(
+            "per-block scales come with the fp8 wire slice")
     dev = theta.device
     if dev.type == "cpu":
         return _ref.consensus_round_ref(
             theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
-            eta_node, block_leaf=block_leaf, block_size=block_size)
+            eta_node, block_leaf=block_leaf, block_size=block_size,
+            bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w)
     if dev.type != "cuda":
         raise ValueError(f"consensus_round: no kernel for device {dev}")
     rsq, ssq = _cu.launch(theta, lam, bar_prev, wires, scales, e_sym, alpha,
-                          eta_sum, eta_node, block_leaf, block_size)
-    consensus_round.launches += 1
+                          eta_sum, eta_node, block_leaf, block_size,
+                          bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w)
+    if bar_w is None:
+        consensus_round.launches += 1
+    else:
+        consensus_round.masked_launches += 1
     return theta, lam, bar_prev, rsq.sum(dim=1), ssq.sum(dim=1)
 
 
 consensus_round.launches = 0
+consensus_round.masked_launches = 0

@@ -1,21 +1,26 @@
 """Training launcher: synchronous consensus-ADMM training end to end (port of
-``repro/launch/train.py``, sync static path).
+``repro/launch/train.py``, sync path, static or dynamic topology).
 
 Every node row lives on one device (``--device``, CUDA unless ``cpu`` is
 asked for), so ``--nodes`` takes the place of the reference's ``--mesh``.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 8 --scheme nap --local-steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --steps 10 --local-steps 2 --nodes 4 --topology complete \\
+      --topo-scheduler round_robin --drop-node 5:1 --device cpu
 
-The async, observability, churn, checkpoint and pipeline flags come with
-their slices; until then argparse rejects them.
+The async, observability, checkpoint and pipeline flags come with their
+slices; until then argparse rejects them, and the ``stale`` scheduler with
+them.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced_config
@@ -23,9 +28,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.penalty import SCHEMES, PenaltyConfig
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime import ElasticController, StragglerMonitor
+from repro_torch.topology import SCHEDULERS, TopologyConfig
+
+# the stale scheduler needs the async executor, which is not ported yet
+SYNC_SCHEDULERS = tuple(s for s in SCHEDULERS if s != "stale")
 
 
 def parse_args(argv=None):
@@ -42,6 +53,20 @@ def parse_args(argv=None):
                     help="torch device: cuda (default) or cpu")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
+    ap.add_argument("--topo-scheduler", choices=SYNC_SCHEDULERS,
+                    default="static",
+                    help="dynamic-topology edge scheduler "
+                         "(repro_torch.topology); stale comes with the "
+                         "async slice")
+    ap.add_argument("--topo-churn", action="store_true",
+                    help="exchange over the churn offset superset so that "
+                         "node drops are layout-preserving")
+    ap.add_argument("--drop-node", default="",
+                    help="STEP:VICTIM — ghost node VICTIM after STEP "
+                         "(churn drill; implies --topo-churn)")
+    ap.add_argument("--drop-stragglers", action="store_true",
+                    help="ghost a node the wall-clock straggler monitor "
+                         "flags instead of only logging it")
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--eta0", type=float, default=0.1)
     ap.add_argument("--lr", type=float, default=1e-2)
@@ -57,17 +82,28 @@ def parse_args(argv=None):
 
 
 def run(cfg: ArchConfig, args) -> dict:
-    """Train ``cfg`` as ``args`` say; returns the run's record:
-    per-step losses and seconds, per-round metrics, and the layout."""
+    """Train ``cfg`` as ``args`` say; returns the run's record: per-step
+    losses and seconds, per-round metrics (with ``active_edges``, the
+    round's node liveness, and the launches of the ungated and the gated
+    kernel), and the layout.
+
+    The local step is not retried: it updates the replicas in place, so a
+    replay would start from a half-updated state."""
     device = resolve_device(args.device)
     model = build_model(cfg)
+    drop_at, drop_victim = (-1, -1)
+    if args.drop_node:
+        drop_at, drop_victim = (int(x) for x in args.drop_node.split(":"))
+    churn = args.topo_churn or args.drop_stragglers or drop_at >= 0
     trainer = ConsensusTrainer(
         model, num_nodes=args.nodes, device=device,
         adamw=AdamWConfig(lr=args.lr),
         consensus=ConsensusConfig(
             penalty=PenaltyConfig(scheme=args.scheme, eta0=args.eta0),
             topology=args.topology, local_steps=args.local_steps,
-            compression=args.compression, wire_codec=args.wire_codec))
+            compression=args.compression, wire_codec=args.wire_codec,
+            dyn_topology=TopologyConfig(scheduler=args.topo_scheduler,
+                                        churn=churn)))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))
     data = SyntheticTokens(DataConfig(
@@ -77,8 +113,10 @@ def run(cfg: ArchConfig, args) -> dict:
 
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
+    monitor = StragglerMonitor(trainer.num_nodes)
+    elastic = ElasticController(trainer.graph, topology=trainer.topo_rt)
     record = {"losses": [], "step_seconds": [], "rounds": [],
-              "layout": trainer.layout}
+              "layout": trainer.layout, "offsets": list(trainer.offsets)}
     t_start = time.perf_counter()
     for step in range(args.steps):
         t0 = time.perf_counter()
@@ -86,14 +124,40 @@ def run(cfg: ArchConfig, args) -> dict:
         loss = float(m["loss"])
         line = f"step {step:5d} loss {loss:.4f}"
         if trainer.should_sync(step):
+            alive = state.topo.node_alive.tolist()
+            before = (kops.consensus_round.launches,
+                      kops.consensus_round.masked_launches)
             state, cm = trainer.consensus_step(state,
                                                data.batch(10**6 + step))
             rnd = {k: float(v) for k, v in cm.items()}
+            rnd.update(alive=alive,
+                       launches=kops.consensus_round.launches - before[0],
+                       masked_launches=(kops.consensus_round.masked_launches
+                                        - before[1]))
             record["rounds"].append(rnd)
             line += (f" | consensus r={rnd['r_max']:.4f} "
                      f"eta={rnd['eta_mean']:.4f}")
+            if trainer.dynamic:
+                line += f" active={rnd['active_edges']:.2f}"
+        if step == drop_at:
+            # layout-preserving churn drill: ghost the victim and go on
+            state = state._replace(topo=elastic.drop_preserving(
+                drop_victim, state.topo, step))
+            line += f" | dropped node {drop_victim} (topology epoch)"
         sync()
         dt = time.perf_counter() - t0
+        slow = monitor.observe(np.full(trainer.num_nodes, dt))
+        if slow:
+            line += f" | stragglers: {slow}"
+            if args.drop_stragglers and trainer.dynamic:
+                for v in slow:
+                    # re-read liveness each drop: the >2-survivors floor
+                    # must see the drops already applied
+                    live = state.topo.node_alive.cpu().numpy()
+                    if live[v] and live.sum() > 2:
+                        state = state._replace(topo=elastic.drop_preserving(
+                            v, state.topo, step))
+                        line += f" | ghosted straggler {v}"
         record["losses"].append(loss)
         record["step_seconds"].append(dt)
         print(f"{line} {dt * 1e3:.0f}ms", flush=True)

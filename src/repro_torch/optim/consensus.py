@@ -1,5 +1,5 @@
-"""Consensus-ADMM training: the synchronous, static-topology trainer (port of
-``repro/optim/consensus.py:ConsensusTrainer``).
+"""Consensus-ADMM training: the synchronous trainer, on a static or a
+dynamic topology (port of ``repro/optim/consensus.py:ConsensusTrainer``).
 
 Every node i of the ADMM graph holds its own parameter replica theta_i.
 Between consensus rounds each node takes H local AdamW steps on its own
@@ -18,6 +18,16 @@ data (f_i = its local loss). A consensus round then
 All J node rows live on one device, so the exchange is a roll of dim 0 of
 the wire buffer. The graph must be circulant (ring, complete, expander):
 its edges are the offsets of node 0 applied to every node.
+
+Dynamic topology (``ConsensusConfig.dyn_topology``, ``repro_torch.topology``):
+the round exchanges over the runtime's offset superset (graph offsets plus
+churn spares), gates every edge by the state's mask — a gated edge gets
+zero weight in the kernel's edge-gated round and the neighbor mean divides
+by the active degree — absorbs the final force of newly gated edges into
+the dual one round later (zero-kick), and skips the roll and the probe of
+an offset with no active edge and no pending kick. A lost node becomes a
+ghost row (``apply_churn``): every buffer keeps its shape. The default
+``TopologyConfig()`` (static, no churn) keeps the ungated round.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as adamw_lib
 from repro_torch.optim import flatten
+from repro_torch.topology import (TopologyConfig, TopologyRuntime,
+                                  TopologyState, active_edge_fraction)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +64,8 @@ class ConsensusConfig:
     prox_step: float = 0.5         # alpha in the prox pull
     compression: str = "none"      # legacy spelling: none | int8
     wire_codec: str = ""           # native | int8; empty => from compression
+    # the default static scheduler without churn keeps the ungated round
+    dyn_topology: TopologyConfig = TopologyConfig()
 
 
 class TrainState(NamedTuple):
@@ -61,6 +75,7 @@ class TrainState(NamedTuple):
     theta_bar_prev: torch.Tensor   # [J, total] f32 neighbor means (eq. 5)
     penalty: PenaltyState          # [J, J]
     step: torch.Tensor             # [] int32
+    topo: TopologyState            # [J, J] dynamic-topology state
 
 
 def _roll_into(dst: torch.Tensor, src: torch.Tensor, off: int) -> None:
@@ -86,9 +101,18 @@ class ConsensusTrainer:
         self.num_nodes = int(num_nodes)
         self.graph: Graph = build_graph(consensus.topology, self.num_nodes) \
             if self.num_nodes > 1 else build_graph("complete", 1)
-        self.offsets = self.graph.neighbor_offsets_ring() \
-            if self.num_nodes > 1 else []
         self._check_circulant()
+        self.topo_cfg = consensus.dyn_topology
+        self.topo_cfg.validate_penalty(consensus.penalty)
+        if self.topo_cfg.scheduler == "stale":
+            raise NotImplementedError(
+                "the stale scheduler runs under the async executor, which "
+                "comes with the async slice")
+        # offsets come from the runtime's superset: the graph's circulant
+        # offsets, plus spare offsets for churn repair
+        self.topo_rt = TopologyRuntime(self.graph, self.topo_cfg)
+        self.dynamic = self.topo_cfg.is_dynamic and self.num_nodes > 1
+        self.offsets = self.topo_rt.offsets if self.num_nodes > 1 else []
         defs = model.param_defs()
         self.layout = flatten.FlatLayout.for_tree(
             defs, block_size=flatten.auto_block_size(defs), node_axis=False)
@@ -110,7 +134,7 @@ class ConsensusTrainer:
     def _check_circulant(self):
         j = self.num_nodes
         u = np.zeros((j, j), dtype=bool)
-        for off in self.offsets:
+        for off in self.graph.neighbor_offsets_ring():
             u[np.arange(j), (np.arange(j) + off) % j] = True
         if not np.array_equal(u, self.graph.adj):
             raise ValueError(
@@ -133,7 +157,8 @@ class ConsensusTrainer:
                                        device=self.device),
             penalty=init_penalty_state(self.ccfg.penalty, j,
                                        device=self.device),
-            step=torch.zeros((), dtype=torch.int32, device=self.device))
+            step=torch.zeros((), dtype=torch.int32, device=self.device),
+            topo=self.topo_rt.init_state(self.device))
 
     # ------------------------------------------------------- local steps ----
     def train_step(self, state: TrainState, batch: dict
@@ -196,6 +221,25 @@ class ConsensusTrainer:
         deg = len(offsets)
         lay = self.layout
         idx = torch.arange(j, device=dev)
+        dynamic = self.dynamic
+        topo = state.topo
+        # scheduler zero-kick: consume the kick weights parked when edges
+        # gated at the END of the last round — their neighbors' parameters
+        # are on THIS round's wire
+        kick_on = dynamic and self.topo_cfg.can_gate
+
+        # offsets to exchange: all of them, except (dynamic, with
+        # skip_dead_offsets) those with no active edge and no pending kick,
+        # from ONE host read of the mask (and kicks) per round
+        live = [True] * deg
+        if dynamic and self.topo_cfg.skip_dead_offsets:
+            gates = topo.mask.to(f32)
+            if kick_on:
+                gates = gates + topo.kick
+            gates = gates.cpu().numpy()
+            rows = np.arange(j)
+            live = [bool(gates[rows, (rows + off) % j].sum() > 0)
+                    for off in offsets]
 
         f_self = self._probe_losses(state.params, probe_batch)     # [J]
 
@@ -205,11 +249,15 @@ class ConsensusTrainer:
 
         # exchange: rolled[d] = torch.roll(wire, -off_d, 0). These are
         # COPIES, never views of theta_flat: the kernel updates theta_flat
-        # in place on the card.
+        # in place on the card. A dead offset moves nothing: its row is a
+        # zero payload with unit scales.
         rolled = torch.empty((deg,) + tuple(wire.shape), dtype=wire.dtype,
                              device=dev)
         for d, off in enumerate(offsets):
-            _roll_into(rolled[d], wire, off)
+            if live[d]:
+                _roll_into(rolled[d], wire, off)
+            else:
+                rolled[d].zero_()
         del wire
         payloads, dec_scales = self.codec.decode(rolled)
         wires = payloads.contiguous()                 # [deg, J, total]
@@ -218,13 +266,28 @@ class ConsensusTrainer:
         eta = state.penalty.eta
         sym_sum = torch.zeros((j,), dtype=f32, device=dev)
         f_nbr = torch.zeros((j, j), dtype=f32, device=dev)
-        e_rows = []
+        e_rows, w_rows, kick_rows = [], [], []
+        if dynamic:
+            mask_f = topo.mask.to(f32)
+            act = torch.zeros((j,), dtype=f32, device=dev)
         for d, off in enumerate(offsets):
             jidx = (idx + off) % j
-            f_off = self._probe_losses(self.codec.unpack(
-                wires[d], None if dec_scales is None else dec_scales[d]),
-                probe_batch)
+            if live[d]:
+                f_off = self._probe_losses(self.codec.unpack(
+                    wires[d], None if dec_scales is None else dec_scales[d]),
+                    probe_batch)
+            else:                  # a dead offset probes f_self (no forward)
+                f_off = f_self
             e_sym = 0.5 * (eta[idx, jidx] + eta[jidx, idx])             # [J]
+            if dynamic:
+                # the gate flows into the edge weights: a gated edge costs
+                # zero math in the kernel
+                m_off = mask_f[idx, jidx]                               # [J]
+                e_sym = e_sym * m_off
+                act = act + m_off
+                w_rows.append(m_off)
+                if kick_on:
+                    kick_rows.append(topo.kick[idx, jidx])
             # F[i, (i+off) % J] through the static circulant mask
             mask = torch.as_tensor(np.roll(np.eye(j), off, axis=1),
                                    dtype=f32, device=dev)
@@ -235,13 +298,26 @@ class ConsensusTrainer:
         scales = dec_scales.contiguous() if dec_scales is not None \
             else torch.ones((deg, j, self.codec.scale_width), dtype=f32,
                             device=dev)
+        for d in range(deg):
+            if not live[d]:
+                scales[d] = 1.0
 
         alpha = self.ccfg.prox_step / (1.0 + 2.0 * sym_sum)           # [J]
-        eta_node = sym_sum / deg
+        gated = {}
+        if dynamic:
+            # active-degree neighbor mean; ghosts (degree 0) get bar = 0
+            inv_deg = torch.where(act > 0, 1.0 / torch.clamp_min(act, 1.0),
+                                  0.0)
+            eta_node = sym_sum * inv_deg
+            gated = dict(bar_w=torch.stack(w_rows), inv_deg=inv_deg)
+            if kick_on:
+                gated["kick_w"] = torch.stack(kick_rows)
+        else:
+            eta_node = sym_sum / deg
         theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
             theta_flat, state.lam, state.theta_bar_prev, wires, scales,
             e_stack, alpha, sym_sum, eta_node, block_leaf=self.block_leaf,
-            block_size=lay.block_size)
+            block_size=lay.block_size, **gated)
         del wires
 
         # theta_new -> the parameter replicas, in place
@@ -252,17 +328,59 @@ class ConsensusTrainer:
         del theta_flat, theta_new
         r_norm = torch.sqrt(r_sq)
         s_norm = torch.sqrt(s_sq)
-        penalty_new = update_penalty(
-            self.ccfg.penalty, state.penalty, adj=self._adj, f_self=f_self,
-            f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
-        new = state._replace(lam=lam_new, theta_bar_prev=bar_new,
-                             penalty=penalty_new)
         adj = self._adj
+        if dynamic:
+            # penalties keep adapting on gated GRAPH edges (the eq. 10
+            # top-up must still see them to revive) and on repair edges,
+            # but never on ghost rows/cols
+            alive = topo.node_alive
+            adj_pen = (adj & alive[:, None] & alive[None, :]) | topo.mask
+        else:
+            adj_pen = adj
+        penalty_new = update_penalty(
+            self.ccfg.penalty, state.penalty, adj=adj_pen, f_self=f_self,
+            f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
+        topo_new = self.topo_rt.update(topo, penalty=penalty_new,
+                                       r_norm=r_norm) if dynamic else topo
+        if kick_on:
+            # edges the scheduler just gated: park their final consensus
+            # force (the symmetrized weight applied THIS round) for the
+            # kernel to absorb into the dual next round
+            newly_off = (topo.mask & ~topo_new.mask).to(f32)
+            topo_new = topo_new._replace(kick=0.5 * (eta + eta.T)
+                                         * newly_off)
+        new = state._replace(lam=lam_new, theta_bar_prev=bar_new,
+                             penalty=penalty_new, topo=topo_new)
+        if dynamic:
+            # ghost and zero-active-degree rows have bar = 0, so their
+            # "residual" is the full parameter norm; an isolated node has
+            # no consensus constraint — exclude both from the extremes
+            alive_f = topo.node_alive.to(f32) * (act > 0).to(f32)
+            r_rep, s_rep = r_norm * alive_f, s_norm * alive_f
+            f_rep = (f_self * alive_f).sum() / torch.clamp_min(
+                alive_f.sum(), 1)
+        else:
+            r_rep, s_rep, f_rep = r_norm, s_norm, f_self.mean()
         metrics = {
-            "r_max": r_norm.max(), "s_max": s_norm.max(),
-            "f_mean": f_self.mean(),
+            "r_max": r_rep.max(), "s_max": s_rep.max(),
+            "f_mean": f_rep,
             "eta_mean": torch.where(adj, penalty_new.eta, 0.0).sum()
             / torch.clamp_min(adj.sum(), 1),
-            "active_edges": torch.ones((), device=dev),
+            "active_edges": (active_edge_fraction(topo, adj) if dynamic
+                             else torch.ones((), device=dev)),
         }
         return new, metrics
+
+    # ------------------------------------------------------------- churn ----
+    def apply_churn(self, state: TrainState, victim: int) -> TrainState:
+        """Host-side layout-preserving node drop — a topology epoch, not a
+        crash: every buffer keeps its [J, ...] shape, only ``state.topo``
+        (liveness, mask, repair edges) is rewritten, and the victim becomes
+        a ghost row whose edges cost zero math. Needs a dynamic topology
+        config (``churn=True`` or a non-static scheduler)."""
+        if not self.dynamic:
+            raise ValueError(
+                "node churn needs ConsensusConfig.dyn_topology with "
+                "churn=True (or a non-static scheduler)")
+        return state._replace(topo=self.topo_rt.drop_node(state.topo,
+                                                          victim))

@@ -1,8 +1,16 @@
-"""Inputs of one fused consensus round, shared by the CPU parity tests and
-the card's tests (this module imports no JAX, so it also runs on a machine
-without it)."""
+"""Helpers shared by the port's tests: the inputs of one fused consensus
+round (used by the CPU parity tests and the card's tests) and a runner that
+computes the reference's outputs in a fresh process. This module imports no
+JAX, so it also runs on a machine without it."""
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(TESTS), "src")
 
 NAMES = ("theta", "lam", "bar", "r_sq", "s_sq")
 ARGS = ("theta", "lam", "barp", "wires", "scales", "e_sym", "alpha",
@@ -44,3 +52,93 @@ def torch_args(case):
         else:
             out.append(torch.from_numpy(a))
     return out
+
+
+def bf16_round(x):
+    """``x`` rounded to the nearest bfloat16, kept as float32 numpy (so that
+    either framework casts it to bf16 exactly)."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def masked_round_case(rng, *, j, deg, nleaves, bs, wire="int8",
+                      theta_dtype="float32", kick=True):
+    """An edge-gated round's inputs, as the dynamic trainer builds them.
+
+    Gates mixed 0/1 with: node ``j - 1`` a ghost (no gate, ``inv_deg`` 0);
+    offset 0 dead for every node (zero payload, unit scales, no gate); the
+    gated edges' weights zero in ``e_sym``; with ``kick``, non-zero kick
+    weights on the gated edges of live offsets. ``wire`` is ``int8`` or
+    ``native`` (theta's dtype); ``theta_dtype`` is ``float32`` or
+    ``bfloat16`` (values rounded to bf16 and stored as float32, see
+    ``masked_torch_args``).
+    """
+    case = round_case(rng, j=j, deg=deg, nleaves=nleaves, bs=bs)
+    bar_w = rng.integers(0, 2, size=(deg, j)).astype(np.float32)
+    bar_w[:, j - 1] = 0.0                          # ghost row
+    bar_w[0, :] = 0.0                              # dead offset
+    if deg > 1:
+        bar_w[1, 0] = 1.0                          # some live edge
+    if wire == "native":
+        case["wires"] = rng.normal(size=case["wires"].shape).astype(
+            np.float32)
+        case["scales"] = np.ones_like(case["scales"])
+    case["wires"][0] = 0
+    case["scales"][0] = 1.0
+    if theta_dtype == "bfloat16":
+        case["theta"] = bf16_round(case["theta"])
+        if wire == "native":
+            case["wires"] = bf16_round(case["wires"])
+    e_sym = case["e_sym"] * bar_w
+    act = bar_w.sum(axis=0)
+    inv_deg = np.where(act > 0, 1.0 / np.maximum(act, 1.0), 0.0).astype(
+        np.float32)
+    eta_sum = e_sym.sum(axis=0)
+    case.update(e_sym=e_sym, eta_sum=eta_sum,
+                alpha=(0.5 / (1.0 + 2.0 * eta_sum)).astype(np.float32),
+                eta_node=(eta_sum * inv_deg).astype(np.float32),
+                bar_w=bar_w, inv_deg=inv_deg, theta_dtype=theta_dtype,
+                wire_kind=wire)
+    if kick:
+        kick_w = rng.uniform(0.1, 2.0, size=(deg, j)).astype(np.float32)
+        kick_w *= 1.0 - bar_w
+        kick_w[0, :] = 0.0
+        kick_w[:, j - 1] = 0.0
+        case["kick_w"] = kick_w
+    return case
+
+
+def masked_torch_args(case, device="cpu"):
+    """(positional args, gate keywords) of ``ops.consensus_round`` for a
+    ``masked_round_case``, on ``device``."""
+    args = torch_args(case)
+    if case["theta_dtype"] == "bfloat16":
+        args[0] = args[0].to(torch.bfloat16)
+        if case["wire_kind"] == "native":
+            args[3] = args[3].to(torch.bfloat16)
+    kw = {k: torch.from_numpy(case[k]) for k in ("bar_w", "inv_deg",
+                                                 "kick_w") if k in case}
+    return ([a.to(device) for a in args],
+            {k: v.to(device) for k, v in kw.items()})
+
+
+def run_reference(module: str, out_dir) -> dict:
+    """``<module>._reference_outputs()`` run in a fresh Python process, as
+    a dict of numpy arrays.
+
+    The reference runs on the CPU with a clean ``XLA_FLAGS`` (one device),
+    whatever flags the test process carries: a JAX backend started in the
+    test process would lock in the flags that other test modules may have
+    set at collection.
+    """
+    path = os.path.join(str(out_dir), f"{module}.npz")
+    code = (f"import sys; sys.path[:0] = [{TESTS!r}, {SRC!r}]\n"
+            f"import numpy as np\nimport {module} as m\n"
+            f"np.savez({path!r}, **m._reference_outputs())\n")
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
