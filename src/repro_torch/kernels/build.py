@@ -57,25 +57,41 @@ def build(name: str) -> dict:
     (``-Xptxas -v``: registers, shared memory and spills per kernel); a
     library that was already built reports 0 seconds and no log.
     """
-    path = library_path(name)
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "log": ""}
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile into a file of this process, then rename: a reader never sees
-    # a half-written library
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited "
-                           f"{proc.returncode} on {name}.cu\n{log}")
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds, "log": log}
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one nvcc process per source, all started together; returns
+    {name: build()'s record}. Raises after all have ended if any failed."""
+    done, running = {}, {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            done[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile into a file of this process, then rename: a reader never
+        # sees a half-written library
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, path, t0) in running.items():
+        log = proc.communicate()[0]
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode} on {name}.cu\n{log}")
+            continue
+        os.replace(tmp, path)
+        done[name] = {"path": str(path), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,13 +5,16 @@
 // reached from `consensus_round` at :380:
 //   * `_round_kernel` (:141), the ungated round -> consensus_round_kernel;
 //   * `_round_kernel_masked` (:221), the edge-gated round of the dynamic
-//     topology with the optional zero-kick -> consensus_round_masked_kernel.
+//     topology with the optional zero-kick -> consensus_round_masked_kernel;
+// each with per-leaf scales (native and int8 wires) or per-block scales
+// (`scales_per_block`, the fp8 wires: `li = b if per_block` at :147, :231).
 // The whole-row `_row_kernel` (:175) and `_row_kernel_masked` (:269) are
 // the same functions under another TPU tiling and need no kernel of their
 // own.
 //
 // For node i, layout block b and graph offsets d = 0..deg-1:
-//   x_d    = float(wire[d, i, :]) * scales[d, i, block_leaf[b]]
+//   x_d    = float(wire[d, i, :]) * scales[d, i, s(b)]
+//            s(b) = b with per-block scales, block_leaf[b] otherwise
 //   nbr_w  = sum_d e_sym[d, i] * x_d        nbr_p = sum_d x_d  (increasing d)
 //   bar    = nbr_p * (1 / deg)              nbr   = nbr_w / max(eta_sum, 1e-12)
 //   theta' = theta - alpha (2 lam + eta_sum (theta - nbr))
@@ -29,13 +32,17 @@
 // theta' is stored in theta's dtype over theta, lam' over lam and bar (f32)
 // over bar_prev: each element is read and then written by the same thread,
 // so the update is safe in place. The wires must not alias any of them.
-// block_leaf holds ids in [0, nleaves): the flat layout's table does by
+// block_leaf holds ids in [0, scale_width): the flat layout's table does by
 // construction, and its owner checks it once where it builds the table.
+// Every wire type upcasts to f32 exactly: bf16 and int8 trivially, fp8
+// (e4m3fn, e5m2) through the hardware's fp8x2 -> f16x2 conversion, whose
+// results are all exact in f16 and so in f32.
 //
 // Bound. Every element is touched once: read theta (2 B bf16), lam (4 B),
 // bar_prev (4 B) and deg wire rows (2 B bf16 or 1 B int8 each); write
 // theta' (2 B), lam' (4 B) and bar (4 B). The gated round moves the same
-// bytes (its gates are [deg, J] scalars). At the trainer's full-width
+// bytes (its gates are [deg, J] scalars); an fp8 wire row is 1 B. At the
+// trainer's full-width
 // qwen3-4b shape (J = 2, deg = 1, bf16 theta and wire, 1,181,941,760
 // elements per row) that is 22 B/element, about 52.0 GB per round, or about
 // 15.5 ms at the H100's 3.35 TB/s. The arithmetic (about 20 f32 operations
@@ -56,12 +63,17 @@
 // The gated kernel is the same body with two compile-time flags, MASKED and
 // KICK; with both off it is the ungated kernel, instruction for
 // instruction. Each block reads its node's gates as it reads e_sym.
+// Per-block scales are a run-time flag, uniform over the launch: each block
+// picks its scale column once (b or block_leaf[b]), as the TPU kernel reads
+// one SMEM scalar, so the fp8 wires add wire types and no template axis.
 //
 // The file is compiled with -fmad=false so that the kernel rounds after
 // every multiply and add exactly as the plain PyTorch version does; the cost
 // is nil for a kernel bound by memory.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,9 +83,9 @@ constexpr int kThreads = 256;
 constexpr int kVec = 8;  // elements per thread per step: 16 B of bf16
 
 struct RoundArgs {
-  const void* wires;       // [deg, J, total], theta's dtype or int8
-  const float* scales;     // [deg, J, nleaves]
-  const int* block_leaf;   // [nblocks]
+  const void* wires;       // [deg, J, total], theta's dtype, int8 or fp8
+  const float* scales;     // [deg, J, scale_width]
+  const int* block_leaf;   // [nblocks] (per-leaf scales only)
   const float* e_sym;      // [deg, J]
   const float* alpha;      // [J]
   const float* eta_sum;    // [J]
@@ -90,7 +102,8 @@ struct RoundArgs {
   int J;
   int deg;
   int block_size;
-  int nleaves;
+  int scale_width;         // nleaves, or nblocks with per-block scales
+  int scales_per_block;    // 1: block b reads scale column b
 };
 
 __device__ __forceinline__ void load8(const float* p, float* out) {
@@ -118,6 +131,31 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int k = 0; k < 8; ++k) out[k] = static_cast<float>(c[k]);
 }
 
+// fp8: one 8-byte load, then four hardware fp8x2 -> f16x2 conversions (the
+// low byte of each pair is the first element)
+template <__nv_fp8_interpretation_t KIND>
+__device__ __forceinline__ void load8_fp8(const void* p, float* out) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const unsigned int w[2] = {u.x, u.y};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_fp8x2_storage_t pair =
+        static_cast<__nv_fp8x2_storage_t>(w[k >> 1] >> (16 * (k & 1)));
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(pair, KIND));
+    const float2 f = __half22float2(h);
+    out[2 * k] = f.x;
+    out[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
+  load8_fp8<__NV_E4M3>(p, out);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p, float* out) {
+  load8_fp8<__NV_E5M2>(p, out);
+}
+
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -137,7 +175,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// TT: theta's type (float or bf16); WT: the wire's (TT or int8).
+// TT: theta's type (float or bf16); WT: the wire's (TT, int8 or fp8).
 // DEG > 0 unrolls the offset loop at compile time; DEG == 0 loops over
 // a.deg at run time. MASKED: the edge-gated round; KICK (MASKED only): the
 // zero-kick dual term.
@@ -148,7 +186,7 @@ __device__ __forceinline__ void round_body(const RoundArgs& a) {
   const int b = blockIdx.x;
   const int i = blockIdx.y;
   const int nblocks = gridDim.x;
-  const int leaf = a.block_leaf[b];
+  const int col = a.scales_per_block ? b : a.block_leaf[b];
   const float alpha = a.alpha[i];
   const float eta_sum = a.eta_sum[i];
   const float eta_node = a.eta_node[i];
@@ -180,7 +218,7 @@ __device__ __forceinline__ void round_body(const RoundArgs& a) {
     // deg is a compile-time constant when DEG > 0, and the loop unrolls
 #pragma unroll 4
     for (int d = 0; d < deg; ++d) {
-      const float sc = a.scales[(static_cast<long long>(d) * a.J + i) * a.nleaves + leaf];
+      const float sc = a.scales[(static_cast<long long>(d) * a.J + i) * a.scale_width + col];
       const float ew = a.e_sym[d * a.J + i];
       const float bw = MASKED ? a.bar_w[d * a.J + i] : 1.0f;
       const float kw = KICK ? a.kick_w[d * a.J + i] : 0.0f;
@@ -282,35 +320,45 @@ void launch_any(const RoundArgs& a, dim3 grid, cudaStream_t stream) {
 }  // namespace
 
 // theta_kind: 0 = float32, 1 = bfloat16.  wire_kind: 0 = theta's dtype,
-// 1 = int8. bar_w and inv_deg (both or neither) select the gated round;
+// 1 = int8, 2 = float8_e4m3fn, 3 = float8_e5m2. scales_per_block: 1 = the
+// scale rows are [deg, J, nblocks] and block b reads column b (scale_width
+// must be nblocks; block_leaf is not read), 0 = per-leaf rows through
+// block_leaf. bar_w and inv_deg (both or neither) select the gated round;
 // kick_w (gated round only) adds the zero-kick; null pointers leave them
 // out. Returns a cudaError_t: the launch's own (cudaGetLastError) or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int consensus_round_launch(
     int theta_kind, int wire_kind, int J, int deg, long long total,
-    int block_size, int nleaves, const void* wires, const float* scales,
+    int block_size, int scale_width, int scales_per_block,
+    const void* wires, const float* scales,
     const int* block_leaf, const float* e_sym, const float* alpha,
     const float* eta_sum, const float* eta_node, const float* bar_w,
     const float* inv_deg, const float* kick_w, void* theta, float* lam,
     float* bar, float* rsq, float* ssq, void* stream) {
   if (J < 1 || J > 65535 || deg < 1 || block_size < kVec
-      || block_size % kVec != 0 || total % block_size != 0 || nleaves < 1)
+      || block_size % kVec != 0 || total % block_size != 0 || scale_width < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((bar_w == nullptr) != (inv_deg == nullptr)
       || (kick_w != nullptr && bar_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long nblocks = total / block_size;
-  if (nblocks < 1 || nblocks > 0x7fffffffLL)
+  if (nblocks < 1 || nblocks > 0x7fffffffLL
+      || (scales_per_block != 0 && scale_width != nblocks))
     return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a{wires, scales, block_leaf, e_sym, alpha, eta_sum, eta_node,
               bar_w, inv_deg, kick_w,
-              theta, lam, bar, rsq, ssq, total, J, deg, block_size, nleaves};
+              theta, lam, bar, rsq, ssq, total, J, deg, block_size,
+              scale_width, scales_per_block != 0 ? 1 : 0};
   const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(J));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (theta_kind == 0 && wire_kind == 0) launch_any<float, float>(a, grid, st);
   else if (theta_kind == 0 && wire_kind == 1) launch_any<float, int8_t>(a, grid, st);
+  else if (theta_kind == 0 && wire_kind == 2) launch_any<float, __nv_fp8_e4m3>(a, grid, st);
+  else if (theta_kind == 0 && wire_kind == 3) launch_any<float, __nv_fp8_e5m2>(a, grid, st);
   else if (theta_kind == 1 && wire_kind == 0) launch_any<__nv_bfloat16, __nv_bfloat16>(a, grid, st);
   else if (theta_kind == 1 && wire_kind == 1) launch_any<__nv_bfloat16, int8_t>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 2) launch_any<__nv_bfloat16, __nv_fp8_e4m3>(a, grid, st);
+  else if (theta_kind == 1 && wire_kind == 3) launch_any<__nv_bfloat16, __nv_fp8_e5m2>(a, grid, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,13 @@ A tensor's device picks the path, nothing else: CPU tensors go to the plain
 PyTorch version in ``kernels/ref.py``; CUDA tensors go to the hand-written
 kernel, or the call raises. No path falls back to the other.
 
-Each wrapper counts its kernel launches in plain integer attributes
-(``consensus_round.launches`` for the ungated round,
-``consensus_round.masked_launches`` for the edge-gated one), so that a run
-can show that it went through the kernel.
+Each wrapper counts its kernel launches in plain integer attributes, so that
+a run can show that it went through the kernel:
+``consensus_round.launches`` (the ungated round),
+``consensus_round.masked_launches`` (the edge-gated one),
+``consensus_round.per_block_launches`` (those of either with per-block
+scales, the fp8 wires; counted in one of the first two as well) and
+``consensus_update.launches``.
 """
 from __future__ import annotations
 
@@ -25,16 +28,18 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
     Args:
       theta: [J, total] f32 or bf16 node parameters (total = blocks * bs).
       lam, bar_prev: [J, total] f32 duals and last round's neighbor means.
-      wires: [deg, J, total] rolled wire payloads, theta's dtype or int8;
-        row d holds theta_{(i+off_d) % J} at node i.
+      wires: [deg, J, total] rolled wire payloads, theta's dtype, int8 or
+        an fp8 type (float8_e4m3fn, float8_e5m2); row d holds
+        theta_{(i+off_d) % J} at node i.
       scales: [deg, J, L] f32 per-leaf dequant scales (ones for a native
-        wire).
+        wire), or [deg, J, num_blocks] per-block ones with
+        ``scales_per_block``.
       e_sym: [deg, J] f32 symmetrized per-edge penalties (zero on gated
         edges).
       alpha, eta_sum, eta_node: [J] f32 per-node scalars.
       block_leaf: [num_blocks] int32 owning leaf id per block (the layout
         table); every id must lie in [0, L), which the caller checks once
-        where it builds the table.
+        where it builds the table. Not read with per-block scales.
       block_size: elements per block; must divide total.
       bar_w: optional [deg, J] f32 edge gates (1 = active) weighting the
         neighbor mean — the dynamic topology's mask.
@@ -42,34 +47,64 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
         nodes); given together with ``bar_w``. Both None: the ungated round.
       kick_w: optional [deg, J] f32 zero-kick weights (gated round only):
         the dual also absorbs ``0.5 * sum_d kick_w[d] * (theta - x_d)``.
-      scales_per_block: per-block dequant scales (the fp8 wires); not yet
-        ported.
+      scales_per_block: block b dequantizes with ``scales[..., b]`` (the
+        fp8 codecs' granularity) instead of ``scales[..., block_leaf[b]]``.
 
     Returns (theta_new [J, total], lam_new [J, total], bar [J, total] f32,
     r_sq [J], s_sq [J]). On a CUDA tensor the kernel writes theta_new, lam_new
     and bar IN PLACE over theta, lam and bar_prev and returns those tensors;
     on the CPU the plain version returns new tensors.
     """
-    if scales_per_block:
-        raise NotImplementedError(
-            "per-block scales come with the fp8 wire slice")
     dev = theta.device
     if dev.type == "cpu":
         return _ref.consensus_round_ref(
             theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
             eta_node, block_leaf=block_leaf, block_size=block_size,
-            bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w)
+            bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w,
+            scales_per_block=scales_per_block)
     if dev.type != "cuda":
         raise ValueError(f"consensus_round: no kernel for device {dev}")
     rsq, ssq = _cu.launch(theta, lam, bar_prev, wires, scales, e_sym, alpha,
                           eta_sum, eta_node, block_leaf, block_size,
-                          bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w)
+                          bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w,
+                          scales_per_block=scales_per_block)
     if bar_w is None:
         consensus_round.launches += 1
     else:
         consensus_round.masked_launches += 1
+    if scales_per_block:
+        consensus_round.per_block_launches += 1
     return theta, lam, bar_prev, rsq.sum(dim=1), ssq.sum(dim=1)
 
 
 consensus_round.launches = 0
 consensus_round.masked_launches = 0
+consensus_round.per_block_launches = 0
+
+
+def consensus_update(theta, lam, nbr_avg, bar, bar_prev, *, eta_sum,
+                     eta_node, step_size, block_size: int = 65536):
+    """Flat consensus update with a precomputed neighbor mean (the
+    reference's ``repro.kernels.ops.consensus_update``).
+
+    theta, lam (f32 or bf16), nbr_avg, bar, bar_prev (f32): flat [N]
+    vectors, N any length; eta_sum, eta_node, step_size: scalars (f32).
+    Returns (theta_new [N], lam_new [N], r_sq [], s_sq []), see
+    ``ref.consensus_update_ref``. On a CUDA tensor the kernel writes
+    theta_new and lam_new IN PLACE over theta and lam and returns those
+    tensors; on the CPU the plain version returns new tensors.
+    """
+    dev = theta.device
+    kw = dict(eta_sum=eta_sum, eta_node=eta_node, step_size=step_size,
+              block_size=block_size)
+    if dev.type == "cpu":
+        return _ref.consensus_update_ref(theta, lam, nbr_avg, bar, bar_prev,
+                                         **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"consensus_update: no kernel for device {dev}")
+    rsq, ssq = _cu.launch_update(theta, lam, nbr_avg, bar, bar_prev, **kw)
+    consensus_update.launches += 1
+    return theta, lam, rsq.sum(), ssq.sum()
+
+
+consensus_update.launches = 0

@@ -17,9 +17,12 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
     """Whole-round flat-buffer consensus update, ungated or edge-gated.
 
     theta [J, total] (f32 or bf16), lam / bar_prev [J, total] f32, wires
-    [deg, J, total] (theta's dtype or int8), scales [deg, J, L] f32 per-leaf
-    dequant scales, e_sym [deg, J], alpha / eta_sum / eta_node [J].
-    ``block_leaf`` is the layout's [num_blocks] block->leaf table.
+    [deg, J, total] (theta's dtype, int8, or an fp8 type), scales
+    [deg, J, L] f32 per-leaf dequant scales, e_sym [deg, J], alpha /
+    eta_sum / eta_node [J]. ``block_leaf`` is the layout's [num_blocks]
+    block->leaf table. With ``scales_per_block`` (the fp8 wires) the scale
+    rows are [deg, J, num_blocks], indexed by the block id with no
+    block->leaf lookup. Every wire type upcasts to f32 exactly.
 
     Reductions run blockwise in the kernel's order (block partials first,
     then the sum per node) so that the kernel and this version agree to
@@ -31,37 +34,36 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
     degree, 0 for an isolated or ghost node) replaces 1/deg. Zero-kick
     (``kick_w`` [deg, J], gated round only): the dual also absorbs
     ``0.5 * sum_d kick_w[d] * (theta - x_d)`` at the round-start theta.
-    The gated sums run over d in increasing order, one rounding per
-    multiply and add, exactly as the CUDA kernel does. Per-block scales
-    belong to the fp8 slice.
+    The sums over the offsets run over d in increasing order, one rounding
+    per multiply and add, exactly as the CUDA kernel does, so that the two
+    agree bit for bit in theta', lam' and bar.
     """
     if (bar_w is None) != (inv_deg is None):
         raise ValueError("bar_w and inv_deg travel together")
     if kick_w is not None and bar_w is None:
         raise ValueError("kick_w needs the gated round (bar_w, inv_deg)")
-    if scales_per_block:
-        raise NotImplementedError(
-            "per-block scales come with the fp8 wire slice")
     j, total = theta.shape
     deg = wires.shape[0]
     dev = theta.device
     f32 = torch.float32
-    bl = torch.as_tensor(block_leaf, dtype=torch.long, device=dev)
-    srows = scales.to(f32)[..., bl]                    # [deg, J, nblocks]
+    if scales_per_block:
+        srows = scales.to(f32)                         # [deg, J, nblocks]
+    else:
+        bl = torch.as_tensor(block_leaf, dtype=torch.long, device=dev)
+        srows = scales.to(f32)[..., bl]
     scale_vec = torch.repeat_interleave(srows, block_size, dim=-1)
     x = wires.to(f32) * scale_vec                      # [deg, J, total]
+    e = e_sym.to(f32)
+    w = None if bar_w is None else torch.as_tensor(bar_w, dtype=f32,
+                                                   device=dev)
+    nbr_w = torch.zeros((j, total), dtype=f32, device=dev)
+    nbr_p = torch.zeros((j, total), dtype=f32, device=dev)
+    for d in range(deg):
+        nbr_w = nbr_w + e[d][:, None] * x[d]
+        nbr_p = nbr_p + (x[d] if w is None else w[d][:, None] * x[d])
     if bar_w is None:
-        e = e_sym.to(f32)[..., None]
-        nbr_w = (e * x).sum(dim=0)
-        bar = x.sum(dim=0) * (1.0 / deg)
+        bar = nbr_p * (1.0 / deg)
     else:
-        e = e_sym.to(f32)
-        w = torch.as_tensor(bar_w, dtype=f32, device=dev)
-        nbr_w = torch.zeros((j, total), dtype=f32, device=dev)
-        nbr_p = torch.zeros((j, total), dtype=f32, device=dev)
-        for d in range(deg):
-            nbr_w = nbr_w + e[d][:, None] * x[d]
-            nbr_p = nbr_p + w[d][:, None] * x[d]
         bar = nbr_p * torch.as_tensor(inv_deg, dtype=f32,
                                       device=dev)[:, None]
     eta_sum = torch.as_tensor(eta_sum, dtype=f32, device=dev)
@@ -90,3 +92,46 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
     s_sq = eta_node ** 2 * blocksum(dbar * dbar)
     return (theta_new.to(theta.dtype), lam_new.to(lam.dtype), bar, r_sq,
             s_sq)
+
+
+def consensus_update_ref(theta, lam, nbr_avg, bar, bar_prev, *, eta_sum,
+                         eta_node, step_size, block_size: int = 65536):
+    """Flat consensus update with a precomputed neighbor mean (the
+    reference's ``consensus_update`` kernel and its oracle).
+
+    theta, lam, nbr_avg, bar, bar_prev: flat [N] vectors (theta and lam f32
+    or bf16, the others f32); eta_sum, eta_node, step_size: scalars, taken
+    as f32. N need not be a multiple of the block size: padding with zeros
+    is a fixed point of the update and adds nothing to the sums.
+
+        theta' = theta - step (2 lam + eta_sum (theta - nbr_avg))
+        lam'   = lam + (0.5 eta_sum) (theta' - nbr_avg)
+        r_sq   = sum (theta' - bar)^2              (f32 theta')
+        s_sq   = sum_b eta_node^2 sum_{i in b} (bar - bar_prev)^2
+
+    Both sums are taken per block of ``min(block_size, N)`` elements first
+    and then over the blocks, the reference kernel's order. Returns
+    (theta' in theta's dtype, lam' in lam's dtype, r_sq [], s_sq []); the
+    inputs are left untouched.
+    """
+    (n,) = theta.shape
+    dev = theta.device
+    f32 = torch.float32
+    eta_sum, eta_node, step = (torch.as_tensor(x, dtype=f32, device=dev)
+                               for x in (eta_sum, eta_node, step_size))
+    theta32 = theta.to(f32)
+    lam32 = lam.to(f32)
+    nbr = nbr_avg.to(f32)
+    bar32 = bar.to(f32)
+    theta_new = theta32 - step * (2.0 * lam32 + eta_sum * (theta32 - nbr))
+    lam_new = lam32 + (0.5 * eta_sum) * (theta_new - nbr)
+    bs = min(block_size, n)
+    pad = -n % bs
+
+    def blocks(v):
+        return torch.nn.functional.pad(v, (0, pad)).reshape(-1, bs)
+
+    r_sq = blocks((theta_new - bar32) ** 2).sum(dim=1).sum()
+    dbar = bar32 - bar_prev.to(f32)
+    s_sq = (eta_node * eta_node * blocks(dbar * dbar).sum(dim=1)).sum()
+    return theta_new.to(theta.dtype), lam_new.to(lam.dtype), r_sq, s_sq

@@ -10,6 +10,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 10 --local-steps 2 --nodes 4 --topology complete \\
       --topo-scheduler round_robin --drop-node 5:1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --steps 4 --local-steps 2 --wire-codec fp8_e4m3 --device cpu
 
 The async, observability, checkpoint and pipeline flags come with their
 slices; until then argparse rejects them, and the ``stale`` scheduler with
@@ -71,12 +73,14 @@ def parse_args(argv=None):
     ap.add_argument("--eta0", type=float, default=0.1)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--compression", default="none", choices=["none", "int8"],
-                    help="legacy spelling of --wire-codec")
+                    help="legacy spelling of --wire-codec (none | int8)")
     ap.add_argument("--wire-codec", default="",
-                    choices=["", "native", "int8"],
-                    help="consensus wire codec: native = params dtype, "
-                         "int8 = absmax per leaf + bitcast scale tail; "
-                         "empty resolves from --compression")
+                    choices=["", "native", "int8", "fp8_e4m3", "fp8_e5m2"],
+                    help="consensus wire codec (repro_torch.wire): native = "
+                         "params dtype, int8 = absmax per leaf + bitcast "
+                         "scale tail, fp8_* = 1 B/param float8 with "
+                         "per-block f32 scales; empty resolves from "
+                         "--compression")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -85,7 +89,8 @@ def run(cfg: ArchConfig, args) -> dict:
     """Train ``cfg`` as ``args`` say; returns the run's record: per-step
     losses and seconds, per-round metrics (with ``active_edges``, the
     round's node liveness, and the launches of the ungated and the gated
-    kernel), and the layout.
+    kernel and of those with per-block scales), the layout and the wire
+    bytes per node per offset.
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state."""
@@ -116,7 +121,8 @@ def run(cfg: ArchConfig, args) -> dict:
     monitor = StragglerMonitor(trainer.num_nodes)
     elastic = ElasticController(trainer.graph, topology=trainer.topo_rt)
     record = {"losses": [], "step_seconds": [], "rounds": [],
-              "layout": trainer.layout, "offsets": list(trainer.offsets)}
+              "layout": trainer.layout, "offsets": list(trainer.offsets),
+              "wire_bytes": trainer.codec.wire_bytes()}
     t_start = time.perf_counter()
     for step in range(args.steps):
         t0 = time.perf_counter()
@@ -125,15 +131,14 @@ def run(cfg: ArchConfig, args) -> dict:
         line = f"step {step:5d} loss {loss:.4f}"
         if trainer.should_sync(step):
             alive = state.topo.node_alive.tolist()
-            before = (kops.consensus_round.launches,
-                      kops.consensus_round.masked_launches)
+            counts = ("launches", "masked_launches", "per_block_launches")
+            before = [getattr(kops.consensus_round, c) for c in counts]
             state, cm = trainer.consensus_step(state,
                                                data.batch(10**6 + step))
             rnd = {k: float(v) for k, v in cm.items()}
-            rnd.update(alive=alive,
-                       launches=kops.consensus_round.launches - before[0],
-                       masked_launches=(kops.consensus_round.masked_launches
-                                        - before[1]))
+            rnd.update(alive=alive, **{
+                c: getattr(kops.consensus_round, c) - b
+                for c, b in zip(counts, before)})
             record["rounds"].append(rnd)
             line += (f" | consensus r={rnd['r_max']:.4f} "
                      f"eta={rnd['eta_mean']:.4f}")

@@ -6,7 +6,7 @@ Between consensus rounds each node takes H local AdamW steps on its own
 data (f_i = its local loss). A consensus round then
 
   1. packs the replicas into one flat ``[J, total]`` buffer and encodes it
-     with the wire codec (native or int8, ``repro_torch.wire``),
+     with the wire codec (native, int8 or fp8, ``repro_torch.wire``),
   2. exchanges it: one roll of the node axis per graph offset,
   3. probes f_i(theta_j) on a held-out batch (eq. 7 kappas),
   4. runs ONE fused kernel call (``kernels.ops.consensus_round``): dequant,
@@ -63,7 +63,8 @@ class ConsensusConfig:
     local_steps: int = 8           # H — local optimizer steps per round
     prox_step: float = 0.5         # alpha in the prox pull
     compression: str = "none"      # legacy spelling: none | int8
-    wire_codec: str = ""           # native | int8; empty => from compression
+    wire_codec: str = ""           # native | int8 | fp8_e4m3 | fp8_e5m2;
+    #                                empty => from compression
     # the default static scheduler without churn keeps the ungated round
     dyn_topology: TopologyConfig = TopologyConfig()
 
@@ -119,14 +120,16 @@ class ConsensusTrainer:
         self.codec_name = wire_lib.resolve_codec_name(
             consensus.wire_codec or consensus.compression)
         self.codec = wire_lib.get_codec(self.codec_name, self.layout)
-        # the kernel indexes the [deg, J, L] scales by these ids unchecked,
-        # so the table is checked here, once
+        # per-leaf scales (native, int8) or per-block ones (fp8)
+        self.dequant_spec = self.codec.kernel_dequant_spec()
+        # the kernel indexes per-leaf scale rows by these ids unchecked, so
+        # the table is checked here, once, against the layout's leaves
         table = self.layout.block_leaf
         if table.size and not (0 <= table.min()
-                               and table.max() < self.codec.scale_width):
+                               and table.max() < self.layout.num_leaves):
             raise ValueError(f"block->leaf ids span [{table.min()}, "
-                             f"{table.max()}], the wire has "
-                             f"{self.codec.scale_width} scales")
+                             f"{table.max()}], the layout has "
+                             f"{self.layout.num_leaves} leaves")
         self.block_leaf = torch.as_tensor(table, dtype=torch.int32,
                                           device=self.device)
         self._adj = torch.as_tensor(self.graph.adj, device=self.device)
@@ -296,8 +299,8 @@ class ConsensusTrainer:
             e_rows.append(e_sym)
         e_stack = torch.stack(e_rows)                                  # [deg, J]
         scales = dec_scales.contiguous() if dec_scales is not None \
-            else torch.ones((deg, j, self.codec.scale_width), dtype=f32,
-                            device=dev)
+            else torch.ones((deg, j, self.dequant_spec.scale_width),
+                            dtype=f32, device=dev)
         for d in range(deg):
             if not live[d]:
                 scales[d] = 1.0
@@ -317,7 +320,8 @@ class ConsensusTrainer:
         theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
             theta_flat, state.lam, state.theta_bar_prev, wires, scales,
             e_stack, alpha, sym_sum, eta_node, block_leaf=self.block_leaf,
-            block_size=lay.block_size, **gated)
+            block_size=lay.block_size,
+            scales_per_block=self.dequant_spec.per_block, **gated)
         del wires
 
         # theta_new -> the parameter replicas, in place

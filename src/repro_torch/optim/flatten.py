@@ -116,20 +116,37 @@ class FlatLayout:
         return buf
 
     def unpack(self, buf: torch.Tensor, *,
-               scales: torch.Tensor | None = None) -> dict:
+               scales: torch.Tensor | None = None,
+               scales_per_block: bool = False) -> dict:
         """[J, total] buffer -> tree of [J, ...] leaves in leaf dtype.
 
-        ``scales`` (optional, [J, num_leaves] f32) dequantizes a quantized
-        payload: leaf li is multiplied by ``scales[:, li]``. Without scales,
-        a leaf whose dtype is the buffer's is a view into ``buf``.
+        ``scales`` (optional) dequantizes a quantized payload: per-leaf
+        ``[J, num_leaves]`` rows by default (leaf li is multiplied by
+        ``scales[:, li]``), or, with ``scales_per_block``, per-block
+        ``[J, num_blocks]`` rows on the layout's block grid (the fp8
+        codecs): each element by its block's scale, one leaf at a time, so
+        no full-width scale vector is made. Without scales, a leaf whose
+        dtype is the buffer's is a view into ``buf``.
         """
         j = buf.shape[0]
+        bs = self.block_size
         out = []
         for li, lf in enumerate(self.leaves):
-            seg = buf[:, lf.offset:lf.offset + lf.size]
-            if scales is not None:
-                seg = seg.to(torch.float32) * scales[:, li:li + 1]
-            out.append(seg.reshape((j,) + lf.shape).to(lf.dtype))
+            if scales is None:
+                seg = buf[:, lf.offset:lf.offset + lf.size]
+            elif scales_per_block:
+                b0 = lf.offset // bs
+                b1 = b0 + lf.padded // bs
+                seg = (buf[:, lf.offset:lf.offset + lf.padded]
+                       .to(torch.float32).reshape(j, b1 - b0, bs)
+                       * scales[:, b0:b1, None]).reshape(j, lf.padded)
+                seg = seg[:, :lf.size]
+            else:
+                seg = buf[:, lf.offset:lf.offset + lf.size].to(
+                    torch.float32) * scales[:, li:li + 1]
+            # cast first: a strided f32 segment is copied once, in the
+            # leaf's dtype
+            out.append(seg.to(lf.dtype).reshape((j,) + lf.shape))
         return tree_lib.unflatten([lf.path for lf in self.leaves], out)
 
     # -------------------------------------------------------- wire codec ----
@@ -143,7 +160,10 @@ class FlatLayout:
             else:                       # empty leaf: reduce over nothing
                 amax = torch.zeros(buf.shape[0], dtype=torch.float32,
                                    device=buf.device)
-            cols.append(torch.clamp_min(amax, 1e-12) / 127.0)
+            # a tensor divisor: on a CUDA tensor a Python scalar divisor
+            # becomes a multiply by its reciprocal, whose rounding differs
+            cols.append(torch.clamp_min(amax, 1e-12)
+                        / amax.new_tensor(127.0))
         return torch.stack(cols, dim=1).to(torch.float32)
 
     def block_scales(self, scales: torch.Tensor) -> torch.Tensor:

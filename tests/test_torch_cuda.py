@@ -8,15 +8,19 @@ imports no JAX, so it runs on a machine with a card and no JAX:
 Tolerances: rtol 1e-5 / atol 1e-5 in float32 (the block partial sums are
 taken in another order). The edge-gated kernel's theta', lam' and bar equal
 the plain version's bit for bit (both round after every multiply and add,
-over the offsets in the same order); its r^2 and s^2 hold to rtol 1e-5.
+over the offsets in the same order); its r^2 and s^2 hold to rtol 1e-5. So
+do the per-block (fp8) rounds and the flat update's theta' and lam'. The
+int8 and fp8 codecs' bytes on the card equal the CPU's.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import wire
 from repro_torch.kernels import ops, ref
-from torch_round_cases import (NAMES, masked_round_case, masked_torch_args,
-                               round_case, torch_args)
+from repro_torch.optim.flatten import FlatLayout, LeafSpec
+from torch_round_cases import (NAMES, fp8_round_case, masked_round_case,
+                               masked_torch_args, round_case, torch_args)
 
 
 @pytest.mark.cuda
@@ -95,3 +99,98 @@ def test_cuda_masked_kernel_refuses_partial_gates(drop):
     with pytest.raises(ValueError, match="travel together|needs the gated"):
         ops.consensus_round(*args, block_leaf=bl, block_size=64, **kw)
     assert ops.consensus_round.masked_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ungated", "gated", "kick"])
+@pytest.mark.parametrize("theta_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp8_e5m2"])
+def test_cuda_per_block_round_matches_plain_version(fmt, theta_dtype,
+                                                    variant):
+    """The round with fp8 wires and per-block scales (ungated, gated, gated
+    with kicks) against the plain version on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    if variant == "ungated":
+        case = fp8_round_case(rng, j=4, deg=3, nleaves=5, bs=64, fmt=fmt)
+        args, kw = [a.to(dev) for a in torch_args(case)], {}
+        if theta_dtype == "bfloat16":
+            args[0] = args[0].to(torch.bfloat16)
+    else:
+        case = masked_round_case(rng, j=4, deg=3, nleaves=5, bs=64, wire=fmt,
+                                 theta_dtype=theta_dtype,
+                                 kick=variant == "kick")
+        args, kw = masked_torch_args(case, dev)
+    bl = torch.from_numpy(case["block_leaf"]).to(dev)
+    want = ref.consensus_round_ref(*args, block_leaf=bl, block_size=64,
+                                   scales_per_block=True, **kw)
+    counts = ("launches", "masked_launches", "per_block_launches")
+    before = [getattr(ops.consensus_round, c) for c in counts]
+    got = ops.consensus_round(*[a.clone() for a in args[:3]], *args[3:],
+                              block_leaf=bl, block_size=64,
+                              scales_per_block=True, **kw)
+    torch.cuda.synchronize()
+    after = [getattr(ops.consensus_round, c) - b
+             for c, b in zip(counts, before)]
+    assert after == ([1, 0, 1] if variant == "ungated" else [0, 1, 1])
+    for a, b, name in zip(got[:3], want[:3], NAMES):
+        assert torch.equal(a, b), name
+    for a, b, name in zip(got[3:], want[3:], NAMES[3:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_cuda_encode_equals_cpu(fmt, dtype):
+    """The quantizing codecs' bytes on the card equal their bytes on the
+    CPU (scales included: no division by a reciprocal on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    bs = 128
+    lay = FlatLayout((LeafSpec(("a",), 0, 1000, 1024, (1000,), torch.float32),
+                      LeafSpec(("b",), 1024, 300, 512, (300,),
+                               torch.float32)), bs)
+    rng = np.random.default_rng(5)
+    buf = rng.normal(size=(3, lay.total)).astype(np.float32)
+    buf *= np.repeat(np.exp(rng.uniform(-6, 6, size=(3, lay.num_blocks))),
+                     bs, axis=1).astype(np.float32)
+    buf[:, 1000:1024] = 0.0
+    buf[:, 1324:] = 0.0
+    x = torch.from_numpy(buf).to(getattr(torch, dtype))
+    codec = wire.get_codec(fmt, lay)
+    if fmt != "int8":
+        codec.chunk_blocks = 3
+    card = codec.encode(x.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), codec.encode(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8 * 1024, 5000, 777])
+def test_cuda_flat_update_matches_plain_version(n, dtype):
+    """The flat update kernel against the plain version on the card: theta'
+    and lam' bit for bit, r^2 and s^2 to rtol 1e-5; N a block multiple, N
+    not one, N below one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    rng = np.random.default_rng(n)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+            for _ in range(5)]
+    args[0] = args[0].to(getattr(torch, dtype))
+    args[1] = args[1].to(getattr(torch, dtype))
+    kw = dict(eta_sum=0.7, eta_node=0.35, step_size=0.2, block_size=1024)
+    want = ref.consensus_update_ref(*args, **kw)
+    before = ops.consensus_update.launches
+    got = ops.consensus_update(args[0].clone(), args[1].clone(), *args[2:],
+                               **kw)
+    torch.cuda.synchronize()
+    assert ops.consensus_update.launches == before + 1
+    for a, b, name in zip(got[:2], want[:2], ("theta", "lam")):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for a, b, name in zip(got[2:], want[2:], ("r_sq", "s_sq")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=name)

@@ -71,8 +71,7 @@ def _reference_outputs():
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    return run_reference("test_torch_dynamic_round",
-                         tmp_path_factory.mktemp("dynamic_round_ref"))
+    return run_reference("test_torch_dynamic_round", tmp_path_factory)
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -137,19 +136,28 @@ def test_all_open_gates_equal_the_ungated_round(j, deg, nleaves, wire):
 @pytest.mark.parametrize("drop", ["inv_deg", "bar_w"])
 def test_partial_gates_are_refused(drop):
     """kick_w without bar_w, and bar_w without inv_deg, are errors (the
-    reference's rules); so are per-block scales until the fp8 slice."""
+    reference's rules); per-block scales (the fp8 wires' granularity) are
+    taken, and per-block rows made from the per-leaf ones through the
+    block->leaf table give the per-leaf round bit for bit."""
     case = masked_round_case(np.random.default_rng(2), j=3, deg=2,
                              nleaves=2, bs=BS)
     args, kw = masked_torch_args(case)
+    full = dict(kw)
     kw.pop(drop)
     if drop == "bar_w":
         kw.pop("inv_deg")
     with pytest.raises(ValueError, match="travel together|needs the gated"):
         ops.consensus_round(*args, block_leaf=case["block_leaf"],
                             block_size=BS, **kw)
-    with pytest.raises(NotImplementedError, match="fp8"):
-        ops.consensus_round(*args, block_leaf=case["block_leaf"],
-                            block_size=BS, scales_per_block=True)
+    per_leaf = ops.consensus_round(*args, block_leaf=case["block_leaf"],
+                                   block_size=BS, **full)
+    blocks = list(args)
+    blocks[4] = args[4][..., torch.from_numpy(case["block_leaf"]).long()]
+    per_block = ops.consensus_round(*blocks, block_leaf=case["block_leaf"],
+                                    block_size=BS, scales_per_block=True,
+                                    **full)
+    for a, b, name in zip(per_block, per_leaf, NAMES):
+        assert torch.equal(a, b), name
 
 
 def test_plain_version_leaves_inputs_untouched():

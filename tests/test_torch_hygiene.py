@@ -3,7 +3,8 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
   reference package ``repro`` (an AST walk over every import).
 * ``repro_torch`` imports on a machine without CUDA, and importing it
-  loads neither JAX nor the reference.
+  loads neither JAX nor the reference; neither does importing any of the
+  port's test modules (they compute the reference in a fresh process).
 * Nothing falls back: a tensor off the CPU never reaches the plain version,
   CUDA asked for without a card is an error, and ``chip_smoke.py`` fails
   without a card or without the repository beside it.
@@ -24,6 +25,7 @@ from repro_torch.kernels import build, consensus_update, ops
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -57,6 +59,25 @@ def test_package_imports_without_cuda_or_jax():
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_test_module_starts_no_jax(path):
+    """Importing a port test module loads neither JAX nor the reference, so
+    no JAX backend starts in the test process."""
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'tests')!r}, {str(ROOT / 'src')!r}]\n"
+        f"import {path.stem}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -216,8 +216,7 @@ def _reference_outputs():
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    return run_reference("test_torch_topology",
-                         tmp_path_factory.mktemp("topology_ref"))
+    return run_reference("test_torch_topology", tmp_path_factory)
 
 
 # --------------------------------------------------------------- tests ----

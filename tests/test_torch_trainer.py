@@ -174,10 +174,12 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch.train import parse_args
-    for flag in (["--async"], ["--obs-dir", "x"], ["--mesh", "debug"],
-                 ["--wire-codec", "fp8_e4m3"]):
+    for flag in (["--async"], ["--obs-dir", "x"], ["--mesh", "debug"]):
         with pytest.raises(SystemExit):
             parse_args(flag)
+    # the fp8 wires are ported: the launcher takes both formats
+    for name in ("fp8_e4m3", "fp8_e5m2"):
+        assert parse_args(["--wire-codec", name]).wire_codec == name
 
 
 def test_trainer_rejects_non_circulant_topology():

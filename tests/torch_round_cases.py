@@ -2,6 +2,7 @@
 round (used by the CPU parity tests and the card's tests) and a runner that
 computes the reference's outputs in a fresh process. This module imports no
 JAX, so it also runs on a machine without it."""
+import fcntl
 import os
 import subprocess
 import sys
@@ -42,6 +43,42 @@ def round_case(rng, *, j, deg, nleaves, bs):
                 block_leaf=np.asarray(block_leaf, np.int32))
 
 
+FP8_DTYPES = {"fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+def fp8_bytes(rng, shape, fmt):
+    """Random fp8 codes of format ``fmt`` (``fp8_e4m3`` or ``fp8_e5m2``) as
+    int8: every finite value, subnormals included; the NaN (and e5m2's
+    infinity) codes are moved to the largest finite magnitude."""
+    u = rng.integers(0, 256, size=shape).astype(np.uint8)
+    if fmt == "fp8_e4m3":                   # e4m3fn: S.1111.111 is NaN
+        u[(u & 0x7F) == 0x7F] ^= 0x01
+    else:                                   # e5m2: S.11111.xx inf / NaN
+        u[(u & 0x7C) == 0x7C] &= 0xFB
+    return u.view(np.int8)
+
+
+def fp8_scales(rng, shape, fmt):
+    """Per-block scales [deg, J, num_blocks] for fp8 codes: the int8 case's
+    1e-3 .. 0.1 per int8 step, over the fp8 format's range, so that the
+    dequantized wires span what ``round_case``'s int8 wires span (up to
+    12.7), as an absmax codec makes them."""
+    fp8_max = 448.0 if fmt == "fp8_e4m3" else 57344.0
+    return (rng.uniform(1e-3, 0.1, size=shape) * 127.0 / fp8_max).astype(
+        np.float32)
+
+
+def fp8_round_case(rng, *, j, deg, nleaves, bs, fmt):
+    """``round_case`` with an fp8 wire: fp8 codes (in an int8 container,
+    see ``fp8_bytes``) and per-block scales [deg, J, num_blocks]."""
+    case = round_case(rng, j=j, deg=deg, nleaves=nleaves, bs=bs)
+    case["wires"] = fp8_bytes(rng, case["wires"].shape, fmt)
+    nblocks = case["block_leaf"].shape[0]
+    case["scales"] = fp8_scales(rng, (deg, j, nblocks), fmt)
+    case["wire_kind"] = fmt
+    return case
+
+
 def torch_args(case):
     out = []
     for k in ARGS:
@@ -51,6 +88,8 @@ def torch_args(case):
                        .view(torch.bfloat16))
         else:
             out.append(torch.from_numpy(a))
+    if case.get("wire_kind") in FP8_DTYPES:     # fp8 codes: same bits
+        out[3] = out[3].view(FP8_DTYPES[case["wire_kind"]])
     return out
 
 
@@ -68,8 +107,10 @@ def masked_round_case(rng, *, j, deg, nleaves, bs, wire="int8",
     Gates mixed 0/1 with: node ``j - 1`` a ghost (no gate, ``inv_deg`` 0);
     offset 0 dead for every node (zero payload, unit scales, no gate); the
     gated edges' weights zero in ``e_sym``; with ``kick``, non-zero kick
-    weights on the gated edges of live offsets. ``wire`` is ``int8`` or
-    ``native`` (theta's dtype); ``theta_dtype`` is ``float32`` or
+    weights on the gated edges of live offsets. ``wire`` is ``int8``,
+    ``native`` (theta's dtype) or an fp8 format (``fp8_e4m3``,
+    ``fp8_e5m2``: fp8 codes and per-block scales, see ``fp8_round_case``);
+    ``theta_dtype`` is ``float32`` or
     ``bfloat16`` (values rounded to bf16 and stored as float32, see
     ``masked_torch_args``).
     """
@@ -83,6 +124,10 @@ def masked_round_case(rng, *, j, deg, nleaves, bs, wire="int8",
         case["wires"] = rng.normal(size=case["wires"].shape).astype(
             np.float32)
         case["scales"] = np.ones_like(case["scales"])
+    elif wire in FP8_DTYPES:
+        nblocks = case["block_leaf"].shape[0]
+        case["wires"] = fp8_bytes(rng, case["wires"].shape, wire)
+        case["scales"] = fp8_scales(rng, (deg, j, nblocks), wire)
     case["wires"][0] = 0
     case["scales"][0] = 1.0
     if theta_dtype == "bfloat16":
@@ -122,23 +167,36 @@ def masked_torch_args(case, device="cpu"):
             {k: v.to(device) for k, v in kw.items()})
 
 
-def run_reference(module: str, out_dir) -> dict:
-    """``<module>._reference_outputs()`` run in a fresh Python process, as
-    a dict of numpy arrays.
+def run_reference(module: str, tmp_path_factory,
+                  fn: str = "_reference_outputs") -> dict:
+    """``<module>.<fn>()`` (``_reference_outputs`` by default) run in a
+    fresh Python process, as a dict of numpy arrays.
 
-    The reference runs on the CPU with a clean ``XLA_FLAGS`` (one device),
-    whatever flags the test process carries: a JAX backend started in the
-    test process would lock in the flags that other test modules may have
-    set at collection.
+    The reference runs on the CPU with a clean ``XLA_FLAGS`` (one device,
+    unless ``fn`` sets a device count before it imports JAX), whatever
+    flags the test process carries: a JAX backend started in the test
+    process would lock in the flags that other test modules may have set
+    at collection. Under pytest-xdist the workers of one run share the
+    result: the first to ask computes it under a file lock, the others
+    read it.
     """
-    path = os.path.join(str(out_dir), f"{module}.npz")
-    code = (f"import sys; sys.path[:0] = [{TESTS!r}, {SRC!r}]\n"
-            f"import numpy as np\nimport {module} as m\n"
-            f"np.savez({path!r}, **m._reference_outputs())\n")
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent                  # the run's, shared by workers
+    path = os.path.join(str(base), f"{module}.{fn}.npz")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.npz"
+            code = (f"import sys; sys.path[:0] = [{TESTS!r}, {SRC!r}]\n"
+                    f"import numpy as np\nimport {module} as m\n"
+                    f"np.savez({tmp!r}, **m.{fn}())\n")
+            env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+            env.pop("XLA_FLAGS", None)
+            proc = subprocess.run([sys.executable, "-c", code], env=env,
+                                  capture_output=True, text=True,
+                                  timeout=900)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            os.replace(tmp, path)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
