@@ -72,7 +72,7 @@ ARCH_IDS = (
     "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b", "rwkv6-7b",
     "llava-next-mistral-7b",
 )
-PORTED_ARCH_IDS = ("qwen3-4b",)
+PORTED_ARCH_IDS = ("qwen3-4b", "rwkv6-7b")
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, Callable[[], ArchConfig]] = {}

@@ -22,13 +22,22 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# sm_90a (not sm_90): Hopper's full target. -fmad=false: round after every
-# multiply and add, as the plain PyTorch versions do (see the sources).
+# sm_90a (not sm_90): Hopper's full target.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false: round after every multiply and add, as the plain PyTorch
+# versions do, for the kernels held to them bit for bit (see the sources).
+# The attention and scan kernels sum in an order of their own anyway and
+# keep nvcc's fused multiply-adds.
+NO_FMA = ("consensus_round", "consensus_update")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRY_POINTS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def flags(name: str) -> tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMA else ())
 
 
 def nvcc_path() -> str:
@@ -46,7 +55,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
@@ -75,7 +84,7 @@ def build_all(names) -> dict:
         # compile into a file of this process, then rename: a reader never
         # sees a half-written library
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.Popen([nvcc, *flags(name), "-o", str(tmp),
                                  str(CSRC / f"{name}.cu")],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -100,3 +109,15 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(build(name)["path"])
     return lib
+
+
+def entry_point(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``<name>_launch`` of ``csrc/<name>.cu`` (which returns
+    a cudaError_t as an int), built and loaded at first use."""
+    fn = _ENTRY_POINTS.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRY_POINTS[name] = fn
+    return fn

@@ -38,21 +38,6 @@ _VEC = 8                       # elements per vector step in the kernels
 _THETA_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _FP8_KINDS = {torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
-_launch_fns: dict = {}
-
-
-def _fn(name: str, argtypes):
-    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``, built and
-    loaded at first use."""
-    fn = _launch_fns.get(name)
-    if fn is None:
-        fn = getattr(build.load(name), f"{name}_launch")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _launch_fns[name] = fn
-    return fn
-
-
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROUND_ARGS = [_I32, _I32, _I32, _I32, _I64, _I32, _I32, _I32] + [_P] * 16
 _UPDATE_ARGS = [_I32, _I32, _I64, _I32] + [_P] * 9
@@ -156,7 +141,7 @@ def launch(theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        err = _fn("consensus_round", _ROUND_ARGS)(
+        err = build.entry_point("consensus_round", _ROUND_ARGS)(
             _THETA_KINDS[theta.dtype], wire_kind, j, deg, total, block_size,
             scales.shape[2], int(scales_per_block), wires.data_ptr(),
             scales.data_ptr(), block_leaf.data_ptr(), e_sym.data_ptr(),
@@ -227,7 +212,7 @@ def launch_update(theta, lam, nbr_avg, bar, bar_prev, *, eta_sum, eta_node,
     ssq = torch.empty((nblocks,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _fn(kern, _UPDATE_ARGS)(
+        err = build.entry_point(kern, _UPDATE_ARGS)(
             _THETA_KINDS[theta.dtype], _THETA_KINDS[lam.dtype], n, bs,
             scalars.data_ptr(), nbr_avg.data_ptr(), bar.data_ptr(),
             bar_prev.data_ptr(), theta.data_ptr(), lam.data_ptr(),

@@ -9,13 +9,105 @@ a run can show that it went through the kernel:
 ``consensus_round.launches`` (the ungated round),
 ``consensus_round.masked_launches`` (the edge-gated one),
 ``consensus_round.per_block_launches`` (those of either with per-block
-scales, the fp8 wires; counted in one of the first two as well) and
-``consensus_update.launches``.
+scales, the fp8 wires; counted in one of the first two as well),
+``consensus_update.launches``, ``flash_attention.launches`` (the model
+layout's and the head-major wrapper's launches of the one attention
+kernel) and ``rwkv6_scan.launches``.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import consensus_update as _cu
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6_scan as _rw
+
+ATTN_BLOCK = 128    # the reference kernel's block: S % min(128, S) == 0
+SCAN_CHUNK = 32     # the reference scan's default chunk
+
+
+def _device_path(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def _flash(q, k, v, causal: bool, window: int, layout: str):
+    s = q.shape[1] if layout == "bshd" else q.shape[2]
+    blk = min(ATTN_BLOCK, s)
+    if s % blk:
+        raise ValueError(f"flash_attention: sequence {s} is not a multiple "
+                         f"of the block {blk}")
+    if _device_path("flash_attention", q):
+        out = _fa.launch(q, k, v, causal=causal, window=window,
+                         layout=layout)
+        flash_attention.launches += 1
+        return out
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    n_rep = q.shape[1] // k.shape[1]
+    if n_rep > 1:                    # query head h reads KV head h // n_rep
+        k = k.repeat_interleave(n_rep, dim=1)
+        v = v.repeat_interleave(n_rep, dim=1)
+    out = _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return out.transpose(1, 2) if layout == "bshd" else out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal (optionally sliding-window) GQA attention in the model layout
+    (the reference's ``repro.kernels.ops.flash_attention``).
+
+    q: [B, S, H, hd]; k, v: [B, S, K, hd] with H a multiple of K.
+    Returns [B, S, H, hd] in q's dtype. S must be a multiple of
+    ``min(128, S)``, as the reference's kernel asserts. The reference's
+    ``block_q``/``block_k`` are its TPU tiling and have no counterpart:
+    the CUDA kernel tiles by 64 and computes the same function.
+    """
+    return _flash(q, k, v, causal, window, "bshd")
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_hmajor(q, k, v, *, causal: bool = True,
+                           window: int = 0):
+    """Head-major ``flash_attention``: q [B, H, S, hd], k/v [B, K, S, hd]
+    (the reference's ``flash_attention_hmajor``). Its launches count in
+    ``flash_attention.launches``."""
+    return _flash(q, k, v, causal, window, "bhsd")
+
+
+def rwkv6_scan(r, k, v, w, u, s0, *, chunk: int = SCAN_CHUNK):
+    """Chunked WKV6 scan in the model layout (the reference's
+    ``repro.kernels.ops.rwkv6_scan``).
+
+    r, k, v: [B, T, H, hd] in the model dtype; w: [B, T, H, hd] decay in
+    (0, 1); u: [H, hd] bonus; s0: [B, H, hd, hd] f32. The log decay is
+    ``log(max(w, 1e-38))`` in f32. T must be a multiple of
+    ``min(chunk, T)``. Returns (y [B, T, H, hd] in r's dtype,
+    S_final [B, H, hd, hd] f32).
+    """
+    t = r.shape[1]
+    chunk = min(chunk, t)
+    if t % chunk:
+        raise ValueError(f"rwkv6_scan: T {t} is not a multiple of the "
+                         f"chunk {chunk}")
+    log_w = torch.log(torch.clamp_min(w, 1e-38)).to(torch.float32)
+    if _device_path("rwkv6_scan", r):
+        out = _rw.launch(r, k, v, log_w, u, s0, chunk=chunk)
+        rwkv6_scan.launches += 1
+        return out
+    y, s = _ref.rwkv6_scan_ref(*(x.transpose(1, 2) for x in (r, k, v, log_w)),
+                               u, s0)
+    return y.transpose(1, 2), s
+
+
+rwkv6_scan.launches = 0
 
 
 def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,

@@ -6,7 +6,58 @@ These are what the CPU tests hold against the reference and what
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention, head-major.
+
+    q, k, v: [B, H, S, hd] (K/V already repeated to the query heads). The
+    logits are taken in the inputs' dtype, widened to f32 and scaled by
+    1/sqrt(hd) (an f32 scalar); masked logits are set to -1e30; the
+    softmax is f32 and its probabilities are cast to q's dtype before the
+    product with v. Returns [B, H, S, hd] in q's dtype.
+    """
+    s, hd = q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(float(hd))              # applied in f32
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def rwkv6_scan_ref(r, k, v, log_w, u, s0):
+    """The WKV6 recurrence, one step at a time, in f32.
+
+    r, k, v: [B, H, T, hd]; log_w: [B, H, T, hd] (log decay, <= 0);
+    u: [H, hd] bonus; s0: [B, H, hd, hd] (key x value). Per step
+        y_t = r_t^T (S + diag(u) k_t v_t^T);   S = diag(w_t) S + k_t v_t^T
+    with w_t = exp(log_w_t). Returns (y [B, H, T, hd] in r's dtype,
+    S_final [B, H, hd, hd] f32).
+    """
+    f32 = torch.float32
+    w = torch.exp(log_w.to(f32))
+    s = s0.to(f32)
+    uu = u[None, :, :, None]
+    rs, ks, vs = (t.to(f32) for t in (r, k, v))
+    ys = []
+    for t in range(r.shape[2]):
+        kv = ks[:, :, t, :, None] * vs[:, :, t, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rs[:, :, t], s + uu * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(ys, dim=2).to(r.dtype), s
 
 
 def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,

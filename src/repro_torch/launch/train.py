@@ -94,6 +94,10 @@ def run(cfg: ArchConfig, args) -> dict:
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state."""
+    if cfg.rwkv:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training the RWKV6 archs is not ported yet "
+            "(serving them is: repro_torch.launch.serve)")
     device = resolve_device(args.device)
     model = build_model(cfg)
     drop_at, drop_victim = (-1, -1)

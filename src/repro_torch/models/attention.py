@@ -1,12 +1,18 @@
-"""Causal (optionally sliding-window) GQA attention, training path (port of
-``repro/models/attention.py``).
+"""Causal (optionally sliding-window) GQA attention: train, prefill and
+decode (port of ``repro/models/attention.py``).
 
-The public functions keep the reference's ``[B, S, H, hd]`` layout. Decode
-and the flash kernel (``use_kernel=True``) come with the serving slice.
+The public functions keep the reference's ``[B, S, H, hd]`` layout. The
+plain path (``chunked_causal_attention``) is what training runs; the flash
+kernel (``kernels.ops.flash_attention``, hand-written CUDA on the card, its
+plain version on the CPU) is the reference's hot-path replacement of the
+full-sequence forward, switched on with ``use_kernel=True``, as the serve
+launcher's prefill does. The one-token decode step is plain PyTorch, as
+the reference's is.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +22,12 @@ from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
 ATTN_CHUNK = 1024       # query-chunk length for the full-sequence path
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # [B, S_cache, K, hd]
+    v: torch.Tensor     # [B, S_cache, K, hd]
+    pos: torch.Tensor   # [] int32: next write position (ring for sliding)
 
 
 def attn_defs(cfg: ArchConfig, dtype) -> dict:
@@ -100,16 +112,72 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
 
 
 def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, cos, sin,
-              chunk: int | None = None) -> torch.Tensor:
-    """Full-sequence path (train / prefill). x: [B, S, D]."""
+              use_kernel: bool = False, chunk: int | None = None
+              ) -> torch.Tensor:
+    """Full-sequence path (train / prefill). x: [B, S, D]. K/V are repeated
+    to the query heads before the attention, with or without the kernel,
+    as in the reference."""
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    out = chunked_causal_attention(q, k, v, window=cfg.sliding_window,
-                                   chunk=chunk or ATTN_CHUNK)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window)
+    else:
+        out = chunked_causal_attention(q, k, v, window=cfg.sliding_window,
+                                       chunk=chunk or ATTN_CHUNK)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------------- decoding -----
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+               device) -> KVCache:
+    """Sliding-window archs keep a ring buffer of ``window``, else full S."""
+    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def decode_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                     cache: KVCache, pos: int, rope_cos_full, rope_sin_full
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One-token step. x: [B, 1, D]; pos: absolute position (a host int).
+
+    Updates ``cache`` IN PLACE (the reference returns an updated copy): the
+    new key and value at the write position, ``pos + 1`` into
+    ``cache.pos``. Returns (y [B, 1, D], cache).
+    """
+    q, k, v = _project_qkv(cfg, p, x)
+    cos = rope_cos_full[pos:pos + 1]
+    sin = rope_sin_full[pos:pos + 1]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    s_cache = cache.k.shape[1]
+    write = pos % s_cache if cfg.sliding_window else pos
+    cache.k[:, write] = k[:, 0]
+    cache.v[:, write] = v[:, 0]
+
+    n_rep = q.shape[2] // cache.k.shape[2]
+    kr, vr = _repeat_kv(cache.k, n_rep), _repeat_kv(cache.v, n_rep)
+    scale = 1.0 / math.sqrt(float(cfg.head_dim))    # applied in f32
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr).to(torch.float32) * scale
+    kpos = torch.arange(s_cache, device=x.device)
+    if cfg.sliding_window:
+        valid = (kpos <= write) | (pos >= s_cache)   # ring buffer occupancy
+    else:
+        valid = kpos <= pos
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    cache.pos.fill_(pos + 1)
+    return y, cache
 
 
 def make_rope(cfg: ArchConfig, seq_len: int, *, device,

@@ -1,4 +1,5 @@
-"""Public model API (port of ``repro/models/model.py``, training path)."""
+"""Public model API (port of ``repro/models/model.py``): init, loss,
+prefill and decode."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,23 @@ class Model:
 
     def loss(self, params: dict, batch: dict):
         return tf.loss_fn(self.cfg, params, batch)
+
+    def prefill(self, params: dict, batch: dict,
+                use_kernel: bool = False) -> torch.Tensor:
+        """Full-sequence logits of ``batch["tokens"]`` [B, S]; with
+        ``use_kernel`` the attention or time-mix runs its kernel (see
+        ``transformer.forward``)."""
+        return tf.forward(self.cfg, params, tokens=batch["tokens"],
+                          use_kernel=use_kernel)
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          device: torch.device | str) -> tf.DecodeState:
+        return tf.init_decode_state(self.cfg, batch, max_len, device)
+
+    def decode_step(self, params: dict, state: tf.DecodeState,
+                    token: torch.Tensor, *, max_len: int):
+        return tf.decode_step(self.cfg, params, state, token,
+                              max_len=max_len)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -1,39 +1,56 @@
-"""Decoder stack, dense block (port of ``repro/models/transformer.py``).
+"""Decoder stack: dense and RWKV6 blocks, full-sequence forward, decode
+step (port of ``repro/models/transformer.py``).
 
-Layers are stacked on a leading L axis as in the reference; the forward pass
-loops over them in Python where the reference scans. There is no
-rematerialization: at the depths this port trains (a few layers at full
+  * dense       : pre-norm attention + SwiGLU FFN
+  * ssm (rwkv6) : RWKV time-mix + channel-mix (attention-free)
+
+The MoE, SSM-hybrid and frontend families are not ported yet. Layers are
+stacked on a leading L axis as in the reference; the forward pass and the
+decode step loop over them in Python where the reference scans. There is
+no rematerialization: at the depths this port trains (a few layers at full
 width) the activations fit beside the state, so autograd keeps them.
+
+``forward`` takes ``use_kernel`` (the reference's ``forward`` does not):
+it routes the reference's own switch on ``attention`` and ``time_mix`` to
+their kernels, which the reference names the hot path of the
+full-sequence forward. The serve launcher's prefill sets it; training
+leaves it off, since neither kernel has a backward.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.layers import (embed_defs, embed_tokens, mlp_apply,
                                        mlp_defs, rms_norm, unembed)
 from repro_torch.models.params import ParamDef, is_def
 from repro_torch.device import torch_dtype
 
 
-def _check_dense(cfg: ArchConfig):
-    if cfg.rwkv or cfg.ssm_state or cfg.moe is not None \
-            or cfg.frontend != "none":
+def _check_ported(cfg: ArchConfig):
+    if cfg.ssm_state or cfg.moe is not None or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense transformer block is ported")
+            f"{cfg.arch_id}: only the dense and RWKV6 blocks are ported")
 
 
 def block_defs(cfg: ArchConfig, dtype) -> dict:
-    _check_dense(cfg)
+    _check_ported(cfg)
     d = cfg.d_model
-    return {
+    out: dict[str, Any] = {
         "ln1": ParamDef((d,), dtype, init="zeros"),
         "ln2": ParamDef((d,), dtype, init="zeros"),
-        "attn": attn_lib.attn_defs(cfg, dtype),
-        "mlp": mlp_defs(cfg, dtype),
     }
+    if cfg.rwkv:
+        out["rwkv"] = rwkv_lib.rwkv_defs(cfg, dtype)
+        return out
+    out["attn"] = attn_lib.attn_defs(cfg, dtype)
+    out["mlp"] = mlp_defs(cfg, dtype)
+    return out
 
 
 def stacked_defs(cfg: ArchConfig, dtype) -> dict:
@@ -48,23 +65,38 @@ def stacked_defs(cfg: ArchConfig, dtype) -> dict:
     return out
 
 
-def _block_full(cfg: ArchConfig, p: dict, x: torch.Tensor, cos, sin
-                ) -> torch.Tensor:
+def _block_full(cfg: ArchConfig, p: dict, x: torch.Tensor, cos, sin,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence block (train / prefill)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_lib.attention(cfg, p["attn"], h, cos, sin)
+    if cfg.rwkv:
+        y, _, _ = rwkv_lib.time_mix(cfg, p["rwkv"], h, None,
+                                    use_kernel=use_kernel)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y2, _ = rwkv_lib.channel_mix(cfg, p["rwkv"], h2, None)
+        return x + y2
+    x = x + attn_lib.attention(cfg, p["attn"], h, cos, sin,
+                               use_kernel=use_kernel)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h2)
 
 
-def forward(cfg: ArchConfig, params: dict, *, tokens: torch.Tensor
-            ) -> torch.Tensor:
+def _layer(params: dict, layer: int) -> dict:
+    return tree_lib.tree_map(lambda a: a[layer], params["blocks"])
+
+
+def forward(cfg: ArchConfig, params: dict, *, tokens: torch.Tensor,
+            use_kernel: bool = False) -> torch.Tensor:
     """Full-sequence forward to logits. tokens [B, S]."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = embed_tokens(params, tokens).to(torch_dtype(cfg.dtype))
-    cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
+    cos = sin = None
+    if not cfg.rwkv:
+        cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
     for layer in range(cfg.n_layers):
-        lp = tree_lib.tree_map(lambda a: a[layer], params["blocks"])
-        x = _block_full(cfg, lp, x, cos, sin)
+        x = _block_full(cfg, _layer(params, layer), x, cos, sin,
+                        use_kernel=use_kernel)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x)
 
@@ -80,3 +112,76 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict
     mask = (labels >= 0).to(torch.float32)
     nll = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll, {"loss": nll, "tokens": mask.sum()}
+
+
+# --------------------------------------------------------------- decode -----
+class DecodeState(NamedTuple):
+    cache: dict         # per-family state, leaves stacked [L, ...]
+    pos: int            # absolute position of the next token (host int)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      device) -> DecodeState:
+    _check_ported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    l = cfg.n_layers
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.rwkv:
+        hh, hd = cfg.n_heads, cfg.head_dim
+        cache = {"rwkv": rwkv_lib.RWKVState(
+            s=zeros((l, batch, hh, hd, hd), torch.float32),
+            prev_tm=zeros((l, batch, cfg.d_model), dt),
+            prev_cm=zeros((l, batch, cfg.d_model), dt))}
+    else:
+        kv = attn_lib.init_cache(cfg, batch, max_len, dt, device)
+        cache = {"kv": attn_lib.KVCache(
+            k=zeros((l,) + tuple(kv.k.shape), dt),
+            v=zeros((l,) + tuple(kv.v.shape), dt),
+            pos=zeros((l,), torch.int32))}
+    return DecodeState(cache=cache, pos=0)
+
+
+def decode_step(cfg: ArchConfig, params: dict, state: DecodeState,
+                token: torch.Tensor, *, max_len: int
+                ) -> tuple[torch.Tensor, DecodeState]:
+    """One new token for every sequence. token: [B] int. Returns (logits
+    [B, V], the next state).
+
+    The caches are updated IN PLACE (the reference returns new ones): the
+    returned state holds the same tensors as ``state`` with ``pos + 1``.
+    """
+    x = embed_tokens(params, token[:, None]).to(torch_dtype(cfg.dtype))
+    pos = state.pos
+    if not cfg.rwkv:
+        cos_full, sin_full = attn_lib.make_rope(cfg, max_len,
+                                                device=x.device)
+    for layer in range(cfg.n_layers):
+        lp = _layer(params, layer)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.rwkv:
+            st = state.cache["rwkv"]
+            rc = rwkv_lib.RWKVState(s=st.s[layer], prev_tm=st.prev_tm[layer],
+                                    prev_cm=st.prev_cm[layer])
+            y, s_new, last_tm = rwkv_lib.time_mix(cfg, lp["rwkv"], h, rc)
+            x = x + y
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            y2, last_cm = rwkv_lib.channel_mix(cfg, lp["rwkv"], h2, rc)
+            x = x + y2
+            rc.s.copy_(s_new)
+            rc.prev_tm.copy_(last_tm)
+            rc.prev_cm.copy_(last_cm)
+            continue
+        kv = state.cache["kv"]
+        y, _ = attn_lib.decode_attention(
+            cfg, lp["attn"], h,
+            attn_lib.KVCache(k=kv.k[layer], v=kv.v[layer], pos=kv.pos[layer]),
+            pos, cos_full, sin_full)
+        x = x + y
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h2)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(cfg, params, x)[:, 0, :]
+    return logits, DecodeState(cache=state.cache, pos=pos + 1)

@@ -10,7 +10,10 @@ taken in another order). The edge-gated kernel's theta', lam' and bar equal
 the plain version's bit for bit (both round after every multiply and add,
 over the offsets in the same order); its r^2 and s^2 hold to rtol 1e-5. So
 do the per-block (fp8) rounds and the flat update's theta' and lam'. The
-int8 and fp8 codecs' bytes on the card equal the CPU's.
+int8 and fp8 codecs' bytes on the card equal the CPU's. The flash attention
+and RWKV6 scan kernels hold to the reference's bounds against their plain
+versions (stated at each test), and reduced float32 serving on the card to
+the CPU's tokens and logits.
 """
 import numpy as np
 import pytest
@@ -194,3 +197,125 @@ def test_cuda_flat_update_matches_plain_version(n, dtype):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     for a, b, name in zip(got[2:], want[2:], ("r_sq", "s_sq")):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=name)
+
+
+# flash attention: (b, h, kv heads, s, hd, causal, window) — the reference
+# tests' shapes and the model's, a ragged S below one tile, and S not a
+# multiple of the kernel's 64-row tile
+FLASH_CASES = [
+    (1, 2, 2, 128, 32, True, 0), (2, 4, 2, 256, 64, True, 0),
+    (1, 4, 1, 256, 32, True, 64), (1, 2, 2, 128, 32, False, 0),
+    (1, 8, 2, 128, 128, True, 0), (2, 4, 2, 16, 16, True, 0),
+    (1, 4, 4, 96, 16, True, 40), (1, 4, 2, 256, 128, True, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
+    """The flash kernel against its plain version on the card (K/V of
+    fewer heads read by the kernel's head index, repeated for the plain
+    version): atol 2e-5 in float32, 2e-2 in bf16 (the plain version
+    rounds logits and probabilities to bf16, the kernel keeps f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, kh, s, hd, causal, window = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(s + hd)
+    q, k, v = (torch.randn(b, n, s, hd, generator=g, device="cuda").to(dt)
+               for n in (h, kh, kh))
+    kr = k.repeat_interleave(h // kh, dim=1)
+    vr = v.repeat_interleave(h // kh, dim=1)
+    want = ref.flash_attention_ref(q, kr, vr, causal=causal, window=window)
+    before = ops.flash_attention.launches
+    if layout == "bhsd":
+        got = ops.flash_attention_hmajor(q, k, v, causal=causal,
+                                         window=window)
+    else:
+        got = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                  causal=causal, window=window)
+        got = got.transpose(1, 2)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+SCAN_CASES = [(1, 2, 64, 16, 16), (2, 3, 128, 32, 32), (1, 1, 96, 8, 32),
+              (1, 4, 256, 64, 64), (2, 4, 64, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv6_scan_matches_plain_version(case, dtype):
+    """The scan kernel (model layout, through ops) against its plain
+    version on the card: y to 3e-5 * max|y| in float32 and 8e-3 * max|y|
+    in bf16 (the reference's bounds), the f32 state to the same share of
+    max|state|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, t, hd, chunk = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(t + hd)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    r, k, v = rnd(b, t, h, hd).to(dt), rnd(b, t, h, hd, scale=0.5).to(dt), \
+        rnd(b, t, h, hd).to(dt)
+    w = torch.exp(-torch.exp(rnd(b, t, h, hd, scale=0.5)))
+    u = rnd(h, hd, scale=0.1).to(dt)
+    s0 = rnd(b, h, hd, hd, scale=0.1)
+    log_w = torch.log(torch.clamp_min(w, 1e-38))
+    y_want, s_want = ref.rwkv6_scan_ref(
+        *(x.transpose(1, 2) for x in (r, k, v, log_w)), u, s0)
+    before = ops.rwkv6_scan.launches
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    assert y.dtype == dt and y.shape == r.shape
+    rtol = 3e-5 if dtype == "float32" else 8e-3
+    scale = float(y_want.float().abs().max()) + 1e-6
+    torch.testing.assert_close(y.float(), y_want.transpose(1, 2).float(),
+                               rtol=0, atol=rtol * scale)
+    torch.testing.assert_close(s, s_want, rtol=0,
+                               atol=rtol * float(s_want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-7b"])
+def test_cuda_serve_matches_cpu(arch):
+    """Reduced float32 serving on the card (its prefill through the kernel,
+    once per layer) against the CPU (plain versions): tokens equal, logits
+    to 1e-4 of their largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import dataclasses
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 32),
+                            generator=torch.Generator().manual_seed(1))
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        args = serve.parse_args(["--device", dev, "--prompt-len", "32",
+                                 "--gen-len", "8"])
+        recs[dev] = serve.run(cfg, args,
+                              params=tree_lib.tree_map(lambda a: a.to(dev),
+                                                       params),
+                              prompts=prompts.to(dev))
+    kernel = "rwkv6_scan" if cfg.rwkv else "flash_attention"
+    assert recs["cuda"]["prefill_launches"][kernel] == cfg.n_layers
+    assert sum(recs["cuda"]["decode_launches"].values()) == 0
+    assert torch.equal(recs["cuda"]["tokens"].cpu(), recs["cpu"]["tokens"])
+    for key in ("prefill_logits", "replay_logits", "step_logits"):
+        a, b = recs["cuda"][key].cpu(), recs["cpu"][key]
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), key
