@@ -9,7 +9,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
   1. card   — print the card's name and power limit; TF32 off.
   2. build  — compile the paths' CUDA kernels from src/repro_torch (one
-              source, both the ungated and the edge-gated round).
+              nvcc per source, all started together), then count each
+              kernel's tensor-core (HGMMA, HMMA), asynchronous-copy
+              (UTMALDG, LDGSTS) and mbarrier (SYNCS) instructions in
+              ``cuobjdump -sass``: the bf16 flash kernel must have all
+              three.
   3. kernel — hold ``consensus_round`` against its plain PyTorch version on
               the card at three shapes in working dtypes, with real qwen3-4b
               leaf structure: J=2/deg=1 bf16 native wire (one full-width
@@ -51,26 +55,36 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   8. dfull  — the gated kernel at the dynamic slice's own shape (J=3,
               offsets 1, 2, one layer's row) with kicks, against the plain
               version in column chunks.
-  9. flash  — the flash attention kernel (built in phase 2) against its
-              plain version on the card, each case timed by CUDA events
-              beside its bound and beside the library's
-              scaled_dot_product_attention on the same inputs: the serve
-              path's shape (one full-width qwen3-4b layer after the model's
-              K/V repeat: B 4, S 512, 32 heads, hd 128, bf16, causal), the
-              GQA index path (8 KV heads; the library call with GQA was
-              this phase's only number before the kernel existed), a
+  9. flash  — the flash attention kernels against their plain version on
+              the card: bf16 at head dim 128 goes to the tensor-core kernel,
+              float32 to the CUDA-core one (``kernels.flash_attention
+              .route``). Each case is timed beside its bound, the CUDA-core
+              kernel on the same inputs, the plain version and the
+              library's scaled_dot_product_attention: the serve path's
+              shape (one full-width qwen3-4b layer after the model's K/V
+              repeat: B 4, S 512, 32 heads, hd 128, bf16, causal; the
+              tensor-core kernel must be at least 3x faster than the
+              CUDA-core one there), the GQA index path (8 KV heads), a
               sliding window of 256, and the path's shape in float32; at
               the path's shape also through ``ops.flash_attention`` in the
               model layout [B, S, H, hd], as the serve path calls it.
  10. scan   — the RWKV6 scan kernel against its plain version at one
               rwkv6-7b layer (B 4, T 512, 64 heads of 64, chunk 32), float32
-              and bf16, timed beside its bound.
+              and bf16, timed beside its bound, with its blocks per (batch,
+              head), shared bytes per block and blocks per SM.
+              Kernel times in phases 9 and 10 are device times: the
+              launches queue behind a device-side sleep, so that the host's
+              cost of each launch (argument checks, tensor maps, the ctypes
+              call) does not fall between the events; the plain versions,
+              thousands of small launches, are timed by events around each
+              call.
  11. serve  — ``launch.serve.run`` on qwen3-4b and then rwkv6-7b at full
               width and full depth (36 and 32 layers, random weights from a
               seed), batch 4, prompt 512, 32 generated tokens, the memory
               freed between the two. Every counter is set to 0 before each
               run: the prefill must launch the arch's kernel once per
-              layer and nothing else, the decode no kernel. qwen3-4b: the
+              layer and nothing else (qwen3-4b: every flash launch on the
+              tensor-core kernel), the decode no kernel. qwen3-4b: the
               prefill's last-position logits must agree with the replay's
               last logits (kernel path against the plain decode path)
               within n_layers * 2^-8 of their largest magnitude (one bf16
@@ -115,8 +129,10 @@ BF16_FLOPS_PER_S = 989e12
 DEV = "cuda"
 KERNEL_NAME = "consensus_round_kernel"      # the CUDA kernels, in a trace
 MASKED_NAME = "consensus_round_masked_kernel"
-FLASH_NAME = "flash_attention_kernel"
+FLASH_NAME = "flash_attention_kernel"      # the CUDA-core kernel
+FLASH_TC_NAME = "flash_attention_tc_kernel"
 SCAN_NAME = "rwkv6_scan_kernel"
+SCAN_PATH = SCAN_NAME + "<bf16,64,32>"     # the instantiation rwkv6-7b runs
 SLICE_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
               "--local-steps", "2", "--steps", "8", "--batch-per-node", "4",
               "--seq", "512", "--lr", "3e-4", "--device", DEV]
@@ -129,7 +145,7 @@ DYN_LAYERS = 1
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen-len", "32",
               "--device", DEV]
 SOURCES = ("consensus_round", "consensus_update", "flash_attention",
-           "rwkv6_scan")
+           "flash_attention_tc", "rwkv6_scan")
 # the round wrapper's launch counters
 COUNTS = ("launches", "masked_launches", "per_block_launches")
 
@@ -186,6 +202,39 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def print_clocks(when: str) -> None:
+    """The card's SM clock, its maximum and its temperature (times on one
+    card model differ between cards and runs; these say by how much the
+    card was held back)."""
+    query = "clocks.sm,clocks.max.sm,temperature.gpu,power.draw"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"clocks at {when}: sm, max sm, temperature, power: {out}",
+          flush=True)
+
+
+def time_device(fn, reps: int, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` over ``reps`` calls launched
+    back to back behind a device-side sleep (CUDA events around the calls):
+    the host enqueues all of them while the card sleeps, so its own cost
+    per launch does not count, as inside a model's forward where the host
+    runs ahead of the card."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps)     # about 1 ms of sleep per call
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def device_profile(prof, top_n: int = 8, kernel: str = KERNEL_NAME):
     """From a CUDA-activity profile: the launch times in order (ms) of the
     fused kernel named ``kernel``, the device's busy ms (the union of every
@@ -214,7 +263,8 @@ def device_profile(prof, top_n: int = 8, kernel: str = KERNEL_NAME):
         low = name.lower()
         fam = ("consensus_round" if (KERNEL_NAME in name
                                      or MASKED_NAME in name)
-               else "flash_attention" if FLASH_NAME in name
+               else "flash_attention" if (FLASH_NAME in name
+                                          or FLASH_TC_NAME in name)
                else "rwkv6_scan" if SCAN_NAME in name
                else "copy/set" if low.startswith(("memcpy", "memset"))
                else "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
@@ -685,6 +735,7 @@ def all_counters():
     return ([(ops.consensus_round, c) for c in COUNTS]
             + [(ops.consensus_update, "launches"),
                (ops.flash_attention, "launches"),
+               (ops.flash_attention, "tc_launches"),
                (ops.rwkv6_scan, "launches")])
 
 
@@ -701,24 +752,27 @@ def attn_pairs(s: int, causal: bool, window: int) -> int:
 
 def flash_case(name, card_line, *, kv=32, dtype="bfloat16", window=0,
                seed=0, b=4, h=32, s=512, hd=128, model_layout=False):
-    """Phase 9: the flash kernel on head-major inputs against its plain
-    version (K/V repeated to the query heads), and both and the library's
-    attention timed; atol 2e-5 in float32, 2e-2 in bf16. With
-    ``model_layout`` the kernel is also called as the serve path calls it,
-    through ``ops.flash_attention`` on [B, S, H, hd] tensors (K/V repeated,
-    as the model does), and held to the same plain version.
+    """Phase 9: the routed flash kernel on head-major inputs against its
+    plain version (K/V repeated to the query heads); it, the CUDA-core
+    kernel on the same inputs (when the route is the tensor-core one), the
+    plain version and the library's attention are timed; atol 2e-5 in
+    float32, 2e-2 in bf16. With ``model_layout`` the kernel is also called
+    as the serve path calls it, through ``ops.flash_attention`` on
+    [B, S, H, hd] tensors (K/V repeated, as the model does), and held to the
+    same plain version.
 
     In bf16 the kernel is held against the plain version evaluated in f32
     on the same inputs and cast to bf16: that is the TPU kernel's
-    arithmetic (q, k, v widened to f32 inside). The plain version in bf16
+    arithmetic (q, k, v widened to f32 inside), save that the tensor-core
+    kernel rounds p to bf16 for its p.v product. The plain version in bf16
     rounds its logits and probabilities to bf16 as well; its distance to
-    the kernel is printed beside (at this size its rounding alone reaches
-    about 2e-2)."""
+    the kernel is printed beside."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dt = getattr(torch, dtype)
+    route = fa.route(dt, hd)
     g = torch.Generator(device=DEV).manual_seed(seed)
     q, k, v = (torch.randn(b, n, s, hd, generator=g, device=DEV).to(dt)
                for n in (h, kv, kv))
@@ -739,24 +793,31 @@ def flash_case(name, card_line, *, kv=32, dtype="bfloat16", window=0,
     if model_layout:
         from repro_torch.kernels import ops
         qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, kr, vr))
-        before = ops.flash_attention.launches
+        before = (ops.flash_attention.launches,
+                  ops.flash_attention.tc_launches)
         got_m = ops.flash_attention(qm, km, vm, **kw)
         torch.cuda.synchronize()
-        launched = ops.flash_attention.launches - before
-        ops.flash_attention.launches = before   # a check, not the path
+        launched = (ops.flash_attention.launches - before[0],
+                    ops.flash_attention.tc_launches - before[1])
+        # a check, not the path
+        ops.flash_attention.launches, ops.flash_attention.tc_launches = before
         err_m = float((got_m.float()
                        - want.transpose(1, 2).float()).abs().max())
-        check(launched == 1 and got_m.shape == qm.shape
+        check(launched == (1, int(route == "tc")) and got_m.shape == qm.shape
               and got_m.dtype == dt and err_m <= tol,
-              f"flash {name} [B, S, H, hd] through ops: {launched} launches,"
-              f" max abs error {err_m:.3g} against the plain version "
-              f"(tolerance {tol})")
+              f"flash {name} [B, S, H, hd] through ops: launches (all, "
+              f"tensor-core) {launched}, max abs error {err_m:.3g} against "
+              f"the plain version (tolerance {tol})")
         print(f"flash {name} [B, S, H, hd] through ops.flash_attention: "
               f"max_abs_err={err_m:.3g}", flush=True)
         del qm, km, vm, got_m
     del got, want, plain
-    k_ms = time_cuda(lambda: fa.launch(q, k, v, layout="bhsd", **kw),
-                     reps=20)
+    k_ms = time_device(lambda: fa.launch(q, k, v, layout="bhsd", **kw),
+                       reps=50)
+    cc_ms = None
+    if route == "tc":
+        cc_ms = time_device(lambda: fa.launch(q, k, v, layout="bhsd",
+                                              kernel="cc", **kw), reps=20)
     p_ms = time_cuda(lambda: ref.flash_attention_ref(q, kr, vr, **kw),
                      reps=5)
     if window:
@@ -776,30 +837,34 @@ def flash_case(name, card_line, *, kv=32, dtype="bfloat16", window=0,
     check(out.shape == q.shape and bool(torch.isfinite(out).all()),
           f"flash {name}: the library's output")
     del out
-    l_ms = time_cuda(lib, reps=50)
+    l_ms = time_device(lib, reps=50)
     by = sum(nbytes(t) for t in (q, k, v)) + nbytes(q)
     flops = 4 * b * h * hd * attn_pairs(s, True, window)
     rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     t_b = by / HBM_BYTES_PER_S * 1e3
     t_o = flops / rate * 1e3
     bound_by = "bytes" if t_b >= t_o else "operations"
+    cc_txt = ("" if cc_ms is None else
+              f"CUDA-core kernel {cc_ms:.4f} ms ({cc_ms / k_ms:.2f}x), ")
     print(f"flash {name}: B {b} S {s} heads {h}/{kv} hd {hd} {dtype} causal"
-          f" window {window}: max_abs_err={err:.3g} (to the plain version "
-          f"in {dtype} {err_plain:.3g}) kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+          f" window {window}: {route} kernel, max_abs_err={err:.3g} (to the "
+          f"plain version in {dtype} {err_plain:.3g}); kernel {k_ms:.4f} ms,"
+          f" {cc_txt}plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
           f"{max(t_b, t_o):.4f} ms ({bound_by}: {by / 1e6:.1f} MB, "
           f"{flops / 1e9:.3f} GFLOP) [{card_line}]", flush=True)
     del q, k, v, kr, vr
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(t_b, t_o), bound_by=bound_by, library_ms=l_ms)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, cc_ms=cc_ms,
+                bound_ms=max(t_b, t_o), bound_by=bound_by, library_ms=l_ms,
+                route=route)
 
 
 def scan_case(dtype, card_line, *, seed=0, b=4, t=512, h=64, hd=64,
               chunk=32):
     """Phase 10: the scan kernel on model-layout inputs against its plain
     version, both timed; y within 3e-5 (float32) or 8e-3 (bf16) of max|y|,
-    the f32 state within the same share of max|state|."""
+    the f32 state within the same share of max|state|; the launch's blocks,
+    shared bytes per block and blocks per SM printed beside."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rw
@@ -827,8 +892,9 @@ def scan_case(dtype, card_line, *, seed=0, b=4, t=512, h=64, hd=64,
           f"scan {dtype}: y error {err_y:.3g} (max|y| {scale:.3g}), state "
           f"error {err_s:.3g} (max|state| {s_scale:.3g})")
     del y, s, y_want, s_want
-    k_ms = time_cuda(lambda: rw.launch(r, k, v, log_w, u, s0, chunk=chunk),
-                     reps=20)
+    k_ms = time_device(lambda: rw.launch(r, k, v, log_w, u, s0, chunk=chunk),
+                       reps=20)
+    shape = rw.info(dt, hd, chunk)
     p_ms = time_cuda(lambda: ref.rwkv6_scan_ref(*heads, u, s0), reps=3,
                      warmup=1)
     es = r.element_size()
@@ -842,13 +908,19 @@ def scan_case(dtype, card_line, *, seed=0, b=4, t=512, h=64, hd=64,
     bound_by = "bytes" if t_b >= t_o else "operations"
     print(f"scan {dtype}: B {b} T {t} heads {h} hd {hd} chunk {chunk}: "
           f"max_abs_err y {err_y:.3g} (max|y| {scale:.3g}) state "
-          f"{err_s:.3g} (max|state| {s_scale:.3g}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{err_s:.3g} (max|state| {s_scale:.3g}); kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound "
           f"{max(t_b, t_o):.4f} ms ({bound_by}: {by / 1e9:.3f} GB, "
-          f"{flops / 1e9:.3f} GFLOP f32) [{card_line}]", flush=True)
+          f"{flops / 1e9:.3f} GFLOP f32); {b * h * shape['blocks_per_head']}"
+          f" blocks of {shape['threads']} threads, "
+          f"{shape['blocks_per_head']} per (batch, head), "
+          f"{shape['smem_bytes']} shared bytes and {shape['registers']} "
+          f"registers a thread, {shape['blocks_per_sm']} blocks per SM "
+          f"[{card_line}]", flush=True)
     del r, k, v, log_w, heads
     torch.cuda.empty_cache()
     return dict(max_abs_err=err_y, ms=k_ms, plain_ms=p_ms,
-                bound_ms=max(t_b, t_o), bound_by=bound_by)
+                bound_ms=max(t_b, t_o), bound_by=bound_by, **shape)
 
 
 def serve_slice(arch, card_line):
@@ -864,8 +936,9 @@ def serve_slice(arch, card_line):
     from repro_torch.models import build_model
     cfg = get_config(arch)
     args = serve.parse_args(["--arch", arch] + SERVE_ARGS)
+    # the path's kernel: bf16 attention at hd 128 is the tensor-core one
     kernel, trace_name = (("rwkv6_scan", SCAN_NAME) if cfg.rwkv
-                          else ("flash_attention", FLASH_NAME))
+                          else ("flash_attention", FLASH_TC_NAME))
     n = cfg.n_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -880,7 +953,9 @@ def serve_slice(arch, card_line):
     counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
               for obj, attr in all_counters()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {c: (n if c == f"{kernel}.launches" else 0) for c in counts}
+    path = ({f"{kernel}.launches"} if cfg.rwkv else
+            {f"{kernel}.launches", f"{kernel}.tc_launches"})
+    want = {c: (n if c in path else 0) for c in counts}
     check(counts == want, f"serve {arch}: launches {counts}, want {want}")
     check(record["prefill_launches"][kernel] == n
           and not any(record["decode_launches"].values()),
@@ -1242,6 +1317,57 @@ def static_slice(full, card_line, codec):
                 in_round_ms=float(np.median(in_round)), layout=layout)
 
 
+def build_phase():
+    """Phase 2: build every source (one nvcc each, all started together),
+    print each kernel's registers and spills (nvcc's -Xptxas -v) and its
+    SASS instruction counts; the bf16 flash kernel must have wgmma, TMA and
+    mbarrier instructions. Returns (every kernel's counts, the tensor-core
+    flash kernel's)."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    built = build.build_all(SOURCES)
+    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name, rec in built.items():
+        regs, spills, kern = [], [], None
+        for ln in rec["log"].splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                kern = build.short_kernel_name(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                regs.append(int(m.group(1)))
+            if "spill" in ln and " 0 bytes spill stores" not in ln:
+                spills.append(f"{kern}: {ln.strip()}")
+        if regs:
+            print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers per thread, {len(spills)} with spills",
+                  flush=True)
+        for ln in spills:
+            print(f"  {name}: {ln}")
+    # what the kernels were compiled to: tensor-core products, asynchronous
+    # copies and mbarrier operations, counted in each kernel's SASS
+    sass = {}
+    for name in SOURCES:
+        counts = build.sass_counts(build.sass(name))
+        sass.update(counts)
+        total = {fam: sum(c[fam] for c in counts.values())
+                 for fam in build.SASS_FAMILIES}
+        print(f"  sass {name}: {len(counts)} kernels, in all " + ", ".join(
+            f"{fam} {n}" for fam, n in total.items()), flush=True)
+    tc_sass = {kn: c for kn, c in sass.items()
+               if kn.startswith(FLASH_TC_NAME + "<")}
+    for kern, counts in tc_sass.items():
+        print(f"  sass {kern}: " + ", ".join(
+            f"{fam} {n}" for fam, n in counts.items()), flush=True)
+    check(len(tc_sass) >= 2 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["SYNCS"] > 0
+        for c in tc_sass.values()),
+        f"the bf16 flash kernel's SASS lacks wgmma, TMA or mbarrier "
+        f"instructions: {tc_sass}")
+    return sass, tc_sass
+
+
 def kernel_entry(name, source, replaces, launches, numbers, **extra):
     """One kernel's record for the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": source,
@@ -1258,7 +1384,6 @@ def main() -> int:
               "NVIDIA card", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
     from repro_torch.models.transformer import stacked_defs
     from repro_torch.optim.flatten import FlatLayout
 
@@ -1268,37 +1393,30 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()
     card_line = smi[0].strip()
     print(card_line, flush=True)
+    print_clocks("start")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # -- 2. build: one nvcc per source, all started together ---------------
-    t0 = time.perf_counter()
-    built = build.build_all(SOURCES)
-    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for name, rec in built.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
-                                             rec["log"])]
-        spills = [ln.strip() for ln in rec["log"].splitlines()
-                  if "spill" in ln and " 0 bytes spill stores" not in ln]
-        if regs:
-            print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-                  f"registers per thread, {len(spills)} with spills",
-                  flush=True)
-        for ln in spills:
-            print(f"  {name}: {ln}")
+    sass, tc_sass = build_phase()
 
     # -- 9. flash attention vs its plain version and the library ----------
     flash = flash_case("path", card_line, seed=31, model_layout=True)
+    check(flash["route"] == "tc" and 3 * flash["ms"] <= flash["cc_ms"],
+          f"flash path: the {flash['route']} kernel took {flash['ms']:.4f} "
+          f"ms, the CUDA-core kernel {flash['cc_ms']} ms on the same inputs "
+          "(want the tensor-core kernel at least 3x faster)")
     flash_case("gqa", card_line, kv=8, seed=32)
     flash_case("window", card_line, window=256, seed=33)
-    flash_case("f32", card_line, dtype="float32", seed=34)
+    flash_f32 = flash_case("f32", card_line, dtype="float32", seed=34)
 
     # -- 10. the RWKV6 scan vs its plain version ------------------------------
-    scan_case("float32", card_line, seed=41)
+    scan_f32 = scan_case("float32", card_line, seed=41)
     scan = scan_case("bfloat16", card_line, seed=42)
+    print(f"  sass {SCAN_PATH}: " + ", ".join(
+        f"{fam} {n}" for fam, n in sass[SCAN_PATH].items()), flush=True)
 
     # -- 3. kernel vs plain version at three shapes -------------------------
     full = get_config("qwen3-4b")
@@ -1389,16 +1507,28 @@ def main() -> int:
                      in_round_ms=fp8["in_round_ms"]),
         kernel_entry("consensus_update", src + "consensus_update.cu",
                      f"{ref_file}:74", flat["launches"], flat),
-        kernel_entry("flash_attention", src + "flash_attention.cu",
+        kernel_entry("flash_attention", src + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:26",
                      serve_qwen["launches"], flash,
                      library_ms=flash["library_ms"],
-                     in_prefill_ms=serve_qwen["in_prefill_ms"]),
+                     in_prefill_ms=serve_qwen["in_prefill_ms"],
+                     cuda_core_ms=flash["cc_ms"],
+                     f32_source=src + "flash_attention.cu",
+                     f32_ms=flash_f32["ms"],
+                     f32_max_abs_err=flash_f32["max_abs_err"],
+                     sass=tc_sass),
         kernel_entry("rwkv6_scan", src + "rwkv6_scan.cu",
                      "src/repro/kernels/rwkv6_scan.py:30",
                      serve_rwkv["launches"], scan,
-                     in_prefill_ms=serve_rwkv["in_prefill_ms"]),
+                     in_prefill_ms=serve_rwkv["in_prefill_ms"],
+                     **{key: scan[key] for key in (
+                         "blocks_per_head", "threads", "smem_bytes",
+                         "blocks_per_sm", "registers")},
+                     f32_ms=scan_f32["ms"],
+                     f32_max_abs_err=scan_f32["max_abs_err"],
+                     sass={SCAN_PATH: sass[SCAN_PATH]}),
     ]
+    print_clocks("end")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The attention and scan kernels sum in an order of their own anyway and
 # keep nvcc's fused multiply-adds.
 NO_FMA = ("consensus_round", "consensus_update")
+# No source links -lcuda: flash_attention_tc.cu and rwkv6_scan.cu build TMA
+# tensor maps with libcuda's cuTensorMapEncodeTiled, which they look up at
+# run time through the CUDA runtime's entry-point query (libcuda is already
+# loaded by the runtime and PyTorch), so the libraries need no libcuda stub
+# to link against and load in any process that has a card.
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRY_POINTS: dict[str, ctypes._CFuncPtr] = {}
@@ -121,3 +127,56 @@ def entry_point(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _ENTRY_POINTS[name] = fn
     return fn
+
+
+# SASS opcode families: tensor-core products (wgmma, mma.sync), asynchronous
+# copies (TMA, cp.async) and the mbarrier operations that complete them
+SASS_FAMILIES = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "SYNCS")
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
+_INSTRUCTION = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def short_kernel_name(mangled: str) -> str:
+    """'_ZN<ns>18rwkv6_scan_kernelI13__nv_bfloat16Li64ELi32EEEv...' ->
+    'rwkv6_scan_kernel<bf16,64,32>' (the kernel's own name and template
+    arguments, for printing)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if not mangled.startswith("I", i):
+        return name
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|f)(?=L|E)", mangled[i + 1:])
+    parts = [_TYPES[t] if t else n for n, t in args]
+    return f"{name}<{','.join(parts)}>"
+
+
+def sass_counts(text: str) -> dict:
+    """Per kernel of ``cuobjdump -sass`` output, the count of instructions
+    in each of SASS_FAMILIES (opcode prefixes): {short name: {family: n}}."""
+    out = {}
+    starts = [(m.start(), m.group(1)) for m in _FUNCTION.finditer(text)]
+    for n, (pos, name) in enumerate(starts):
+        end = starts[n + 1][0] if n + 1 < len(starts) else len(text)
+        counts = dict.fromkeys(SASS_FAMILIES, 0)
+        for op in _INSTRUCTION.findall(text[pos:end]):
+            for fam in SASS_FAMILIES:
+                if op.startswith(fam):
+                    counts[fam] += 1
+        out[short_kernel_name(name)] = counts
+    return out
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of kernel ``name``'s built library (cuobjdump
+    from the toolkit that holds nvcc)."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, "-sass", build(name)["path"]],
+                          capture_output=True, text=True, check=True).stdout

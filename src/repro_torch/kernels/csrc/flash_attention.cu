@@ -1,5 +1,6 @@
 // Causal (optionally sliding-window) GQA flash attention for Hopper
-// (sm_90a), in f32 on the CUDA cores.
+// (sm_90a), in f32 on the CUDA cores: the kernel for float32 inputs and for
+// the head dims the tensor-core kernel does not take.
 //
 // Replaces the TPU kernel `_kernel` (:26) of
 // src/repro/kernels/flash_attention.py, reached from `flash_attention`
@@ -24,11 +25,12 @@
 // hd 128, bf16, causal) the function reads q, k, v and writes out once,
 // 4 x 33.6 MB = 67 MB (0.020 ms at 3.35 TB/s), and does 8.59 GFLOP of
 // products (causal half of 4 B H S^2 hd), 0.0087 ms at the bf16 tensor-core
-// rate: bytes bound it on this card. This first version computes in f32 on
-// the CUDA cores, as the TPU kernel's arithmetic is f32; at the card's
-// 67 TFLOP/s f32 rate the same products take at least 0.13 ms, so it cannot
-// reach the bound. Tensor cores (wgmma) with bf16 p would round p, which the
-// TPU kernel does not: that trade is for a later version.
+// rate: bytes bound it on this card. This kernel computes in f32 on the
+// CUDA cores, the TPU kernel's arithmetic; at the card's 67 TFLOP/s f32 rate
+// the same products take at least 0.13 ms, so it cannot reach the bound.
+// It takes float32 inputs, and bf16 at head dims 16 and 32; bf16 at 64 and
+// 128 goes to the tensor-core kernel, flash_attention_tc.cu, which rounds p
+// to bf16 (kernels/flash_attention.py:route).
 //
 // Design. Grid (query tiles of 64, H, B); 256 threads as 16 x 16. A block
 // keeps its 64 x hd query tile in shared memory and streams 64-key tiles of

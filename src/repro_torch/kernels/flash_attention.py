@@ -1,20 +1,28 @@
-"""Launch wrapper of the flash attention CUDA kernel
-(``csrc/flash_attention.cu``).
+"""Launch wrappers of the flash attention CUDA kernels
+(``csrc/flash_attention_tc.cu`` and ``csrc/flash_attention.cu``).
 
-The kernel replaces the TPU kernel ``_kernel`` of
+Both replace the TPU kernel ``_kernel`` of
 ``repro/kernels/flash_attention.py:26`` (``flash_attention`` at ``:82``):
 causal, optionally sliding-window GQA attention with an online softmax kept
-in f32, fully masked tiles skipped. It reads q, k and v through their
+in f32, fully masked tiles skipped. Both read q, k and v through their
 strides, so the model layout ``[B, S, H, hd]`` and the head-major
 ``[B, H, S, hd]`` take the same kernel without a transposed copy; query
-head h reads KV head ``h // (H // K)``. At the serve path's shape it is
-bound by the bytes it moves on this card, but computes in f32 on the CUDA
-cores (the TPU kernel's arithmetic), which puts its floor at the f32 rate;
-see the source.
+head h reads KV head ``h // (H // K)``.
 
-``launch`` checks device, dtype, shape and strides and raises on anything
-the kernel does not take; it allocates the output and launches on the
-current stream.
+Which kernel runs is a rule on the inputs' dtype and head dim, ``route``:
+bf16 at head dim 64 or 128 goes to the tensor-core kernel
+(``flash_attention_tc.cu``: wgmma in bf16 with f32 sums, p rounded to bf16
+for the p.v product, K/V streamed by TMA); everything else (float32, and
+bf16 at head dim 16 or 32) goes to the CUDA-core kernel
+(``flash_attention.cu``: f32 arithmetic, the TPU kernel's). The rule is not
+a fallback: a kernel that fails to build or launch raises, and the other is
+never tried.
+
+``launch`` checks device, dtype, shape and strides (``plan``) and raises on
+anything the chosen kernel does not take; it allocates the output and
+launches on the current stream. The tensor-core kernel's TMA needs 16-byte
+aligned bases and strides that are multiples of 8 elements: a tensor that
+breaks that rule raises, it is neither copied nor sent to the other kernel.
 """
 from __future__ import annotations
 
@@ -26,11 +34,13 @@ from repro_torch.kernels import build
 
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)        # the tensor-core kernel's, in bf16
 # (batch, seq, head) axes of each layout
 LAYOUTS = {"bshd": (0, 1, 2), "bhsd": (0, 2, 1)}
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I32] * 8 + [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong), _P]
+_TC_ARGS = [_I32] * 7 + [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong), _P]
 
 
 def _require(cond: bool, msg: str):
@@ -38,23 +48,35 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"flash_attention kernel: {msg}")
 
 
-def launch(q, k, v, *, causal: bool, window: int, layout: str = "bshd"
-           ) -> torch.Tensor:
-    """Run the kernel on the card; returns the output in q's layout, dtype
-    and shape (a new contiguous tensor).
+def route(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel takes inputs of ``dtype`` at head dim ``hd``: "tc" (the
+    tensor-core kernel) for bf16 at hd 64 or 128, else "cc" (the CUDA-core
+    kernel)."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cc"
 
-    q: [B, S, H, hd] (``layout="bshd"``) or [B, H, S, hd] (``"bhsd"``);
-    k, v: the same with K heads, H a multiple of K. float32 or bfloat16,
-    one dtype and one CUDA device for all three; hd 16, 32, 64 or 128; the
-    head dim contiguous (any strides elsewhere).
-    """
+
+def _tma_strides(t, axes) -> list[int]:
+    """t's element strides along ``axes`` for a tensor map: a dim of size 1
+    is never stepped, so its stride is replaced by one past the tensor's
+    extent (keeping the map's strides increasing)."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    span = -(-span // 8) * 8
+    return [t.stride(ax) if t.shape[ax] > 1 else span for ax in axes]
+
+
+def plan(q, k, v, *, window: int, layout: str = "bshd",
+         route_to: str | None = None) -> dict:
+    """Check the arguments of ``launch`` (any device) and return the
+    launch's plan: {"route", "b", "s", "h", "kv", "hd", "strides"} with the
+    (batch, seq, head) element strides of q, k and v. Raises ValueError on
+    anything the routed kernel (``route_to``, by default ``route``'s) does
+    not take."""
     _require(layout in LAYOUTS, f"layout {layout!r} (takes {list(LAYOUTS)})")
-    dev = q.device
-    _require(dev.type == "cuda", f"q lies on {dev}, not on a CUDA card")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(isinstance(t, torch.Tensor) and t.dim() == 4,
                  f"{name} must be a 4-d tensor")
-        _require(t.device == dev, f"{name} lies on {t.device}, q on {dev}")
+        _require(t.device == q.device, f"{name} lies on {t.device}, q on "
+                 f"{q.device}")
         _require(t.dtype == q.dtype, f"{name} dtype {t.dtype} != q's "
                  f"{q.dtype}")
         _require(t.stride(3) == 1, f"{name}'s head dim is not contiguous")
@@ -74,16 +96,59 @@ def launch(q, k, v, *, causal: bool, window: int, layout: str = "bshd"
     _require(kv >= 1 and h % kv == 0,
              f"{h} query heads are not a multiple of {kv} KV heads")
     _require(window >= 0, f"window {window} < 0")
+    axes = (ax_b, ax_s, ax_h)
+    kind = route_to or route(q.dtype, hd)
+    if kind == "tc":
+        strides = [_tma_strides(t, axes) for t in (q, k, v)]
+        for name, t, st in zip("qkv", (q, k, v), strides):
+            _require(t.data_ptr() % 16 == 0,
+                     f"{name}'s base is not 16-byte aligned (the tensor-"
+                     "core kernel's TMA needs it)")
+            _require(all(x % 8 == 0 for x in st),
+                     f"{name}'s strides {st} are not multiples of 8 "
+                     "elements (the tensor-core kernel's TMA needs 16 "
+                     "bytes)")
+    else:
+        strides = [[t.stride(ax) for ax in axes] for t in (q, k, v)]
+    return dict(route=kind, b=b, s=s, h=h, kv=kv, hd=hd, strides=strides)
+
+
+def launch(q, k, v, *, causal: bool, window: int, layout: str = "bshd",
+           kernel: str | None = None) -> torch.Tensor:
+    """Run the routed kernel on the card; returns the output in q's layout,
+    dtype and shape (a new contiguous tensor).
+
+    q: [B, S, H, hd] (``layout="bshd"``) or [B, H, S, hd] (``"bhsd"``);
+    k, v: the same with K heads, H a multiple of K. float32 or bfloat16,
+    one dtype and one CUDA device for all three; hd 16, 32, 64 or 128; the
+    head dim contiguous (any strides elsewhere, but see ``plan`` for the
+    tensor-core kernel's). ``kernel="cc"`` runs the CUDA-core kernel on
+    inputs that ``route`` sends to the tensor-core one, to time the two on
+    the same inputs; the model's wrappers (``kernels.ops``) never pass it.
+    """
+    dev = q.device
+    _require(isinstance(q, torch.Tensor) and dev.type == "cuda",
+             f"q lies on {getattr(q, 'device', None)}, not on a CUDA card")
+    _require(kernel in (None, "cc"), f"kernel {kernel!r} (takes None or "
+             "'cc')")
+    p = plan(q, k, v, window=window, layout=layout, route_to=kernel)
+    ax_b, ax_s, ax_h = LAYOUTS[layout]
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*[
-        t.stride(ax) for t in (q, k, v, out) for ax in (ax_b, ax_s, ax_h)])
+        x for st in p["strides"] for x in st],
+        *[out.stride(ax) for ax in (ax_b, ax_s, ax_h)])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(dev):
-        err = build.entry_point("flash_attention", _ARGS)(
-            KINDS[q.dtype], hd, b, h, kv, s, int(causal), int(window),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, stream)
+        if p["route"] == "tc":
+            err = build.entry_point("flash_attention_tc", _TC_ARGS)(
+                p["hd"], p["b"], p["h"], p["kv"], p["s"], int(causal),
+                int(window), *ptrs, strides, stream)
+        else:
+            err = build.entry_point("flash_attention", _ARGS)(
+                KINDS[q.dtype], p["hd"], p["b"], p["h"], p["kv"], p["s"],
+                int(causal), int(window), *ptrs, strides, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention ({p['route']}) kernel launch "
+                           f"failed: CUDA error {err}")
     return out

@@ -11,8 +11,10 @@ a run can show that it went through the kernel:
 ``consensus_round.per_block_launches`` (those of either with per-block
 scales, the fp8 wires; counted in one of the first two as well),
 ``consensus_update.launches``, ``flash_attention.launches`` (the model
-layout's and the head-major wrapper's launches of the one attention
-kernel) and ``rwkv6_scan.launches``.
+layout's and the head-major wrapper's launches of either attention
+kernel), ``flash_attention.tc_launches`` (those of the tensor-core one,
+bf16 at head dim 64 or 128; counted in ``launches`` as well) and
+``rwkv6_scan.launches``.
 """
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ def _flash(q, k, v, causal: bool, window: int, layout: str):
         out = _fa.launch(q, k, v, causal=causal, window=window,
                          layout=layout)
         flash_attention.launches += 1
+        if _fa.route(q.dtype, q.shape[3]) == "tc":
+            flash_attention.tc_launches += 1
         return out
     if layout == "bshd":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
@@ -66,19 +70,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     Returns [B, S, H, hd] in q's dtype. S must be a multiple of
     ``min(128, S)``, as the reference's kernel asserts. The reference's
     ``block_q``/``block_k`` are its TPU tiling and have no counterpart:
-    the CUDA kernel tiles by 64 and computes the same function.
+    the CUDA kernels tile by their own sizes and compute the same function.
+    On the card, bf16 at head dim 64 or 128 runs the tensor-core kernel
+    (p rounded to bf16 for p.v) and the rest the f32 CUDA-core kernel
+    (``kernels.flash_attention.route``).
     """
     return _flash(q, k, v, causal, window, "bshd")
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 def flash_attention_hmajor(q, k, v, *, causal: bool = True,
                            window: int = 0):
     """Head-major ``flash_attention``: q [B, H, S, hd], k/v [B, K, S, hd]
     (the reference's ``flash_attention_hmajor``). Its launches count in
-    ``flash_attention.launches``."""
+    ``flash_attention.launches`` (and ``tc_launches``)."""
     return _flash(q, k, v, causal, window, "bhsd")
 
 

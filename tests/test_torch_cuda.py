@@ -244,6 +244,101 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+# the tensor-core flash kernel's edges (bf16, head dim 64 or 128), through
+# ops: (b, h, kv heads, s, hd, window) — the serve path's shape at B 1, a
+# window smaller than the kernel's 128-key tile, GQA 32/8 at hd 128, hd 64,
+# and S 96, below one 128-row tile
+TC_CASES = [(1, 32, 32, 512, 128, 0), (1, 4, 4, 256, 128, 40),
+            (1, 32, 8, 256, 128, 0), (2, 4, 2, 256, 64, 0),
+            (2, 4, 2, 96, 64, 0)]
+
+
+def _tc_inputs(b, h, kh, s, hd, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, n, s, hd, generator=g,
+                             device="cuda").bfloat16() for n in (h, kh, kh))
+
+
+def _tc_want(q, k, v, window):
+    """The plain version evaluated in f32 on the same inputs, cast to bf16
+    (the TPU kernel's arithmetic: q, k, v widened to f32 inside)."""
+    n_rep = q.shape[1] // k.shape[1]
+    kr, vr = (x.repeat_interleave(n_rep, dim=1).float() for x in (k, v))
+    return ref.flash_attention_ref(q.float(), kr, vr, causal=True,
+                                   window=window).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", TC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_tensor_core_kernel(case, layout):
+    """bf16 at hd 64 and 128 runs the tensor-core kernel (both counters
+    move), held at 2e-2 against the plain version evaluated in f32 (the
+    kernel rounds p to bf16 for its p.v product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, kh, s, hd, window = case
+    q, k, v = _tc_inputs(b, h, kh, s, hd, seed=s + hd + window)
+    want = _tc_want(q, k, v, window)
+    before = (ops.flash_attention.launches, ops.flash_attention.tc_launches)
+    if layout == "bhsd":
+        got = ops.flash_attention_hmajor(q, k, v, causal=True, window=window)
+    else:
+        got = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                  causal=True, window=window).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - before[0],
+            ops.flash_attention.tc_launches - before[1]) == (1, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_cuda_flash_tensor_core_ragged_sequence(layout):
+    """S 192 is not a multiple of the kernel's 128-row tile: TMA fills the
+    rows past the end with zeros, the kernel masks those keys and writes
+    no row past the end. The wrappers in ``ops`` refuse S 192 (the
+    reference's S % min(128, S) rule), so the kernel is launched here
+    directly; its route is the tensor-core one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _tc_inputs(2, 4, 2, 192, 128, seed=192)
+    want = _tc_want(q, k, v, 0)
+    assert fa.route(q.dtype, 128) == "tc"
+    with pytest.raises(ValueError, match="multiple of the block"):
+        ops.flash_attention_hmajor(q, k, v)
+    if layout == "bhsd":
+        got = fa.launch(q, k, v, causal=True, window=0, layout="bhsd")
+    else:
+        got = fa.launch(*(t.transpose(1, 2) for t in (q, k, v)), causal=True,
+                        window=0, layout="bshd").transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_cuda_flash_tensor_core_refuses_misaligned_view(layout):
+    """A bf16 tensor whose base is not 16-byte aligned cannot be read by
+    TMA: the wrapper raises before any launch (no copy, no other kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    shape = (1, 4, 128, 128) if layout == "bhsd" else (1, 128, 4, 128)
+    n = 4 * 128 * 128
+    q = torch.randn(n + 8, device="cuda").bfloat16()[1:1 + n].view(shape)
+    k = torch.randn(shape, device="cuda").bfloat16()
+    before = (ops.flash_attention.launches, ops.flash_attention.tc_launches)
+    fn = ops.flash_attention_hmajor if layout == "bhsd" \
+        else ops.flash_attention
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(q, k, k)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.tc_launches) == before
+
+
 SCAN_CASES = [(1, 2, 64, 16, 16), (2, 3, 128, 32, 32), (1, 1, 96, 8, 32),
               (1, 4, 256, 64, 64), (2, 4, 64, 64, 32)]
 
@@ -279,6 +374,56 @@ def test_cuda_rwkv6_scan_matches_plain_version(case, dtype):
     torch.cuda.synchronize()
     assert ops.rwkv6_scan.launches == before + 1
     assert y.dtype == dt and y.shape == r.shape
+    rtol = 3e-5 if dtype == "float32" else 8e-3
+    scale = float(y_want.float().abs().max()) + 1e-6
+    torch.testing.assert_close(y.float(), y_want.transpose(1, 2).float(),
+                               rtol=0, atol=rtol * scale)
+    torch.testing.assert_close(s, s_want, rtol=0,
+                               atol=rtol * float(s_want.abs().max()))
+
+
+# the scan at the serve path's width: (b, h, t, hd, chunk, log decay, pad)
+# — one rwkv6-7b layer's heads at T 512, chunk 32; strong decay (log w
+# about -20 a step) at chunk 8, where the re-centred factors reach e^{+-80};
+# rows that start off 16-byte alignment (plain loads instead of TMA)
+SCAN_PATH_CASES = [(1, 8, 512, 64, 32, None, 0), (2, 4, 512, 64, 8, -20.0, 0),
+                   (2, 3, 128, 64, 32, None, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_PATH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_rwkv6_scan_path_shapes(case, dtype):
+    """The scan kernel (through ops) at the path's head dim and chunk, at a
+    strong decay, and on rows off 16-byte alignment, against its plain
+    version: y to 3e-5 * max|y| in float32 and 8e-3 * max|y| in bf16, the
+    f32 state to the same share of max|state|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, t, hd, chunk, decay, pad = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(t + hd + chunk)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    r, k, v = (rnd(b, t, h, hd + pad, scale=sc).to(dt)[..., pad:]
+               for sc in (1.0, 0.5, 1.0))
+    if decay is None:
+        w = torch.exp(-torch.exp(rnd(b, t, h, hd, scale=0.5)))
+    else:
+        w = torch.exp(decay + rnd(b, t, h, hd, scale=0.5))
+    u = rnd(h, hd, scale=0.1).to(dt)
+    s0 = rnd(b, h, hd, hd, scale=0.1)
+    log_w = torch.log(torch.clamp_min(w, 1e-38))
+    y_want, s_want = ref.rwkv6_scan_ref(
+        *(x.transpose(1, 2) for x in (r, k, v, log_w)), u, s0)
+    before = ops.rwkv6_scan.launches
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    assert bool(torch.isfinite(y.float()).all()) and y.dtype == dt
     rtol = 3e-5 if dtype == "float32" else 8e-3
     scale = float(y_want.float().abs().max()) + 1e-6
     torch.testing.assert_close(y.float(), y_want.transpose(1, 2).float(),
