@@ -102,6 +102,45 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
               archs: tokens equal, logits within 1e-4 of their largest
               magnitude.
 
+The paper slice (no kernel of the port on its path: every launch counter
+is set to 0 before each phase and must read 0 after it). All but phase 16
+run in float64. The card side runs in this process; the port's CPU side
+of phases 13-15 runs in four worker processes started together with it,
+from the same inits (drawn on the CPU by a torch.Generator and copied).
+Each phase prints its seconds and ms per iteration (host clock around
+``run``, synchronized):
+
+ 13. paper_fig2 — D-PPCA on §5.1's subspace data (500 x 20, M 5, noise
+              0.2 I, 20 nodes), complete / ring / cluster x the six
+              schemes, eta0 10, rel_tol 1e-3, min_iters 10, max 400: the
+              card's iteration counts equal the CPU's, the max subspace
+              angle to W_true within 1e-5 degrees, W within 1e-8 of max|W|.
+ 14. paper_fig3 — D-PPCA on turntable SfM (§5.2: 5 cameras, 30 frames, 90
+              points), (ring, t_max 50), (complete, 50), (complete, 5) x
+              the six schemes, against fit_svd of the pooled
+              measurements; the same checks.
+ 15. paper_lsq — the quickstart's least squares in float64 (J 8, d 5, n
+              20, inner 30, inner_lr 1.0, rel_tol 1e-8), complete and ring
+              x the six schemes: iteration counts equal, max|w - w*| <
+              1e-3; then the dynamic-topology example's three acts (J 12,
+              expander, nap, budget scheduler with churn, node 7 dropped):
+              masks and active edge fractions equal at every print, the
+              survivors' spread under 1e-3.
+     Then the inner solver at the quickstart's size, eager against the
+              CUDA-graph replay that the engine uses on the card: equal
+              bit for bit, both timed.
+ 16. scale_lsq — ConsensusADMM least squares in float32 at J 16 x A [8192,
+              2048] (1.07 GB on the card), complete, nap, inner 30, 10
+              iterations: max|w - w*| (w* from torch.linalg.lstsq of the
+              stacked problem) and the consensus error each fall 10x from
+              the init. One more iteration under torch.profiler: device
+              busy ms, idle share, kernel launches.
+ 17. scale_sfm — D-PPCA, nap, complete, 50 iterations on turntable SfM at
+              300 frames x 20,000 points (96 MB; the [J, J] probe
+              broadcast about 0.5 GB): the structure angle to fit_svd
+              falls below its init value and below SFM_ANGLE_BOUND_DEG;
+              one more iteration under the profiler.
+
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
 """
@@ -1317,6 +1356,367 @@ def static_slice(full, card_line, codec):
                 in_round_ms=float(np.median(in_round)), layout=layout)
 
 
+# -- the paper slice: dense ConsensusADMM and D-PPCA ---------------------
+PAPER_WORKERS = 4          # CPU processes running the port's CPU side
+SCHEMES = ("fixed", "vp", "ap", "nap", "vp_ap", "vp_nap")
+FIG3_SETTINGS = (("ring", 50), ("complete", 50), ("complete", 5))
+# scale_sfm: the structure angle after 50 iterations must stay below this.
+# The port on the CPU at a reduced size (turntable, 5 cameras, frames 300,
+# points 2,000; nap, complete, 50 iterations) reached 0.3505 degrees
+# (tests/test_torch_ppca.py::test_sfm_angle_at_reduced_scale holds it
+# under 0.5); the bound leaves about 3x.
+SFM_ANGLE_BOUND_DEG = 1.0
+
+
+def _synced(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fig2_run(topo, scheme, dev):
+    """One paper_fig2 run (§5.1: 500 x 20 subspace data over 20 nodes,
+    M 5, one init from seed 100) on ``dev``."""
+    import torch
+    from repro_torch.core import PenaltyConfig, build_graph
+    from repro_torch.ppca import DPPCA, max_subspace_angle, subspace_data
+    data = subspace_data(20, seed=0)
+    x = torch.as_tensor(data.x, device=dev)
+    eng = DPPCA(latent_dim=5, graph=build_graph(topo, 20),
+                penalty_cfg=PenaltyConfig(scheme=scheme, eta0=10.0))
+    st = eng.init(x, torch.Generator().manual_seed(100))
+    t0 = time.perf_counter()
+    st, hist = eng.run(st, x, max_iters=400, rel_tol=1e-3, min_iters=10)
+    _synced(dev)
+    seconds = time.perf_counter() - t0
+    angle = float(max_subspace_angle(
+        st.W, torch.as_tensor(data.W_true, device=dev)))
+    return {"iters": hist["iterations"], "seconds": seconds, "angle": angle,
+            "W": st.W.cpu().numpy()}
+
+
+def fig3_run(topo, t_max, scheme, dev):
+    """One paper_fig3 run (§5.2: turntable SfM, 5 cameras, 30 frames, 90
+    points; the structure against fit_svd of the pooled measurements)."""
+    import torch
+    from repro_torch.core import PenaltyConfig, build_graph
+    from repro_torch.ppca import DPPCA, fit_svd, max_subspace_angle
+    from repro_torch.ppca import turntable_sfm
+    sfm = turntable_sfm(5, frames=30, points=90, seed=0)
+    x = torch.as_tensor(sfm.x_nodes, device=dev)
+    ref = fit_svd(torch.as_tensor(sfm.measurements, device=dev), 3)
+    eng = DPPCA(latent_dim=3, graph=build_graph(topo, 5),
+                penalty_cfg=PenaltyConfig(scheme=scheme, eta0=10.0,
+                                          t_max=t_max, t_reset=t_max))
+    st = eng.init(x, torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    st, hist = eng.run(st, x, max_iters=400, rel_tol=1e-3, min_iters=10)
+    _synced(dev)
+    seconds = time.perf_counter() - t0
+    return {"iters": hist["iterations"], "seconds": seconds,
+            "angle": float(max_subspace_angle(st.W, ref.W)),
+            "W": st.W.cpu().numpy()}
+
+
+def lsq_run(topo, scheme, dev):
+    """One quickstart run in float64 (J 8, d 5, n 20, inner 30,
+    inner_lr 1.0, rel_tol 1e-8)."""
+    import torch
+    from repro_torch.examples import quickstart
+    data, theta0, w_star = quickstart.lsq_problem(dtype=torch.float64,
+                                                  device=dev)
+    t0 = time.perf_counter()
+    row, = quickstart.run_schemes(data, theta0, w_star, topologies=(topo,),
+                                  schemes=(scheme,))
+    _synced(dev)
+    return {"iters": row["iterations"], "seconds": time.perf_counter() - t0,
+            "err": row["err"], "W": row["w"]}
+
+
+def dyn_run(dev):
+    """The dynamic-topology example's three acts in float64."""
+    import torch
+    from repro_torch.examples import dynamic_topology
+    t0 = time.perf_counter()
+    out = dynamic_topology.three_acts(dtype=torch.float64, device=dev)
+    _synced(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+PAPER_RUNS = {"fig2": fig2_run, "fig3": fig3_run, "lsq": lsq_run,
+              "dyn": dyn_run}
+
+
+def paper_job(kind, args):
+    """A CPU-side run in a worker process (one thread: the card's host
+    keeps its own cores)."""
+    import torch
+    torch.set_num_threads(1)
+    return PAPER_RUNS[kind](*args, "cpu")
+
+
+def paper_jobs():
+    """Every paper phase's runs, in phase order: (phase, kind, args)."""
+    jobs = [("paper_fig2", "fig2", (t, s))
+            for t in ("complete", "ring", "cluster") for s in SCHEMES]
+    jobs += [("paper_fig3", "fig3", (t, tm, s))
+             for t, tm in FIG3_SETTINGS for s in SCHEMES]
+    jobs += [("paper_lsq", "lsq", (t, s))
+             for t in ("complete", "ring") for s in SCHEMES]
+    jobs.append(("paper_lsq", "dyn", ()))
+    return jobs
+
+
+def no_kernel_launched(phase):
+    """The paper slice reaches no CUDA kernel of the port."""
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in all_counters()}
+    check(not any(counts.values()),
+          f"{phase}: the paper path launched a kernel: {counts}")
+
+
+def paper_phases(card_line):
+    """Phases 13-15: the paper's configurations on the card and, in worker
+    processes started together, by the port on the CPU from the same
+    inits; every run must agree (module docstring)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    jobs = paper_jobs()
+    pool = cf.ProcessPoolExecutor(PAPER_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    try:
+        futures = [pool.submit(paper_job, kind, args)
+                   for _, kind, args in jobs]
+        for phase in ("paper_fig2", "paper_fig3", "paper_lsq"):
+            for obj, attr in all_counters():
+                setattr(obj, attr, 0)
+            t0 = time.perf_counter()
+            mine = [(n, kind, args, PAPER_RUNS[kind](*args, DEV))
+                    for n, (ph, kind, args) in enumerate(jobs) if ph == phase]
+            seconds = time.perf_counter() - t0
+            no_kernel_launched(phase)
+            paper_compare(phase, mine, futures, seconds, card_line)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def paper_compare(phase, mine, futures, seconds, card_line):
+    """Hold each card run against its CPU run; print the phase's line."""
+    iters = secs = 0
+    for n, kind, args, card in mine:
+        cpu = futures[n].result()
+        tag = f"{phase} {kind} {'/'.join(map(str, args))}"
+        if kind == "dyn":
+            dyn_compare(tag, card, cpu)
+            iters += card["iterations"] + 20 * len(card["shed"]) + 30
+            secs += card["seconds"]
+            continue
+        iters += card["iters"]
+        secs += card["seconds"]
+        check(card["iters"] == cpu["iters"],
+              f"{tag}: {card['iters']} iterations on the card, "
+              f"{cpu['iters']} on the CPU")
+        scale = float(np.abs(cpu["W"]).max())
+        w_err = float(np.abs(card["W"] - cpu["W"]).max())
+        check(w_err <= 1e-8 * scale, f"{tag}: W differs by {w_err:.3g} "
+              f"(max|W| {scale:.3g})")
+        if kind == "lsq":
+            check(card["err"] < 1e-3, f"{tag}: max|w - w*| {card['err']}")
+        else:
+            check(abs(card["angle"] - cpu["angle"]) <= 1e-5,
+                  f"{tag}: angle {card['angle']} on the card, "
+                  f"{cpu['angle']} on the CPU")
+        print(f"  {tag}: {card['iters']} iterations, "
+              + (f"max|w-w*| {card['err']:.3g}" if kind == "lsq"
+                 else f"angle {card['angle']:.4f} deg")
+              + f", {1e3 * card['seconds'] / card['iters']:.3f} ms/iter; "
+              f"W card vs cpu {w_err:.3g}", flush=True)
+    ms = 1e3 * secs / iters
+    print(f"{phase}: {len(mine)} runs, {iters} iterations, {seconds:.2f} s "
+          f"on the card, {ms:.3f} ms per iteration (host clock around run, "
+          f"synchronized), every run equal to the CPU's; {card_line}",
+          flush=True)
+
+
+def dyn_compare(tag, card, cpu):
+    """The dynamic example's masks and active edges at every print equal,
+    and the survivors agree."""
+    check(card["iterations"] == cpu["iterations"],
+          f"{tag}: act 1 {card['iterations']} vs {cpu['iterations']}")
+    prints = [(card["mask"], cpu["mask"], None, None)]
+    prints += [(a["mask"], b["mask"], a["active_edges"], b["active_edges"])
+               for a, b in zip(card["shed"], cpu["shed"])]
+    prints.append((card["churn"]["mask"], cpu["churn"]["mask"],
+                   card["churn"]["active_edges"],
+                   cpu["churn"]["active_edges"]))
+    for k, (ma, mb, ea, eb) in enumerate(prints):
+        check(np.array_equal(ma, mb) and ea == eb,
+              f"{tag}: print {k}: masks or active edges differ "
+              f"({ea} vs {eb})")
+    c = card["churn"]
+    check(c["alive"] == 11 and c["spread"] < 1e-3,
+          f"{tag}: survivors {c}")
+    print(f"  {tag}: act 1 {card['iterations']} iterations, active edges "
+          + ", ".join(f"{r['active_edges']:.2f}" for r in card["shed"])
+          + f", after the drop {c['active_edges']:.2f}, survivors' spread "
+          f"{c['spread']:.3g}; masks equal to the CPU's at every print",
+          flush=True)
+
+
+def profile_iteration(step, label):
+    """One call of ``step`` under torch.profiler (CUDA activity): its wall
+    ms (host clock, synchronized), device busy ms, idle share and kernel
+    launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    _, busy_ms, _, top = device_profile(prof, top_n=4)
+    launches = sum(1 for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and not ev.name.lower().startswith(("memcpy", "memset")))
+    idle = 1.0 - busy_ms / wall_ms
+    print(f"  {label} under the profiler: {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle {100 * idle:.1f}%, {launches} kernel "
+          f"launches; top: " + ", ".join(
+              f"{name[:40]} x{n} {ms:.2f} ms" for name, (n, ms) in top),
+          flush=True)
+
+
+def solve_graph_check(card_line, reps=10):
+    """The inner solver at the quickstart's size (float64, J 8, nap, one
+    step in): eager against its CUDA-graph replay, which the engine uses
+    on the card. Equal bit for bit; both timed (host clock, synchronized)."""
+    import torch
+    from repro_torch.core import ConsensusADMM, PenaltyConfig, build_graph
+    from repro_torch.examples.quickstart import lsq_problem, objective
+    data, theta0, _ = lsq_problem(dtype=torch.float64, device=DEV)
+    eng = ConsensusADMM(objective=objective,
+                        penalty_cfg=PenaltyConfig(scheme="nap", eta0=1.0),
+                        graph=build_graph("ring", 8), inner_steps=30,
+                        inner_lr=1.0)
+    st, _ = eng.step(eng.init(theta0), data)
+    adj, scale = eng._device_consts(st.penalty.eta.device)
+    args = (data, st.theta, st.lam, st.penalty.eta * scale, adj)
+    times, outs = {}, {}
+    for name, solve in (("eager", eng._solve_gradient),
+                        ("graph", eng._solve_graphed)):
+        outs[name] = solve(*args)["w"]           # the graph's capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = solve(*args)["w"]
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0) / reps
+        check(torch.equal(got, outs[name]), f"{name} solve not repeatable")
+    check(torch.equal(outs["eager"], outs["graph"]),
+          "the graphed inner solve differs from the eager one")
+    print(f"solve_graph: inner solve (30 vmapped grad/vjp steps, J 8, "
+          f"float64) eager {times['eager']:.2f} ms, CUDA graph "
+          f"{times['graph']:.3f} ms, equal bit for bit; {card_line}",
+          flush=True)
+
+
+def scale_lsq(card_line, j=16, n=8192, d=2048, inner=30, iters=10):
+    """Phase 16: ConsensusADMM least squares in float32 with 1.07 GB of
+    data on the card; held against torch.linalg.lstsq of the stacked
+    problem."""
+    import torch
+    from repro_torch.core import (ConsensusADMM, PenaltyConfig, build_graph,
+                                  consensus_error)
+    from repro_torch.examples.quickstart import objective
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    A = torch.randn(j, n, d, generator=gen, device=DEV)
+    w_true = torch.randn(d, generator=gen, device=DEV)
+    b = A @ w_true + 0.05 * torch.randn(j, n, generator=gen, device=DEV)
+    theta0 = {"w": torch.randn(j, d, generator=gen, device=DEV)}
+    w_star = torch.linalg.lstsq(A.reshape(-1, d),
+                                b.reshape(-1, 1)).solution[:, 0]
+    eng = ConsensusADMM(objective=objective,
+                        penalty_cfg=PenaltyConfig(scheme="nap", eta0=1.0),
+                        graph=build_graph("complete", j), inner_steps=inner,
+                        inner_lr=1.0)
+    data = (A, b)
+    err0 = float((theta0["w"] - w_star).abs().max())
+    cons0 = float(consensus_error(theta0))
+    state = eng.init(theta0)
+    eng.step(state, data)                       # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = eng.run(state, data, max_iters=iters, rel_tol=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_kernel_launched("scale_lsq")
+    err = float((state.theta["w"] - w_star).abs().max())
+    cons = float(consensus_error(state.theta))
+    check(hist["iterations"] == iters and err * 10 <= err0
+          and cons * 10 <= cons0,
+          f"scale_lsq: max|w-w*| {err0:.4g} -> {err:.4g}, consensus error "
+          f"{cons0:.4g} -> {cons:.4g} (want each 10x smaller)")
+    ms = 1e3 * seconds / iters
+    # each inner step reads A four times (the gradient's A w and A^T r,
+    # the Hessian-vector product's two), plus one pass each for f_self
+    # and the probes: that read alone takes this long at 3.35 TB/s
+    floor_ms = 1e3 * (4 * inner + 2) * A.numel() * 4 / HBM_BYTES_PER_S
+    profile_iteration(lambda: eng.step(state, data), "scale_lsq")
+    print(f"scale_lsq: J {j} x A [{n}, {d}] float32 ({A.numel() * 4 / 1e9:.2f}"
+          f" GB), nap, complete, inner {inner}: {iters} iterations in "
+          f"{seconds:.3f} s, {ms:.2f} ms per iteration (A-read floor "
+          f"{floor_ms:.2f} ms); max|w-w*| {err0:.4g} -> {err:.4g}, "
+          f"consensus error {cons0:.4g} -> {cons:.4g}; {card_line}",
+          flush=True)
+    del A, b, data, state, eng
+    torch.cuda.empty_cache()
+
+
+def scale_sfm(card_line, frames=300, points=20000, iters=50):
+    """Phase 17: D-PPCA on turntable SfM with 96 MB of observations; the
+    [J, J] probe broadcast is about 0.5 GB."""
+    import torch
+    from repro_torch.core import PenaltyConfig, build_graph
+    from repro_torch.ppca import (DPPCA, fit_svd, max_subspace_angle,
+                                  turntable_sfm)
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    sfm = turntable_sfm(5, frames=frames, points=points, seed=0)
+    x = torch.as_tensor(sfm.x_nodes, device=DEV)
+    ref = fit_svd(torch.as_tensor(sfm.measurements, device=DEV), 3)
+    eng = DPPCA(latent_dim=3, graph=build_graph("complete", 5),
+                penalty_cfg=PenaltyConfig(scheme="nap", eta0=10.0))
+    state = eng.init(x, torch.Generator().manual_seed(0))
+    angle0 = float(max_subspace_angle(state.W, ref.W))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = eng.run(state, x, max_iters=iters, rel_tol=0.0,
+                          min_iters=iters)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_kernel_launched("scale_sfm")
+    angle = float(max_subspace_angle(state.W, ref.W))
+    check(hist["iterations"] == iters and angle < angle0
+          and angle < SFM_ANGLE_BOUND_DEG,
+          f"scale_sfm: structure angle {angle0:.4f} -> {angle:.4f} deg "
+          f"(bound {SFM_ANGLE_BOUND_DEG})")
+    ms = 1e3 * seconds / iters
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile_iteration(lambda: eng.step(state, x), "scale_sfm")
+    print(f"scale_sfm: turntable {frames} frames x {points} points "
+          f"({x.numel() * 8 / 1e6:.0f} MB float64), 5 cameras, nap, "
+          f"complete: {iters} iterations in {seconds:.3f} s, {ms:.2f} ms "
+          f"per iteration; structure angle {angle0:.4f} -> {angle:.4f} deg "
+          f"(bound {SFM_ANGLE_BOUND_DEG}); peak {peak:.2f} GB; {card_line}",
+          flush=True)
+
+
 def build_phase():
     """Phase 2: build every source (one nvcc each, all started together),
     print each kernel's registers and spills (nvcc's -Xptxas -v) and its
@@ -1492,6 +1892,14 @@ def main() -> int:
     # -- 12. reduced serving, card against CPU ------------------------------
     for arch in ("qwen3-4b", "rwkv6-7b"):
         agree_serve_with_cpu(arch)
+
+    # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
+    t0 = time.perf_counter()
+    paper_phases(card_line)
+    solve_graph_check(card_line)
+    scale_lsq(card_line)
+    scale_sfm(card_line)
+    print(f"paper slice: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     ref_file = "src/repro/kernels/consensus_update.py"

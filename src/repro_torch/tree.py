@@ -7,7 +7,7 @@ optimizer sums and parameter draws line up with the reference leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 Path = tuple[str, ...]
 
@@ -28,8 +28,10 @@ def leaves(tree: Any, **kw) -> list[Any]:
     return [x for _, x in leaves_with_paths(tree, **kw)]
 
 
-def unflatten(paths: list[Path], values: list[Any]) -> dict:
-    """Inverse of ``leaves_with_paths``."""
+def unflatten(paths: list[Path], values: list[Any]) -> Any:
+    """Inverse of ``leaves_with_paths`` (a bare leaf has the empty path)."""
+    if len(paths) == 1 and paths[0] == ():
+        return values[0]
     out: dict = {}
     for path, v in zip(paths, values, strict=True):
         node = out
@@ -45,3 +47,19 @@ def tree_map(fn: Callable, tree: Any, *rest: Any, **kw) -> Any:
     others = [leaves(t, **kw) for t in rest]
     vals = [fn(x, *(o[n] for o in others)) for n, (_, x) in enumerate(pl)]
     return unflatten([p for p, _ in pl], vals)
+
+
+def from_flat(flat: Mapping[str, Any], prefix: str,
+              convert: Callable[[Any], Any]) -> Any:
+    """The tree stored under ``prefix`` in a flat mapping whose keys join
+    ``prefix`` and a leaf's path with ``/`` (``prefix`` alone holds a bare
+    leaf); ``convert`` turns each stored value into a leaf."""
+    if prefix in flat:
+        return convert(flat[prefix])
+    head = prefix + "/"
+    items = sorted(((tuple(k[len(head):].split("/")), v)
+                    for k, v in flat.items() if k.startswith(head)),
+                   key=lambda item: item[0])
+    if not items:
+        raise KeyError(f"no leaf under {prefix!r}")
+    return unflatten([p for p, _ in items], [convert(v) for _, v in items])

@@ -464,3 +464,128 @@ def test_cuda_serve_matches_cpu(arch):
     for key in ("prefill_logits", "replay_logits", "step_logits"):
         a, b = recs["cuda"][key].cpu(), recs["cpu"][key]
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), key
+
+
+def _to(obj, dev):
+    """A state, tree or tuple of tensors moved to ``dev``."""
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to(v, dev) for k, v in obj.items()}
+    if hasattr(obj, "_fields"):
+        return type(obj)(*(_to(v, dev) for v in obj))
+    if isinstance(obj, tuple):
+        return tuple(_to(v, dev) for v in obj)
+    return obj
+
+
+def _cuda_and_cpu_step(eng, state, data):
+    """One step of ``eng`` from the same state and data (made on the CPU)
+    on the card and on the CPU."""
+    return {dev: eng.step(_to(state, dev), _to(data, dev))
+            for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.cuda
+def test_cuda_dppca_step_matches_cpu():
+    """One D-PPCA step in float64 (nap, ring, probes on the [J, J] grid) on
+    the card against the CPU: every field within 1e-10 of its largest
+    magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.core import PenaltyConfig, build_graph
+    from repro_torch.ppca import DPPCA, subspace_data
+    x = torch.as_tensor(subspace_data(5, seed=0).x)
+    eng = DPPCA(latent_dim=5, graph=build_graph("ring", 5),
+                penalty_cfg=PenaltyConfig(scheme="nap", eta0=10.0))
+
+    out = _cuda_and_cpu_step(
+        eng, eng.init(x, torch.Generator().manual_seed(0)), x)
+    (a, ma), (b, mb) = out["cuda"], out["cpu"]
+    for f in ("W", "mu", "a", "Lam", "gam", "bet"):
+        ga, gb = getattr(a, f).cpu(), getattr(b, f)
+        assert float((ga - gb).abs().max()) <= 1e-10 * float(
+            gb.abs().max()), f
+    torch.testing.assert_close(a.penalty.eta.cpu(), b.penalty.eta,
+                               rtol=1e-10, atol=0)
+    torch.testing.assert_close(ma["objective"].cpu(), mb["objective"],
+                               rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["nap", "vp"])
+def test_cuda_admm_step_matches_cpu(scheme):
+    """One ConsensusADMM step in float64 (the vmapped grad/vjp inner
+    solver, the probes) on the card against the CPU: theta within 1e-10 of
+    its largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.core import ConsensusADMM, PenaltyConfig, build_graph
+    from repro_torch.examples.quickstart import lsq_problem, objective
+    data, theta0, _ = lsq_problem(dtype=torch.float64)
+    eng = ConsensusADMM(objective=objective,
+                        penalty_cfg=PenaltyConfig(scheme=scheme, eta0=1.0),
+                        graph=build_graph("ring", 8), inner_steps=30,
+                        inner_lr=1.0)
+
+    out = _cuda_and_cpu_step(eng, eng.init(theta0), data)
+    (a, ma), (b, mb) = out["cuda"], out["cpu"]
+    for f in ("theta", "lam"):
+        ga, gb = getattr(a, f)["w"].cpu(), getattr(b, f)["w"]
+        assert ga.dtype == torch.float64
+        assert float((ga - gb).abs().max()) <= 1e-10 * float(
+            gb.abs().max()), f
+    torch.testing.assert_close(a.penalty.eta.cpu(), b.penalty.eta,
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_broadcast_at_scale_sfm_width():
+    """The D-PPCA objective probes F[i, j] = nll_i(Theta_j) at the
+    scale_sfm phase's width (5 cameras, 120 rows of 20,000 points, float64;
+    the broadcast is 0.48 GB) on the card against the CPU, to 1e-10
+    relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.ppca import PPCAParams, nll, turntable_sfm
+    x = torch.as_tensor(turntable_sfm(5, frames=300, points=20000,
+                                      seed=0).x_nodes)
+    gen = torch.Generator().manual_seed(0)
+    W = torch.randn((5, 20000, 3), generator=gen, dtype=torch.float64)
+    mu = x.mean(dim=1)
+    a = torch.rand(5, generator=gen, dtype=torch.float64) + 0.5
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = PPCAParams(W[None].to(dev), mu[None].to(dev), a[None].to(dev))
+        got[dev] = nll(p, x[:, None].to(dev)).cpu()
+    assert got["cpu"].shape == (5, 5)
+    torch.testing.assert_close(got["cuda"], got["cpu"], rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_inner_solve_equals_eager():
+    """On the card the engine replays its inner solver from a CUDA graph of
+    the eager kernels: bit for bit the eager result, for new inputs on
+    every call, and captured again when the data tensors change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.core import ConsensusADMM, PenaltyConfig, build_graph
+    from repro_torch.examples.quickstart import lsq_problem, objective
+    eng = ConsensusADMM(objective=objective,
+                        penalty_cfg=PenaltyConfig(scheme="vp", eta0=1.0),
+                        graph=build_graph("ring", 8), inner_steps=30,
+                        inner_lr=1.0)
+    data, theta0, _ = lsq_problem(dtype=torch.float64, device="cuda")
+    st = eng.init(theta0)
+    adj, scale = eng._device_consts(st.penalty.eta.device)
+    for _ in range(3):
+        args = (data, st.theta, st.lam, st.penalty.eta * scale, adj)
+        got = eng._solve_graphed(*args)
+        assert torch.equal(got["w"], eng._solve_gradient(*args)["w"])
+        st, _ = eng.step(st, data)
+    assert len(eng._graphs) == 1
+    data2 = tuple(t.clone() for t in data)
+    args = (data2, st.theta, st.lam, st.penalty.eta * scale, adj)
+    assert torch.equal(eng._solve_graphed(*args)["w"],
+                       eng._solve_gradient(*args)["w"])
+    assert len(eng._graphs) == 1

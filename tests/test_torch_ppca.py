@@ -1,0 +1,312 @@
+"""The port's PPCA, D-PPCA and data generators against the reference.
+
+* ``synth``: the port's copy gives bit-identical arrays.
+* ``e_step``, ``m_step`` and ``nll``, unbatched and over a leading node
+  axis: within 1e-10 relative; the ``fit_em`` NLL trace within 1e-10
+  relative (both from the same numpy parameters).
+* ``fit_svd``: mu and a within 1e-10 relative; W within 1e-9 of max|W| up to
+  the sign of each column (LAPACK may pick other signs).
+* ``subspace_angle``: within 1e-7 rad.
+* ``DPPCA`` in float64, from the reference's init carried across with
+  ``repro_torch.ppca.dppca.state_from_numpy``: the six schemes on complete,
+  ring and cluster graphs over J 5 subspace data, and the SfM layout.
+  After ``STEPS`` steps W, mu, a and the three duals within 1e-8 relative
+  to their largest magnitude; eta, cum_tau and budget (float64 here) within
+  1e-9 relative; n_incr and t equal; ``max_subspace_angle`` within 1e-5
+  degrees; ``run``'s iteration count equal.
+
+The reference runs once, with ``jax_enable_x64``, in a fresh process
+(``_reference_outputs`` through ``torch_round_cases.run_reference``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import SCHEMES, PenaltyConfig, build_graph
+from repro_torch.ppca import (DPPCA, PPCAParams, e_step, fit_em, fit_svd,
+                              init_params, m_step, max_subspace_angle, nll,
+                              subspace_angle, subspace_data, synth,
+                              turntable_sfm)
+from repro_torch.ppca import dppca
+from torch_round_cases import run_reference
+
+STEPS = 30
+RUN = dict(max_iters=200, rel_tol=1e-3, min_iters=10)
+EM_ITERS = 40
+SYNTH_CASES = {
+    "subspace/5/0": ("subspace_data", (5,), {"seed": 0}),
+    "subspace/20/3": ("subspace_data", (20,), {"seed": 3, "n": 240}),
+    "sfm/5/30/90/0": ("turntable_sfm", (5,), {}),
+    "sfm/3/12/20/2": ("turntable_sfm", (3,),
+                      {"frames": 12, "points": 20, "seed": 2}),
+}
+# name -> (data, latent dim, topology, scheme)
+DPPCA_CASES = {f"{s}/{t}": ("subspace", 5, t, s)
+               for t in ("complete", "ring", "cluster") for s in SCHEMES}
+DPPCA_CASES["sfm/nap/complete"] = ("sfm", 3, "complete", "nap")
+PENALTY_FIELDS = ("eta", "cum_tau", "budget", "n_incr", "f_prev", "t")
+STATE_FIELDS = ("W", "mu", "a", "Lam", "gam", "bet")
+
+
+def _dppca_data(kind):
+    if kind == "subspace":
+        d = subspace_data(5, n=200, d=12, m=5, seed=1)
+        return d.x, d.W_true
+    s = turntable_sfm(5, frames=10, points=16, seed=1)
+    return s.x_nodes, np.linalg.svd(s.measurements - s.measurements.mean(0),
+                                    full_matrices=False)[2][:3].T
+
+
+def _ppca_case(seed=0, n=40, d=9, m=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, m)) @ rng.normal(size=(m, d)) \
+        + 0.3 * rng.normal(size=(n, d)) + rng.normal(size=d)
+    return dict(x=x, W=rng.normal(size=(d, m)), mu=0.1 * rng.normal(size=d),
+                a=np.asarray(rng.uniform(0.5, 2.0)))
+
+
+def _batched_case(j=4):
+    cases = [_ppca_case(seed=10 + i) for i in range(j)]
+    return {k: np.stack([c[k] for c in cases]) for k in cases[0]}
+
+
+def _flat_state(prefix, st):
+    """The reference's ``DPPCAState`` in ``state_from_numpy``'s keys."""
+    out = {f"{prefix}/{f}": np.asarray(getattr(st, f))
+           for f in STATE_FIELDS + ("t",)}
+    for k, v in st.theta_bar.items():
+        out[f"{prefix}/theta_bar/{k}"] = np.asarray(v)
+    for f in PENALTY_FIELDS:
+        out[f"{prefix}/penalty/{f}"] = np.asarray(getattr(st.penalty, f))
+    return out
+
+
+def _reference_outputs():
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from repro.core import PenaltyConfig as JPC
+    from repro.core import build_graph as jbuild
+    from repro.ppca import DPPCA as JDPPCA
+    from repro.ppca import ppca as jp
+    from repro.ppca import max_subspace_angle as jmax_angle
+    from repro.ppca import synth as jsynth
+
+    out = {}
+    for name, (fn, args, kw) in SYNTH_CASES.items():
+        for field, arr in getattr(jsynth, fn)(*args, **kw)._asdict().items():
+            out[f"synth/{name}/{field}"] = arr
+
+    c = _ppca_case()
+    p = jp.PPCAParams(jnp.asarray(c["W"]), jnp.asarray(c["mu"]),
+                      jnp.asarray(c["a"]))
+    x = jnp.asarray(c["x"])
+    st = jp.e_step(p, x)
+    out["e/Ez"], out["e/Ezz"] = np.asarray(st.Ez), np.asarray(st.Ezz)
+    pm = jp.m_step(st, x, p)
+    out["m/W"], out["m/mu"], out["m/a"] = map(np.asarray, pm)
+    out["nll"] = np.asarray(jp.nll(p, x))
+    _, trace = jp.fit_em(p, x, max_iters=EM_ITERS)
+    out["em/trace"] = np.asarray(trace)
+
+    b = _batched_case()
+    pb = jp.PPCAParams(*(jnp.asarray(b[k]) for k in ("W", "mu", "a")))
+    xb = jnp.asarray(b["x"])
+    stb = jax.vmap(jp.e_step)(pb, xb)
+    out["eb/Ez"], out["eb/Ezz"] = np.asarray(stb.Ez), np.asarray(stb.Ezz)
+    out["mb/W"], out["mb/mu"], out["mb/a"] = map(
+        np.asarray, jax.vmap(jp.m_step)(stb, xb, pb))
+    out["nllb"] = np.asarray(jax.vmap(jp.nll)(pb, xb))
+
+    for n, (rows, d, m) in enumerate(((60, 9, 3), (12, 90, 3))):
+        xs = np.random.default_rng(20 + n).normal(size=(rows, d))
+        ps = jp.fit_svd(jnp.asarray(xs), m)
+        out[f"svd/{n}/W"], out[f"svd/{n}/mu"], out[f"svd/{n}/a"] = map(
+            np.asarray, ps)
+    rng = np.random.default_rng(30)
+    wa, wb = rng.normal(size=(10, 3)), rng.normal(size=(10, 3))
+    out["angle/random"] = np.asarray(jp.subspace_angle(jnp.asarray(wa),
+                                                       jnp.asarray(wb)))
+    out["angle/near"] = np.asarray(jp.subspace_angle(
+        jnp.asarray(wa), jnp.asarray(wa @ rng.normal(size=(3, 3))
+                                     + 1e-4 * wb)))
+
+    for name, (kind, m, topo, scheme) in DPPCA_CASES.items():
+        xn, w_ref = _dppca_data(kind)
+        xj = jnp.asarray(xn)
+        eng = JDPPCA(latent_dim=m, graph=jbuild(topo, xn.shape[0]),
+                     penalty_cfg=JPC(scheme=scheme, eta0=10.0))
+        st0 = st = eng.init(jax.random.PRNGKey(7), xj)
+        out.update(_flat_state(f"dp/{name}/0", st0))
+        for _ in range(STEPS):
+            st, _ = eng.step(st, xj)
+        out.update(_flat_state(f"dp/{name}/{STEPS}", st))
+        out[f"dp/{name}/angle"] = np.asarray(
+            jmax_angle(st.W, jnp.asarray(w_ref)))
+        _, hist = eng.run(st0, xj, **RUN)
+        out[f"dp/{name}/iters"] = np.asarray(hist["iterations"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return run_reference("test_torch_ppca", tmp_path_factory)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _close(got, want, rtol, msg=""):
+    """|got - want| <= rtol * max|want| (elementwise for scalars)."""
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
+    scale = max(float(np.abs(want).max()), 1e-300)
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * scale, f"{msg}: {err} > {rtol} * {scale}"
+
+
+@pytest.mark.parametrize("name", list(SYNTH_CASES))
+def test_synth_is_bit_identical(reference, name):
+    fn, args, kw = SYNTH_CASES[name]
+    got = getattr(synth, fn)(*args, **kw)._asdict()
+    for field, arr in got.items():
+        want = reference[f"synth/{name}/{field}"]
+        assert arr.dtype == want.dtype and arr.shape == want.shape, field
+        assert np.array_equal(arr, want), field
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "nodes"])
+def test_e_step_m_step_nll_match_reference(reference, batched):
+    c = _batched_case() if batched else _ppca_case()
+    p = PPCAParams(_t(c["W"]), _t(c["mu"]), _t(c["a"]))
+    x = _t(c["x"])
+    e, m, n = ("eb", "mb", "nllb") if batched else ("e", "m", "nll")
+    st = e_step(p, x)
+    _close(st.Ez, reference[f"{e}/Ez"], 1e-10, "Ez")
+    _close(st.Ezz, reference[f"{e}/Ezz"], 1e-10, "Ezz")
+    pm = m_step(st, x, p)
+    for f, v in zip(("W", "mu", "a"), pm):
+        assert v.dtype == torch.float64
+        _close(v, reference[f"{m}/{f}"], 1e-10, f)
+    _close(nll(p, x), reference[n], 1e-10, "nll")
+
+
+def test_fit_em_trace_matches_reference(reference):
+    c = _ppca_case()
+    p = PPCAParams(_t(c["W"]), _t(c["mu"]), _t(c["a"]))
+    _, trace = fit_em(p, _t(c["x"]), max_iters=EM_ITERS)
+    assert trace.shape == (EM_ITERS,)
+    np.testing.assert_allclose(trace.numpy(), reference["em/trace"],
+                               rtol=1e-10)
+    assert (np.diff(trace.numpy()) <= 1e-9 * abs(trace[0].item())).all()
+
+
+@pytest.mark.parametrize("n,shape", enumerate(((60, 9, 3), (12, 90, 3))))
+def test_fit_svd_matches_reference(reference, n, shape):
+    rows, d, m = shape
+    xs = np.random.default_rng(20 + n).normal(size=(rows, d))
+    p = fit_svd(_t(xs), m)
+    np.testing.assert_allclose(p.mu.numpy(), reference[f"svd/{n}/mu"],
+                               rtol=1e-10)
+    np.testing.assert_allclose(p.a.item(), reference[f"svd/{n}/a"],
+                               rtol=1e-10)
+    want = reference[f"svd/{n}/W"]
+    signs = np.sign((p.W.numpy() * want).sum(axis=0))
+    assert (signs != 0).all()
+    _close(p.W.numpy() * signs, want, 1e-9, "W up to column signs")
+
+
+def test_subspace_angle_matches_reference(reference):
+    rng = np.random.default_rng(30)
+    wa, wb = rng.normal(size=(10, 3)), rng.normal(size=(10, 3))
+    got = subspace_angle(_t(wa), _t(wb)).item()
+    assert abs(got - float(reference["angle/random"])) <= 1e-7
+    near = subspace_angle(_t(wa), _t(wa @ rng.normal(size=(3, 3))
+                                      + 1e-4 * wb)).item()
+    assert abs(near - float(reference["angle/near"])) <= 1e-7
+    # batched over a leading axis, as max_subspace_angle uses it
+    both = subspace_angle(torch.stack([_t(wa), _t(wb)]), _t(wb))
+    assert abs(both[0].item() - got) <= 1e-12 and both[1].item() < 1e-6
+
+
+def test_init_params_draws_from_the_generator():
+    a = init_params(torch.Generator().manual_seed(3), 7, 2,
+                    dtype=torch.float64)
+    b = init_params(torch.Generator().manual_seed(3), 7, 2,
+                    dtype=torch.float64)
+    assert a.W.shape == (7, 2) and a.W.dtype == torch.float64
+    assert torch.equal(a.W, b.W) and not a.mu.any() and a.a.item() == 1.0
+
+
+def _engine(name):
+    kind, m, topo, scheme = DPPCA_CASES[name]
+    xn, w_ref = _dppca_data(kind)
+    eng = DPPCA(latent_dim=m, graph=build_graph(topo, xn.shape[0]),
+                penalty_cfg=PenaltyConfig(scheme=scheme, eta0=10.0))
+    return eng, _t(xn), _t(w_ref)
+
+
+def _carried(ref, prefix):
+    head = prefix + "/"
+    return dppca.state_from_numpy(
+        {k[len(head):]: v for k, v in ref.items() if k.startswith(head)},
+        "cpu")
+
+
+@pytest.mark.parametrize("name", list(DPPCA_CASES))
+def test_dppca_steps_match_reference(reference, name):
+    eng, x, w_ref = _engine(name)
+    st = _carried(reference, f"dp/{name}/0")
+    for _ in range(STEPS):
+        st, _ = eng.step(st, x)
+    prefix = f"dp/{name}/{STEPS}"
+    for f in STATE_FIELDS:
+        v = getattr(st, f)
+        assert v.dtype == torch.float64, f
+        _close(v, reference[f"{prefix}/{f}"], 1e-8, f)
+    for f in ("eta", "cum_tau", "budget"):
+        np.testing.assert_allclose(getattr(st.penalty, f).numpy(),
+                                   reference[f"{prefix}/penalty/{f}"],
+                                   rtol=1e-9, err_msg=f)
+    for f in ("n_incr", "t"):
+        np.testing.assert_array_equal(getattr(st.penalty, f).numpy(),
+                                      reference[f"{prefix}/penalty/{f}"])
+    np.testing.assert_array_equal(st.t.numpy(), reference[f"{prefix}/t"])
+    angle = max_subspace_angle(st.W, w_ref).item()
+    assert abs(angle - float(reference[f"dp/{name}/angle"])) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(DPPCA_CASES))
+def test_dppca_run_iterations_match_reference(reference, name):
+    eng, x, _ = _engine(name)
+    _, hist = eng.run(_carried(reference, f"dp/{name}/0"), x, **RUN)
+    assert hist["iterations"] == int(reference[f"dp/{name}/iters"])
+
+
+def test_dppca_init_draws_w_from_the_generator():
+    eng, x, _ = _engine("nap/ring")
+    a = eng.init(x, torch.Generator().manual_seed(5))
+    b = eng.init(x, torch.Generator().manual_seed(5))
+    assert torch.equal(a.W, b.W) and a.W.dtype == torch.float64
+    assert a.W.shape == (5, 12, 5) and a.penalty.eta.dtype == torch.float64
+    torch.testing.assert_close(a.mu, x.mean(dim=1))
+    assert not a.Lam.any() and (a.a == 1).all()
+
+
+def test_sfm_angle_at_reduced_scale():
+    """The port on the CPU at a reduced scale_sfm (``chip_smoke.py`` phase
+    17): turntable SfM, 5 cameras, 300 frames, 2,000 points, nap on the
+    complete graph, 50 iterations. It reaches 0.3505 degrees from about 90
+    at the init; the card phase's bound (1.0 degrees at 20,000 points) is
+    set from this."""
+    s = turntable_sfm(5, frames=300, points=2000, seed=0)
+    x = _t(s.x_nodes)
+    ref = fit_svd(_t(s.measurements), 3)
+    eng = DPPCA(latent_dim=3, graph=build_graph("complete", 5),
+                penalty_cfg=PenaltyConfig(scheme="nap", eta0=10.0))
+    st = eng.init(x, torch.Generator().manual_seed(0))
+    angle0 = max_subspace_angle(st.W, ref.W).item()
+    st, hist = eng.run(st, x, max_iters=50, rel_tol=0.0, min_iters=50)
+    angle = max_subspace_angle(st.W, ref.W).item()
+    assert hist["iterations"] == 50 and angle0 > 80
+    assert abs(angle - 0.3505) < 1e-3 and angle < 0.5
