@@ -231,11 +231,50 @@ def update_penalty(cfg: PenaltyConfig, state: PenaltyState, *,
                         n_incr=n_incr, f_prev=f_prev, t=t + 1)
 
 
+def staleness_damping(age: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Per-edge damping factor 1 / (1 + gamma * age) for stale consensus,
+    all in float32 (``gamma`` a float32 tensor). ``age`` should be the
+    symmetrized clock (``topology.sym_age``), so that the damped weights
+    stay symmetric; ``age == 0`` gives exactly 1.0."""
+    a = age.to(torch.float32)
+    return 1.0 / (1.0 + torch.tensor(gamma, dtype=torch.float32,
+                                     device=a.device) * a)
+
+
 def effective_eta(cfg: PenaltyConfig, state: PenaltyState,
-                  adj: torch.Tensor) -> torch.Tensor:
-    """eta applied to edge (i, j) this iteration, zero on non-edges."""
+                  adj: torch.Tensor, *, age: torch.Tensor | None = None,
+                  stale_gamma: float = 0.5) -> torch.Tensor:
+    """eta applied to edge (i, j) this iteration, zero on non-edges; with
+    ``age`` (the [J, J] staleness clocks) damped by
+    ``staleness_damping(age, stale_gamma)``, the async executor's view."""
     del cfg
-    return torch.where(adj.to(torch.bool), state.eta, 0.0)
+    eta = torch.where(adj.to(torch.bool), state.eta, 0.0)
+    if age is not None:
+        eta = eta * staleness_damping(age, stale_gamma)
+    return eta
+
+
+def freeze_penalty(advance: torch.Tensor, new: PenaltyState,
+                   old: PenaltyState) -> PenaltyState:
+    """Per-EDGE freeze for a fleet tick where only ``advance`` nodes ran.
+
+    Edge entry [i, j] keeps the NEW value iff either endpoint advanced, and
+    the OLD one only when both were frozen, so that a frozen node's incident
+    entries keep adapting in both directions. ``f_prev`` stays per node: a
+    frozen node ran no probe.
+    """
+    adv = advance.to(torch.bool)
+    keep_new = adv[:, None] | adv[None, :]               # [J, J]
+
+    def edges(a, b):
+        return torch.where(keep_new, a, b)
+
+    return new._replace(
+        eta=edges(new.eta, old.eta),
+        cum_tau=edges(new.cum_tau, old.cum_tau),
+        budget=edges(new.budget, old.budget),
+        n_incr=edges(new.n_incr, old.n_incr),
+        f_prev=torch.where(adv, new.f_prev, old.f_prev))
 
 
 def budget_exhausted(state: PenaltyState) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Training launcher: synchronous consensus-ADMM training end to end (port of
-``repro/launch/train.py``, sync path, static or dynamic topology).
+"""Training launcher: consensus-ADMM training end to end (port of
+``repro/launch/train.py``): synchronous rounds on a static or dynamic
+topology, or bounded-staleness async rounds (``--async``).
 
 Every node row lives on one device (``--device``, CUDA unless ``cpu`` is
 asked for), so ``--nodes`` takes the place of the reference's ``--mesh``.
@@ -12,10 +13,12 @@ Examples:
       --topo-scheduler round_robin --drop-node 5:1 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 4 --local-steps 2 --wire-codec fp8_e4m3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --async --max-staleness 1 --slow-node 0:4.0 --nodes 3 \\
+      --local-steps 1 --steps 8 --device cpu
 
-The async, observability, checkpoint and pipeline flags come with their
-slices; until then argparse rejects them, and the ``stale`` scheduler with
-them.
+The observability, checkpoint, mesh and pipeline flags come with their
+slices; until then argparse rejects them.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.async_exec import (AsyncConfig, AsyncExecutor, RoundClock,
+                                    straggler_compute)
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.penalty import SCHEMES, PenaltyConfig
@@ -34,11 +39,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.runtime import ElasticController, StragglerMonitor
+from repro_torch.runtime import (ElasticController, StragglerMonitor,
+                                 aged_out_nodes)
 from repro_torch.topology import SCHEDULERS, TopologyConfig
-
-# the stale scheduler needs the async executor, which is not ported yet
-SYNC_SCHEDULERS = tuple(s for s in SCHEDULERS if s != "stale")
 
 
 def parse_args(argv=None):
@@ -55,11 +58,10 @@ def parse_args(argv=None):
                     help="torch device: cuda (default) or cpu")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
-    ap.add_argument("--topo-scheduler", choices=SYNC_SCHEDULERS,
+    ap.add_argument("--topo-scheduler", choices=SCHEDULERS,
                     default="static",
                     help="dynamic-topology edge scheduler "
-                         "(repro_torch.topology); stale comes with the "
-                         "async slice")
+                         "(repro_torch.topology)")
     ap.add_argument("--topo-churn", action="store_true",
                     help="exchange over the churn offset superset so that "
                          "node drops are layout-preserving")
@@ -67,8 +69,20 @@ def parse_args(argv=None):
                     help="STEP:VICTIM — ghost node VICTIM after STEP "
                          "(churn drill; implies --topo-churn)")
     ap.add_argument("--drop-stragglers", action="store_true",
-                    help="ghost a node the wall-clock straggler monitor "
-                         "flags instead of only logging it")
+                    help="ghost a flagged straggler instead of only logging "
+                         "it (async mode flags by edge age, sync mode by "
+                         "the wall-clock monitor)")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="bounded-staleness executor (repro_torch."
+                         "async_exec): rounds consume the freshest landed "
+                         "payload per edge instead of waiting for all")
+    ap.add_argument("--max-staleness", type=int, default=2,
+                    help="async: rounds a consumed payload may lag; older "
+                         "edges gate until a fresh payload lands (0 = wait "
+                         "for everything, the synchronous round)")
+    ap.add_argument("--slow-node", default="",
+                    help="async drill: NODE:FACTOR — model node NODE taking "
+                         "FACTOR x the fleet's round time (e.g. 0:2.0)")
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--eta0", type=float, default=0.1)
     ap.add_argument("--lr", type=float, default=1e-2)
@@ -88,9 +102,12 @@ def parse_args(argv=None):
 def run(cfg: ArchConfig, args) -> dict:
     """Train ``cfg`` as ``args`` say; returns the run's record: per-step
     losses and seconds, per-round metrics (with ``active_edges``, the
-    round's node liveness, and the launches of the ungated and the gated
-    kernel and of those with per-block scales), the layout and the wire
-    bytes per node per offset.
+    round's node liveness, its seconds between two synchronizations, and
+    the launches of the ungated and the gated kernel and of those with
+    per-block scales; async rounds add ``stale_edges``, ``age_max`` and the
+    nodes that advanced), the layout,
+    the wire bytes per node per offset and, with ``--async``, the
+    executor's summary.
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state."""
@@ -104,6 +121,10 @@ def run(cfg: ArchConfig, args) -> dict:
     if args.drop_node:
         drop_at, drop_victim = (int(x) for x in args.drop_node.split(":"))
     churn = args.topo_churn or args.drop_stragglers or drop_at >= 0
+    topo_sched = args.topo_scheduler
+    if args.async_mode and topo_sched == "static" and args.max_staleness > 0:
+        # the stale scheduler mirrors the executor's gating into the mask
+        topo_sched = "stale"
     trainer = ConsensusTrainer(
         model, num_nodes=args.nodes, device=device,
         adamw=AdamWConfig(lr=args.lr),
@@ -111,14 +132,25 @@ def run(cfg: ArchConfig, args) -> dict:
             penalty=PenaltyConfig(scheme=args.scheme, eta0=args.eta0),
             topology=args.topology, local_steps=args.local_steps,
             compression=args.compression, wire_codec=args.wire_codec,
-            dyn_topology=TopologyConfig(scheduler=args.topo_scheduler,
-                                        churn=churn)))
+            dyn_topology=TopologyConfig(scheduler=topo_sched, churn=churn,
+                                        max_staleness=args.max_staleness),
+            async_exec=(AsyncConfig(max_staleness=args.max_staleness)
+                        if args.async_mode else None)))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq,
         batch_per_node=args.batch_per_node, num_nodes=trainer.num_nodes,
         seed=args.seed), device=device)
+    executor = None
+    if args.async_mode and trainer.num_nodes > 1:
+        compute = np.ones(trainer.num_nodes)
+        if args.slow_node:
+            v, f = args.slow_node.split(":")
+            compute = straggler_compute(trainer.num_nodes, victim=int(v),
+                                        factor=float(f))
+        executor = AsyncExecutor(trainer, RoundClock(
+            compute_s=compute, wire_s=0.25, offsets=tuple(trainer.offsets)))
 
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
@@ -137,17 +169,42 @@ def run(cfg: ArchConfig, args) -> dict:
             alive = state.topo.node_alive.tolist()
             counts = ("launches", "masked_launches", "per_block_launches")
             before = [getattr(kops.consensus_round, c) for c in counts]
-            state, cm = trainer.consensus_step(state,
-                                               data.batch(10**6 + step))
+            probe = data.batch(10**6 + step)
+            sync()
+            t_round = time.perf_counter()
+            if executor is not None:
+                ticks = executor.clock.rounds_done.copy()
+                state, cm = executor.consensus_round(state, probe)
+            else:
+                state, cm = trainer.consensus_step(state, probe)
+            sync()
             rnd = {k: float(v) for k, v in cm.items()}
-            rnd.update(alive=alive, **{
-                c: getattr(kops.consensus_round, c) - b
-                for c, b in zip(counts, before)})
-            record["rounds"].append(rnd)
+            rnd.update(alive=alive, seconds=time.perf_counter() - t_round,
+                       **{c: getattr(kops.consensus_round, c) - b
+                          for c, b in zip(counts, before)})
             line += (f" | consensus r={rnd['r_max']:.4f} "
                      f"eta={rnd['eta_mean']:.4f}")
             if trainer.dynamic:
                 line += f" active={rnd['active_edges']:.2f}"
+            if executor is not None:
+                # a max_staleness=0 round is the sync one: nothing is stale
+                rnd.setdefault("stale_edges", 0.0)
+                rnd.setdefault("age_max", 0.0)
+                rnd["advance"] = (executor.clock.rounds_done
+                                  > ticks).tolist()
+                line += (f" stale={rnd['stale_edges']:.2f}"
+                         f" age_max={int(rnd['age_max'])}")
+                if args.drop_stragglers:
+                    # the staleness clocks are the straggler signal
+                    for v in aged_out_nodes(
+                            state.topo, max_staleness=args.max_staleness):
+                        live = state.topo.node_alive.cpu().numpy()
+                        if live[v] and live.sum() > 2:
+                            state = state._replace(
+                                topo=elastic.drop_preserving(v, state.topo,
+                                                             step))
+                            line += f" | ghosted aged-out node {v}"
+            record["rounds"].append(rnd)
         if step == drop_at:
             # layout-preserving churn drill: ghost the victim and go on
             state = state._replace(topo=elastic.drop_preserving(
@@ -156,7 +213,7 @@ def run(cfg: ArchConfig, args) -> dict:
         sync()
         dt = time.perf_counter() - t0
         slow = monitor.observe(np.full(trainer.num_nodes, dt))
-        if slow:
+        if slow and executor is None:
             line += f" | stragglers: {slow}"
             if args.drop_stragglers and trainer.dynamic:
                 for v in slow:
@@ -172,6 +229,9 @@ def run(cfg: ArchConfig, args) -> dict:
         print(f"{line} {dt * 1e3:.0f}ms", flush=True)
     print(f"done: {args.steps} steps in {time.perf_counter() - t_start:.1f}s",
           flush=True)
+    if executor is not None:
+        record["async"] = executor.summary()
+        print(f"async executor: {record['async']}", flush=True)
     return record
 
 

@@ -28,6 +28,14 @@ the dual one round later (zero-kick), and skips the roll and the probe of
 an offset with no active edge and no pending kick. A lost node becomes a
 ghost row (``apply_churn``): every buffer keeps its shape. The default
 ``TopologyConfig()`` (static, no churn) keeps the ungated round.
+
+Bounded-staleness async rounds (``ConsensusConfig.async_exec``,
+``consensus_step_async``, driven by ``repro_torch.async_exec``): each
+directed edge consumes the freshest payload that has landed, falling back
+to the wire ledger's held row; an edge older than ``max_staleness`` rounds
+is gated, with its last force absorbed into the dual; the penalties are
+damped by age; nodes still computing keep their rows. The async round
+always runs the edge-gated kernel.
 """
 from __future__ import annotations
 
@@ -39,21 +47,25 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch import wire as wire_lib
+from repro_torch.async_exec.ledger import (AsyncConfig, WireLedger,
+                                           init_wire_ledger)
 from repro_torch.core.graph import Graph, build_graph
 from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
+                                      effective_eta, freeze_penalty,
                                       init_penalty_state, update_penalty)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as adamw_lib
 from repro_torch.optim import flatten
 from repro_torch.topology import (TopologyConfig, TopologyRuntime,
-                                  TopologyState, active_edge_fraction)
+                                  TopologyState, active_edge_fraction,
+                                  compose_mask, sym_age, tick_age)
 
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusConfig:
-    """The fields of the reference's ``ConsensusConfig`` that the sync,
-    static, unsharded path reads (same names and defaults). The round
+    """The fields of the reference's ``ConsensusConfig`` that the
+    unsharded single-device paths read (same names and defaults). The round
     always goes through ``kops.consensus_round``, whose tensors' device picks
     the kernel or the plain version, and the flat layout's block size is
     always the reference's automatic one."""
@@ -67,6 +79,9 @@ class ConsensusConfig:
     #                                empty => from compression
     # the default static scheduler without churn keeps the ungated round
     dyn_topology: TopologyConfig = TopologyConfig()
+    # bounded-staleness async executor: None keeps the trainer synchronous;
+    # max_staleness=0 makes consensus_step_async the synchronous round
+    async_exec: AsyncConfig | None = None
 
 
 class TrainState(NamedTuple):
@@ -77,6 +92,7 @@ class TrainState(NamedTuple):
     penalty: PenaltyState          # [J, J]
     step: torch.Tensor             # [] int32
     topo: TopologyState            # [J, J] dynamic-topology state
+    ledger: Any = None             # WireLedger [deg, J, W] — async only
 
 
 def _roll_into(dst: torch.Tensor, src: torch.Tensor, off: int) -> None:
@@ -105,10 +121,7 @@ class ConsensusTrainer:
         self._check_circulant()
         self.topo_cfg = consensus.dyn_topology
         self.topo_cfg.validate_penalty(consensus.penalty)
-        if self.topo_cfg.scheduler == "stale":
-            raise NotImplementedError(
-                "the stale scheduler runs under the async executor, which "
-                "comes with the async slice")
+        self.async_cfg = consensus.async_exec
         # offsets come from the runtime's superset: the graph's circulant
         # offsets, plus spare offsets for churn repair
         self.topo_rt = TopologyRuntime(self.graph, self.topo_cfg)
@@ -152,6 +165,10 @@ class ConsensusTrainer:
             lambda x: x.to(self.device)[None].expand(j, *x.shape).clone(),
             params1)
         flat_shape = (j, self.layout.total)
+        ledger = None
+        if j > 1 and self.async_cfg is not None:
+            ledger = init_wire_ledger(self.layout, len(self.offsets), j,
+                                      codec=self.codec, device=self.device)
         return TrainState(
             params=params, opt=adamw_lib.init(self.acfg, params),
             lam=torch.zeros(flat_shape, dtype=torch.float32,
@@ -161,7 +178,7 @@ class ConsensusTrainer:
             penalty=init_penalty_state(self.ccfg.penalty, j,
                                        device=self.device),
             step=torch.zeros((), dtype=torch.int32, device=self.device),
-            topo=self.topo_rt.init_state(self.device))
+            topo=self.topo_rt.init_state(self.device), ledger=ledger)
 
     # ------------------------------------------------------- local steps ----
     def train_step(self, state: TrainState, batch: dict
@@ -374,6 +391,239 @@ class ConsensusTrainer:
                              else torch.ones((), device=dev)),
         }
         return new, metrics
+
+    # --------------------------------------------- async consensus round ----
+    @torch.no_grad()
+    def consensus_step_async(self, state: TrainState, probe_batch: dict,
+                             arrivals, advance=None
+                             ) -> tuple[TrainState, dict]:
+        """One bounded-staleness consensus round (``repro_torch.async_exec``).
+
+        Each directed edge consumes the freshest payload that has landed,
+        else the wire ledger's held row (the payload it consumed last). An
+        edge whose symmetrized age exceeds ``AsyncConfig.max_staleness`` is
+        gated (zero math in the edge-gated kernel) and the edge that has
+        just aged out absorbs its final force into the dual at the weight
+        it applied last round (``ledger.w_prev``); a fresh arrival revives
+        it the same round. Applied penalties are damped by age.
+
+        Args:
+          arrivals: [deg, J] bool host array — ``arrivals[d, i]``: the
+            payload from node ``(i + off_d) % J`` reached node i this tick
+            (the executor's round clock).
+          advance: optional [J] bool host array — the nodes running a round
+            this tick. A frozen node keeps its parameter, dual and
+            neighbour-mean rows and its penalty edges to other frozen nodes;
+            its clocks tick.
+
+        The clock's bits pick on the host which rows to copy and which to
+        keep, and go to the device once. With ``max_staleness=0`` this is
+        ``consensus_step`` itself.
+        """
+        if self.async_cfg is None:
+            raise ValueError("consensus_step_async needs ConsensusConfig."
+                             "async_exec=AsyncConfig(...)")
+        dev = self.device
+        f32 = torch.float32
+        if self.num_nodes <= 1:
+            return state, {"r_max": torch.zeros((), device=dev),
+                           "eta_mean": torch.tensor(self.ccfg.penalty.eta0,
+                                                    device=dev)}
+        acfg = self.async_cfg
+        if acfg.max_staleness == 0:
+            return self.consensus_step(state, probe_batch)
+        if state.ledger is None:
+            raise ValueError("the state has no wire ledger: build it with "
+                             "init_state of an async trainer")
+        j = self.num_nodes
+        offsets = self.offsets
+        lay = self.layout
+        adj = self._adj
+        idx = torch.arange(j, device=dev)
+        ledger: WireLedger = state.ledger
+        n_stale = acfg.max_staleness
+        arr_np = np.asarray(arrivals, dtype=bool)                # [deg, J]
+        adv_np = None if advance is None else np.asarray(advance, dtype=bool)
+
+        # ---- staleness clocks: tick, then gate -------------------------
+        # arrivals [deg, J] -> the [J, J] grid through the static circulant
+        # masks; pairs outside the offset superset never move a payload and
+        # stay fresh instead of counting phantom staleness
+        covered = np.zeros((j, j), dtype=bool)
+        fresh_np = np.zeros((j, j), dtype=bool)
+        for d, off in enumerate(offsets):
+            circ = np.roll(np.eye(j, dtype=bool), off, axis=1)
+            covered |= circ
+            fresh_np |= arr_np[d][:, None] & circ
+        fresh = torch.as_tensor(fresh_np | ~covered, device=dev)
+        prev_live = sym_age(state.topo) <= n_stale           # pre-tick view
+        topo = tick_age(state.topo, fresh)
+        age_s = sym_age(topo)
+        live = age_s <= n_stale
+        if self.topo_cfg.scheduler == "stale":
+            # staleness is the mask's only gating source: gate on the mask
+            # composed from THIS round's clocks, so that a fresh arrival
+            # revives the edge the same round
+            base_mask = compose_mask(adj, topo, adj)
+            prev_base = compose_mask(adj, state.topo, adj)
+        else:
+            base_mask = prev_base = topo.mask
+        gate_m = base_mask & live
+        gate_f = gate_m.to(f32)
+        eta_eff = effective_eta(self.ccfg.penalty, state.penalty, gate_m,
+                                age=age_s, stale_gamma=acfg.stale_gamma)
+        w_applied = 0.5 * (eta_eff + eta_eff.T)                   # [J, J]
+        # zero-kick: (a) edges that just aged past the bound absorb now,
+        # from the ledger, at the weight they applied last round; (b) edges
+        # the scheduler gated last round ride in topo.kick
+        newly_stale = prev_base & prev_live & ~live
+        kick_m = torch.where(newly_stale, ledger.w_prev, 0.0) + topo.kick
+        # one host read per round: which offsets' payloads are consumed
+        gk = torch.stack([gate_f, kick_m]).cpu().numpy()
+        rows = np.arange(j)
+        probed = [bool(gk[0][rows, (rows + off) % j].sum()
+                       + gk[1][rows, (rows + off) % j].sum() > 0)
+                  for off in offsets]
+
+        f_self = self._probe_losses(state.params, probe_batch)      # [J]
+        theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
+        wire = self.codec.encode(theta_flat)
+        # merge: a receiver whose payload landed copies it into its ledger
+        # slot (a COPY: a native wire is theta_flat, which the kernel
+        # overwrites); the others keep their held row. An offset where
+        # nothing landed moves nothing.
+        for d, off in enumerate(offsets):
+            for i in np.nonzero(arr_np[d])[0]:
+                ledger.wires[d, i].copy_(wire[(i + off) % j])
+        del wire
+        payloads, dec_scales = self.codec.decode(ledger.wires)
+        wires = payloads.contiguous()     # native: the ledger itself
+        del payloads
+
+        sym_sum = torch.zeros((j,), dtype=f32, device=dev)
+        act = torch.zeros((j,), dtype=f32, device=dev)
+        f_nbr = torch.zeros((j, j), dtype=f32, device=dev)
+        e_rows, w_rows, kick_rows = [], [], []
+        for d, off in enumerate(offsets):
+            jidx = (idx + off) % j
+            g_off = gate_f[idx, jidx]
+            # probe the payload actually consumed (a held one included); a
+            # fully gated, kick-free offset skips the forward pass
+            if probed[d]:
+                f_off = self._probe_losses(self.codec.unpack(
+                    wires[d], None if dec_scales is None else dec_scales[d]),
+                    probe_batch)
+            else:
+                f_off = f_self
+            e_sym = w_applied[idx, jidx]
+            mask = torch.as_tensor(np.roll(np.eye(j), off, axis=1),
+                                   dtype=f32, device=dev)
+            f_nbr = f_nbr + f_off[:, None] * mask
+            sym_sum = sym_sum + e_sym
+            act = act + g_off
+            e_rows.append(e_sym)
+            w_rows.append(g_off)
+            kick_rows.append(kick_m[idx, jidx])
+        scales = dec_scales.contiguous() if dec_scales is not None \
+            else torch.ones((len(offsets), j, self.dequant_spec.scale_width),
+                            dtype=f32, device=dev)
+        alpha = self.ccfg.prox_step / (1.0 + 2.0 * sym_sum)
+        inv_deg = torch.where(act > 0, 1.0 / torch.clamp_min(act, 1.0), 0.0)
+        eta_node = sym_sum * inv_deg
+
+        # the kernel writes every row in place, a frozen one too (with all
+        # gates 0 it still pulls theta by the dual and zeroes bar): keep a
+        # copy of the frozen rows only
+        frozen = None if adv_np is None or adv_np.all() else \
+            torch.as_tensor(np.nonzero(~adv_np)[0], device=dev)
+        held = None if frozen is None else (
+            state.lam.index_select(0, frozen),
+            state.theta_bar_prev.index_select(0, frozen))
+        theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
+            theta_flat, state.lam, state.theta_bar_prev, wires, scales,
+            torch.stack(e_rows), alpha, sym_sum, eta_node,
+            block_leaf=self.block_leaf, block_size=lay.block_size,
+            scales_per_block=self.dequant_spec.per_block,
+            bar_w=torch.stack(w_rows), inv_deg=inv_deg,
+            kick_w=torch.stack(kick_rows))
+        del wires, scales
+
+        # theta_new -> the parameter replicas of the advancing nodes
+        adv_rows = range(j) if adv_np is None else np.nonzero(adv_np)[0]
+        for dst, src in zip(tree_lib.leaves(state.params),
+                            tree_lib.leaves(lay.unpack(theta_new)),
+                            strict=True):
+            if len(adv_rows) == j:
+                dst.copy_(src)
+            else:
+                for i in adv_rows:
+                    dst[i].copy_(src[i])
+        del theta_flat, theta_new
+        r_norm = torch.sqrt(r_sq)
+        s_norm = torch.sqrt(s_sq)
+
+        # penalties keep adapting on stale- and scheduler-gated graph edges
+        # (the eq. 10 top-up revives them), never on ghost rows
+        alive = topo.node_alive
+        adj_pen = (adj & alive[:, None] & alive[None, :]) | topo.mask
+        penalty_new = update_penalty(
+            self.ccfg.penalty, state.penalty, adj=adj_pen, f_self=f_self,
+            f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
+        topo_new = self.topo_rt.update(topo, penalty=penalty_new,
+                                       r_norm=r_norm) \
+            if self.dynamic else topo
+        if self.dynamic and self.topo_cfg.can_gate:
+            # park kicks only for edges ACTIVE this round (mask and within
+            # the bound): an edge that aged out was absorbed in-round, and
+            # the scheduler mirroring it out of the mask must not absorb it
+            # twice
+            kick_next = w_applied * (gate_m & ~topo_new.mask).to(f32)
+        else:
+            kick_next = torch.zeros_like(topo.kick)
+        new = state._replace(
+            lam=lam_new, theta_bar_prev=bar_new, penalty=penalty_new,
+            topo=topo_new._replace(kick=kick_next),
+            ledger=WireLedger(wires=ledger.wires, round=ledger.round + 1,
+                              w_prev=w_applied))
+        adv_f = torch.ones((j,), dtype=f32, device=dev)
+        if adv_np is not None:
+            adv_t = torch.as_tensor(adv_np, device=dev)
+            new = self._freeze_rows(adv_t, new, state.penalty, frozen, held)
+            adv_f = adv_t.to(f32)
+
+        # frozen nodes ran no real round: keep them out of the extremes,
+        # with ghost and isolated rows
+        alive_f = topo.node_alive.to(f32) * (act > 0).to(f32) * adv_f
+        r_rep, s_rep = r_norm * alive_f, s_norm * alive_f
+        f_rep = (f_self * alive_f).sum() / torch.clamp_min(alive_f.sum(), 1)
+        mask_edges = torch.clamp_min(base_mask.to(f32).sum(), 1.0)
+        metrics = {
+            "r_max": r_rep.max(), "s_max": s_rep.max(),
+            "f_mean": f_rep,
+            "eta_mean": torch.where(adj, penalty_new.eta, 0.0).sum()
+            / torch.clamp_min(adj.sum(), 1),
+            "active_edges": (active_edge_fraction(topo, adj) if self.dynamic
+                             else torch.ones((), device=dev)),
+            "stale_edges": (base_mask & ~live).to(f32).sum() / mask_edges,
+            "age_max": torch.where(base_mask, age_s, 0).max(),
+        }
+        return new, metrics
+
+    def _freeze_rows(self, advance: torch.Tensor, new: TrainState,
+                     old_penalty: PenaltyState, frozen, held) -> TrainState:
+        """Put back the rows of the nodes that did not advance this tick.
+
+        ``frozen`` holds their ids and ``held`` the copies of their dual
+        and neighbour-mean rows taken before the kernel wrote them; their
+        parameter rows were never written. The penalty freezes per edge
+        (``core.penalty.freeze_penalty``). The clocks, the topology and the
+        ledger always advance: they model the network, not the node.
+        """
+        if frozen is not None:
+            new.lam.index_copy_(0, frozen, held[0])
+            new.theta_bar_prev.index_copy_(0, frozen, held[1])
+        return new._replace(penalty=freeze_penalty(advance, new.penalty,
+                                                   old_penalty))
 
     # ------------------------------------------------------------- churn ----
     def apply_churn(self, state: TrainState, victim: int) -> TrainState:

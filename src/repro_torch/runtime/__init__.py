@@ -2,8 +2,10 @@
 from repro_torch.runtime.fault_tolerance import (ElasticController,
                                                  ElasticEvent, RetryPolicy,
                                                  StragglerMonitor,
+                                                 aged_out_nodes,
                                                  shrink_penalty_state,
                                                  with_retries)
 
 __all__ = ["ElasticController", "ElasticEvent", "RetryPolicy",
-           "StragglerMonitor", "shrink_penalty_state", "with_retries"]
+           "StragglerMonitor", "aged_out_nodes", "shrink_penalty_state",
+           "with_retries"]

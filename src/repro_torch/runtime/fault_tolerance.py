@@ -1,6 +1,7 @@
 """Runtime fault tolerance: retries, straggler detection, elastic rescale
-(port of ``repro/runtime/fault_tolerance.py``; ``aged_out_nodes`` reads the
-async executor's staleness clocks and comes with the async slice).
+(port of ``repro/runtime/fault_tolerance.py``). Wall-clock straggler
+detection serves the synchronous launcher; ``aged_out_nodes`` reads the
+async executor's staleness clocks instead.
 
 Consensus ADMM tolerates a missing neighbor: dropping an edge or a node
 leaves a smaller but still valid consensus problem. Two elastic paths use
@@ -88,6 +89,31 @@ class StragglerMonitor:
         self.strikes = np.where(slow, self.strikes + 1, 0)
         return [int(i) for i in np.nonzero(
             self.strikes >= self.patience)[0]]
+
+
+def aged_out_nodes(topo_state, *, max_staleness: int,
+                   patience: int = 4) -> list[int]:
+    """Nodes whose EVERY active edge has aged past ``patience x bound``.
+
+    An edge older than ``max_staleness`` is already gated by the async
+    round; a live node whose freshest active edge is ``patience`` times
+    older than the bound is gone, not late — return it for a
+    layout-preserving ghost drop. Ages are symmetrized (max of both
+    directions), so a half-broken link counts as broken.
+    """
+    age, mask, alive = (x.cpu().numpy() for x in (
+        topo_state.age, topo_state.mask, topo_state.node_alive))
+    age = np.maximum(age, age.T)
+    cutoff = patience * max(max_staleness, 1)
+    out = []
+    for i in range(age.shape[0]):
+        if not alive[i]:
+            continue
+        edges = mask[i] & alive
+        edges[i] = False
+        if edges.any() and age[i][edges].min() > cutoff:
+            out.append(i)
+    return out
 
 
 def shrink_penalty_state(state: PenaltyState, victim: int) -> PenaltyState:

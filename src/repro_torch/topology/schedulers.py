@@ -22,9 +22,9 @@ Schedulers:
                       bits differ from JAX's.
   * ``round_robin`` — rotates through the graph's permutation rounds (edge
                       coloring): each epoch activates one matching.
-  * ``stale``       — bounded-staleness gating for the async executor. The
-                      config accepts it; the schedule itself comes with the
-                      async slice and raises here.
+  * ``stale``       — bounded-staleness gating for the async executor: an
+                      edge is active while the symmetrized age of its
+                      payloads is within ``max_staleness``.
 
 Connectivity: the backbone keeps the masked graph connected by
 construction (see ``topology.state``).
@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.penalty import PenaltyState, budget_exhausted
-from repro_torch.topology.state import TopologyState, advance, compose_mask
+from repro_torch.topology.state import (TopologyState, advance, compose_mask,
+                                        sym_age)
 
 SCHEDULERS = ("static", "budget", "random", "round_robin", "stale")
 
@@ -61,7 +62,7 @@ class TopologyConfig:
         churn repair; () = auto ((2, J-2) when churn is on).
       skip_dead_offsets: an offset with no active edge and no pending kick
         skips its roll and its probe.
-      max_staleness: ``stale`` — the async slice's bound.
+      max_staleness: ``stale`` — the bound on the symmetrized age.
       seed: seed of the ``random`` scheduler.
     """
 
@@ -174,9 +175,10 @@ def update_topology(cfg: TopologyConfig, state: TopologyState, *,
         pattern = adj & rotation[phase.long()]
 
     elif cfg.scheduler == "stale":
-        raise NotImplementedError(
-            "the stale scheduler gates on the async executor's staleness "
-            "clocks and comes with the async slice")
+        # bounded staleness: gate while either direction's payload is older
+        # than the bound; a fresh arrival (age reset by tick_age) revives
+        # the edge the same epoch — no latch, staleness is self-healing
+        pattern = adj & (sym_age(state) <= cfg.max_staleness)
 
     else:  # pragma: no cover
         raise AssertionError(cfg.scheduler)

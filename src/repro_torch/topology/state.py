@@ -89,6 +89,22 @@ def advance(state: TopologyState, new_mask: torch.Tensor) -> TopologyState:
                           t=state.t + 1)
 
 
+def tick_age(state: TopologyState, fresh: torch.Tensor) -> TopologyState:
+    """Advance the staleness clocks: reset where ``fresh`` [J, J], else +1.
+
+    Only the async round calls this (once per round); on the synchronous
+    path every payload is fresh and ``age`` stays zero.
+    """
+    age = torch.where(fresh, 0, state.age + 1).to(torch.int32)
+    return state._replace(age=age)
+
+
+def sym_age(state: TopologyState) -> torch.Tensor:
+    """[J, J] int32 — symmetrized staleness, the max over both directions,
+    so that weights built from it stay symmetric."""
+    return torch.maximum(state.age, state.age.T)
+
+
 def active_degree(state: TopologyState) -> torch.Tensor:
     """[J] float32 — number of active edges per node."""
     return state.mask.to(torch.float32).sum(dim=1)

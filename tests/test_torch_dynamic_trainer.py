@@ -234,8 +234,9 @@ def test_dead_offsets_skip_their_probe(monkeypatch):
 
 
 def test_trainer_refuses_stale_and_static_churn_drop():
-    with pytest.raises(NotImplementedError, match="async slice"):
-        _trainer(TopologyConfig(scheduler="stale"))
+    # the stale scheduler is ported: it builds a gated, kicking trainer
+    tr, _ = _trainer(TopologyConfig(scheduler="stale"))
+    assert tr.dynamic and tr.topo_cfg.can_gate and tr.async_cfg is None
     tr, _ = _trainer(TopologyConfig())
     assert not tr.dynamic
     with pytest.raises(ValueError, match="churn"):
@@ -274,7 +275,11 @@ def test_launcher_run_records_rounds():
 
 def test_launcher_refuses_stale_scheduler():
     from repro_torch.launch.train import parse_args
+    # the stale scheduler is ported: the launcher takes it, and refuses an
+    # unknown one
+    assert parse_args(["--topo-scheduler", "stale"]).topo_scheduler \
+        == "stale"
     with pytest.raises(SystemExit):
-        parse_args(["--topo-scheduler", "stale"])
+        parse_args(["--topo-scheduler", "gossip"])
     args = parse_args(["--drop-node", "5:1"])
     assert args.topo_scheduler == "static" and args.drop_node == "5:1"

@@ -76,6 +76,12 @@ def _star(j):
     return adj
 
 
+# one stale epoch on complete J=4: the chord (0, 2) is 2 rounds old in one
+# direction, past the default bound of 1; the backbone ring never gates
+_STALE_AGE = np.array([[0, 0, 0, 1], [2, 0, 1, 0], [2, 0, 0, 0],
+                       [1, 0, 0, 0]], np.int32)
+
+
 def _durations():
     rng = np.random.default_rng(9)
     out = []
@@ -210,6 +216,10 @@ def _reference_outputs():
         except ValueError:
             refused.append(True)
     out["config/refused"] = np.asarray(refused)
+    rt = jt.TopologyRuntime(jg.build_graph("complete", 4),
+                            jt.TopologyConfig(scheduler="stale"))
+    st = rt.update(rt.init_state()._replace(age=jnp.asarray(_STALE_AGE)))
+    put_state("config/stale", st)
     out["config/schedulers"] = np.asarray(jt.SCHEDULERS)
     return out
 
@@ -365,8 +375,13 @@ def test_random_scheduler_invariants(j, p):
 def test_stale_scheduler_raises_and_configs_validate(ref):
     rt = _runtime("ring", 4, scheduler="stale")
     assert rt.expected_active_fraction() == 1.0
-    with pytest.raises(NotImplementedError, match="async slice"):
-        rt.update(rt.init_state("cpu"))
+    # the stale epoch is ported: it equals the reference's
+    rt = _runtime("complete", 4, scheduler="stale")
+    st = rt.update(rt.init_state("cpu")._replace(
+        age=torch.from_numpy(_STALE_AGE)))
+    _assert_state(st, ref, "config/stale")
+    assert not st.mask[0, 2] and not st.mask[2, 0]
+    assert int(st.mask.sum()) == 10
     assert ref["config/refused"].all()
     for bad in BAD_CONFIGS:
         with pytest.raises(ValueError):

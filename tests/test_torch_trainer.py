@@ -174,9 +174,14 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch.train import parse_args
-    for flag in (["--async"], ["--obs-dir", "x"], ["--mesh", "debug"]):
+    for flag in (["--obs-dir", "x"], ["--mesh", "debug"]):
         with pytest.raises(SystemExit):
             parse_args(flag)
+    # the async executor is ported: its flags parse, with the reference's
+    # default bound
+    args = parse_args(["--async", "--slow-node", "0:2.0"])
+    assert args.async_mode and args.max_staleness == 2
+    assert args.slow_node == "0:2.0"
     # the fp8 wires are ported: the launcher takes both formats
     for name in ("fp8_e4m3", "fp8_e5m2"):
         assert parse_args(["--wire-codec", name]).wire_codec == name
