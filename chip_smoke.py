@@ -167,6 +167,42 @@ The async slice (after phase 8; the edge-gated round kernel on new inputs):
               the host before the launch, and theta', lam' and bar are held
               against the plain version in column chunks, bit for bit.
 
+The observability slice (after phase 18b; the edge-gated round kernel,
+with the obs rings appended in each round):
+
+ 19. obs dyn — ``launch.train.run`` on qwen3-4b at full width, 1 layer, 3
+              nodes on a ring, nap, the budget scheduler, node 1 dropped
+              after step 3, 1 local step, 12 steps, 4 x 512 tokens per
+              node, lr 3e-4, four times in turns: obs off, obs on
+              (``--obs-dir`` in a temporary directory, ring cap 4, drain
+              every 4, ``--health``, ``--profile-rounds 2``), obs on
+              without the profiler, obs off. Every round runs under
+              ``torch.cuda.set_sync_debug_mode("warn")`` and its
+              synchronising calls are counted: each obs-on round must make
+              exactly as many as the obs-off round. On the profiled run:
+              one gated launch per round; the drained rows' r_max and
+              eta_mean equal the rounds' own bit for bit and the node
+              ring's max r over live nodes equals r_max; node 1's drop is
+              in events.jsonl; the Chrome trace holds every span, with the
+              gated kernel launched inside consensus/fused_round; the
+              port's validator and dashboard check pass; params, lam, eta
+              and the mask equal the first obs-off run's bit for bit.
+              Prints each run's step, local-step and round medians, the
+              obs-on/obs-off ratio of the step medians (fails above
+              1.10), the rings' bytes, each drain's ms and the kernel's
+              ms in the profiled rounds.
+ 19b. obs async — the same with the async slice's arguments (phase 18):
+              the round clock's Perfetto trace present and valid, and the
+              node ring's advance column showing node 0 on one tick in
+              four.
+ 19c. obs agree — the reduced float32 trainer with obs on, card and CPU in
+              lockstep from the same weights, both rings drained every 2
+              rounds: dynamic (J=4, complete, budget with churn) and async
+              (J=4, ring, node 0 2x slow) with the native wire, and async
+              with the fp8_e5m2 wire with each CPU round started from the
+              card's state. Step, age, liveness, advance and wire-byte
+              columns equal; the rest within 1e-3; journal events equal.
+
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
 """
@@ -212,6 +248,11 @@ ASYNC_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
               "--local-steps", "1", "--steps", "12", "--batch-per-node", "4",
               "--seq", "512", "--lr", "3e-4", "--device", DEV]
 ASYNC_LAYERS = 1
+OBS_LAYERS = 1
+OBS_DYN_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
+                "--topo-scheduler", "budget", "--drop-node", "3:1",
+                "--local-steps", "1", "--steps", "12", "--batch-per-node",
+                "4", "--seq", "512", "--lr", "3e-4", "--device", DEV]
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen-len", "32",
               "--device", DEV]
 SOURCES = ("consensus_round", "consensus_update", "flash_attention",
@@ -1170,6 +1211,411 @@ def async_zero_is_sync(steps: int = 3) -> None:
           "synchronous round on the card")
     print(f"aagree: max_staleness=0 through the executor equals the sync "
           f"trainer on the card bit for bit ({steps} rounds)", flush=True)
+
+
+OBS_FLAGS = ["--obs-ring-cap", "4", "--obs-drain-every", "4", "--health"]
+OBS_SPANS = ("consensus/pack", "consensus/probe", "consensus/fused_round",
+             "consensus/penalty", "wire/encode", "wire/decode")
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def obs_launch(cfg, args_list, obs_dir, profile=False):
+    """``launch.train.run`` of ``cfg`` with ``args_list`` and, when
+    ``obs_dir`` is given, ``--obs-dir obs_dir`` and ``OBS_FLAGS`` (with
+    ``profile``, ``--profile-rounds 2`` too).
+    Every round runs under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronising calls it makes are counted per round. Returns the run's
+    record, those counts, the last round's state and the seconds of each
+    obs drain."""
+    import warnings
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.obs import export as obs_export
+    from repro_torch.optim import consensus as cons_lib
+    argv = list(args_list)
+    if obs_dir:
+        argv += ["--obs-dir", obs_dir] + OBS_FLAGS
+    if profile:
+        argv += ["--profile-rounds", "2"]
+    args = train_lib.parse_args(argv)
+    name = "consensus_step_async" if args.async_mode else "consensus_step"
+    orig_step = getattr(cons_lib.ConsensusTrainer, name)
+    orig_drain = obs_export.ObsWriter.drain
+    syncs, last, drain_s = [], [], []
+
+    def step(self, *a, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = orig_step(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum(SYNC_WARNING in str(w.message) for w in caught))
+        last[:] = [out[0]]
+        return out
+
+    def drain(self, state, *, step):
+        t0 = time.perf_counter()
+        n = orig_drain(self, state, step=step)
+        drain_s.append(time.perf_counter() - t0)
+        return n
+
+    for c in COUNTS:
+        setattr(ops.consensus_round, c, 0)
+    setattr(cons_lib.ConsensusTrainer, name, step)
+    obs_export.ObsWriter.drain = drain
+    try:
+        record = train_lib.run(cfg, args)
+    finally:
+        setattr(cons_lib.ConsensusTrainer, name, orig_step)
+        obs_export.ObsWriter.drain = orig_drain
+    torch.cuda.synchronize()
+    return record, syncs, last[0], drain_s
+
+
+def state_to_host(state):
+    """The parts of a state that obs must leave untouched, on the host:
+    the parameter replicas, lam, eta and the mask."""
+    from repro_torch import tree as tree_lib
+    return [x.cpu() for x in tree_lib.leaves(state.params)] + [
+        state.lam.cpu(), state.penalty.eta.cpu(), state.topo.mask.cpu()]
+
+
+def equal_to_host(state, host, chunk=1 << 26) -> bool:
+    """Whether ``state`` equals the host copy ``host`` bit for bit,
+    compared on the card chunk by chunk."""
+    from repro_torch import tree as tree_lib
+    dev = tree_lib.leaves(state.params) + [
+        state.lam, state.penalty.eta, state.topo.mask]
+    for x, h in zip(dev, host, strict=True):
+        fx, fh = x.reshape(-1), h.reshape(-1)
+        if fx.dtype != fh.dtype or fx.numel() != fh.numel():
+            return False
+        for c0 in range(0, fx.numel(), chunk):
+            if not bool((fx[c0:c0 + chunk]
+                         == fh[c0:c0 + chunk].to(x.device)).all()):
+                return False
+    return True
+
+
+def kernels_under_span(trace_path, kernel, span):
+    """(kernels of ``kernel`` in a Chrome trace, those launched inside the
+    host range ``span``): a kernel counts when the CUDA API call that
+    launched it (the same ``correlation``) lies inside a ``span``
+    range, or when the kernel lies inside the device-side projection of
+    that range (``gpu_user_annotation``)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", "")]
+    cpu_spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name") == span]
+    gpu_spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "gpu_user_annotation"
+                 and e.get("name") == span]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    inside = 0
+    for k in kernels:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        if (call is not None and any(t0 <= call["ts"] <= t1
+                                     for t0, t1 in cpu_spans)) or any(
+                t0 <= k["ts"] and k["ts"] + k["dur"] <= t1
+                for t0, t1 in gpu_spans):
+            inside += 1
+    names = {e.get("name") for e in events
+             if e.get("cat") == "user_annotation"}
+    return kernels, inside, names
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def obs_slice(tag, full, args_list, card_line, same_shape_ms):
+    """Phases 19 and 19b: the path of ``args_list`` on qwen3-4b at full
+    width (``full``), one layer, four times in turns: obs off, obs on
+    (``--obs-dir`` in a temporary directory, ``OBS_FLAGS``, two rounds
+    profiled), obs on unprofiled, obs off. On the profiled run, checks:
+    one gated launch per round; the drained rows' r_max and
+    eta_mean equal to the rounds' own, bit for bit, and the node ring's
+    max over live nodes of r equal to r_max; the journal; the profile
+    trace's spans, with the gated kernel launched inside
+    consensus/fused_round; the port's validator and dashboard check; obs
+    on and off bit-identical in params, lam, eta and mask. Over the four
+    runs: as many synchronising calls in each obs-on round as in the
+    obs-off round, and the obs-on step medians within 1.10x of the obs-off
+    ones. Returns the profiled obs-on run's gated launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import dashboard, export as obs_export, schema
+    cfg = dataclasses.replace(full, n_layers=OBS_LAYERS)
+    torch.cuda.empty_cache()
+    off, off_syncs, state, _ = obs_launch(cfg, args_list, "")
+    off_host = state_to_host(state)
+    del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "obs")
+        record, syncs, state, drain_s = obs_launch(cfg, args_list, d,
+                                                   profile=True)
+        same = equal_to_host(state, off_host)
+        ring_b = state.ring.buf.numel() * 4
+        node_b = state.node_ring.buf.numel() * 4
+        del state, off_host
+        torch.cuda.empty_cache()
+        rounds = record["rounds"]
+        n = len(rounds)
+        masked = ops.consensus_round.masked_launches
+        check(all(r["masked_launches"] == 1 and r["launches"] == 0
+                  for r in rounds) and masked == n,
+              f"{tag}: {masked} gated launches in {n} rounds")
+        rows = read_jsonl(os.path.join(d, "metrics.jsonl"))
+        nrows = read_jsonl(os.path.join(d, "node_metrics.jsonl"))
+        events = read_jsonl(os.path.join(d, "events.jsonl"))
+        check(len(rows) == len(nrows) == n and all(
+            x[k] == r[k] for x, r in zip(rows, rounds)
+            for k in ("r_max", "eta_mean")),
+            f"{tag}: drained rows differ from the rounds' metrics")
+        check([x["step"] for x in rows] == [t + 1 for t in range(n)],
+              f"{tag}: step stamps {[x['step'] for x in rows]}")
+        for x, nr in zip(rows, nrows):
+            live = [r for r, a, v in zip(nr["r"], nr["alive"],
+                                         nr["advance"]) if a and v]
+            check(max(live) == x["r_max"],
+                  f"{tag}: node ring max r {max(live)} vs r_max "
+                  f"{x['r_max']}")
+        trace = record["profile"]
+        kernels, inside, names = kernels_under_span(
+            trace, MASKED_NAME, "consensus/fused_round")
+        round_span = "round/async" if "--async" in args_list \
+            else "round/sync"
+        check(set(OBS_SPANS) | {round_span} <= names
+              and any(s.startswith("consensus/exchange/off") for s in names),
+              f"{tag}: the profile lacks spans: "
+              f"{sorted(set(OBS_SPANS) - names)}")
+        check(1 <= inside == len(kernels) <= 2,
+              f"{tag}: {inside} of {len(kernels)} traced {MASKED_NAME} "
+              "launches inside consensus/fused_round")
+        kernel_ms = [k["dur"] / 1e3 for k in kernels]
+        report = obs_export.validate_obs_dir(d)
+        check(report["ok"], f"{tag}: validator {report['errors']}")
+        dash = dashboard.check_dashboard(dashboard.render_dashboard(d))
+        check(dash["ok"], f"{tag}: dashboard {dash['errors']}")
+        rollup = record["obs"]
+        check(rollup["dropped_rows"] == 0 and "health" in rollup,
+              f"{tag}: rollup {rollup['dropped_rows']} dropped, health "
+              f"{'health' in rollup}")
+        clock_ok = None
+        if "--async" in args_list:
+            with open(os.path.join(d, "roundclock_trace.json")) as f:
+                doc = json.load(f)
+            clock_ok = report["files"]["roundclock_trace.json"]["present"] \
+                and bool(doc["traceEvents"])
+            check(clock_ok, f"{tag}: no round clock trace")
+            adv = [nr["advance"][0] for nr in nrows]
+            check(adv == [float(t % 4 == 3) for t in range(n)]
+                  and adv == [float(r["advance"][0]) for r in rounds],
+                  f"{tag}: node 0 advanced on {adv}")
+        else:
+            check({"step": 8, "event": "node_dropped", "node": 1} in events,
+                  f"{tag}: node 1's drop is not in the journal: {events}")
+    check(same, f"{tag}: obs on and off differ in params, lam, eta or mask")
+    with tempfile.TemporaryDirectory() as tmp:
+        on2, syncs2, state, _ = obs_launch(cfg, args_list,
+                                           os.path.join(tmp, "obs"))
+        del state
+    torch.cuda.empty_cache()
+    off2, off_syncs2, state, _ = obs_launch(cfg, args_list, "")
+    del state
+    torch.cuda.empty_cache()
+    check(syncs == syncs2 == off_syncs == off_syncs2,
+          f"{tag}: synchronising calls per round with obs {syncs}, "
+          f"{syncs2}, without {off_syncs}, {off_syncs2}")
+    runs = {"off": off, "on (profiled)": record, "on": on2, "off again": off2}
+    meds = {}
+    for k, rec in runs.items():
+        step_s = rec["step_seconds"]
+        round_s = [r["seconds"] for r in rec["rounds"]]
+        meds[k] = [float(np.median(x)) for x in (
+            step_s, [t - r for t, r in zip(step_s, round_s)], round_s)]
+    med_on = (meds["on (profiled)"][0] + meds["on"][0]) / 2
+    med_off = (meds["off"][0] + meds["off again"][0]) / 2
+    ratio = med_on / med_off
+    check(ratio <= 1.10, f"{tag}: obs-on step median {med_on:.4f} s is "
+          f"{ratio:.3f}x obs-off's {med_off:.4f} s")
+    print(f"{tag}: {n} rounds, gated launches {masked}, obs on/off "
+          f"bit-identical in params, lam, eta, mask; rows {len(rows)}, "
+          f"node rows {len(nrows)}, events {len(events)}, dropped 0; "
+          f"validator and dashboard ok; spans in the profile: "
+          f"{sorted(s for s in names if '/' in s)}", flush=True)
+    for k, rec in runs.items():
+        print(f"{tag} {k}: step / local step / round median seconds "
+              + " / ".join(f"{t:.4f}" for t in meds[k]) + "; steps "
+              + " ".join(f"{t:.3f}" for t in rec["step_seconds"]),
+              flush=True)
+    print(f"{tag}: obs-on step median {med_on:.4f} s (mean of its two runs), "
+          f"obs-off {med_off:.4f} s, ratio {ratio:.4f} (target 1.03); the "
+          f"unprofiled obs-on run alone {meds['on'][0] / med_off:.4f} "
+          f"[{card_line}]", flush=True)
+    print(f"{tag}: rings {ring_b} + {node_b} bytes (cap 4, J 3; "
+          f"{schema.NUM_COLUMNS * 4} and {3 * schema.NUM_NODE_COLUMNS * 4} "
+          f"bytes per round); drains {len(drain_s)}, ms each "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in drain_s)}; synchronising "
+          f"calls per round, obs on {syncs}, off {off_syncs}; gated kernel "
+          f"in the {len(kernels)} profiled rounds "
+          f"{', '.join(f'{t:.3f}' for t in kernel_ms)} ms, {inside} inside "
+          f"consensus/fused_round (the same path without obs, in its own "
+          f"phase: {same_shape_ms:.3f} ms); health "
+          f"{[x['score'] for x in rollup['health']['nodes']]}"
+          + ("" if clock_ok is None else "; round clock trace ok"),
+          flush=True)
+    return masked
+
+
+def state_copy(x, dev):
+    """A copy of a state (tensors, dicts and named tuples of them) on
+    ``dev``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, dict):
+        return {k: state_copy(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(state_copy(v, dev) for v in x))
+    return x
+
+
+def agree_obs_with_cpu(kind: str, codec: str = "native", rounds: int = 6,
+                       rtol: float = 1e-3, shared: bool = False) -> None:
+    """Phase 19c: the reduced float32 trainer with obs on, on the card and
+    on the CPU from the same weights (``kind`` ``dynamic``: J=4, complete,
+    budget scheduler with churn, node 1 dropped after round 2; ``async``:
+    J=4, ring, stale scheduler, max_staleness 1, node 0 2x slow), the two
+    in lockstep, draining both rings every 2 rounds: the rows' step stamps,
+    age_max, alive, advance and wire bytes equal, the other columns within
+    ``rtol``; the journal's events equal, their floats within ``rtol``.
+    With ``shared`` the CPU starts each round from a copy of the card's
+    state after its local step, so that round-off does not compound over
+    the rounds."""
+    import torch
+    from repro_torch import async_exec, obs
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.penalty import PenaltyConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.obs import node_ring as obs_node_ring
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.topology import TopologyConfig
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    params1 = model.init(torch.Generator().manual_seed(0), "cpu")
+    asy = kind == "async"
+    sides = []                                     # the card's side first
+    for dev in (DEV, "cpu"):
+        tr = ConsensusTrainer(
+            model, num_nodes=4, device=dev, adamw=AdamWConfig(lr=1e-2),
+            consensus=ConsensusConfig(
+                penalty=PenaltyConfig(scheme="nap", eta0=0.1,
+                                      budget_init=1.0 if asy else 0.1),
+                topology="ring" if asy else "complete", local_steps=1,
+                wire_codec=codec,
+                dyn_topology=(TopologyConfig(scheduler="stale",
+                                             max_staleness=1) if asy else
+                              TopologyConfig(scheduler="budget", churn=True,
+                                             gate_tol=10.0)),
+                async_exec=async_exec.AsyncConfig(max_staleness=1)
+                if asy else None,
+                obs=obs.ObsConfig(ring_capacity=4, drain_every=2)))
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          batch_per_node=4, num_nodes=4),
+                               device=dev)
+        state = tr.init_state(params1)
+        ex = async_exec.AsyncExecutor(tr, async_exec.RoundClock(
+            compute_s=async_exec.straggler_compute(4, factor=2.0),
+            wire_s=0.25, offsets=tuple(tr.offsets))) if asy else None
+        journal = obs.EventJournal(os.devnull,
+                                   max_staleness=1 if asy else None)
+        journal.observe(state.topo, state.penalty, step=0)
+        sides.append(dict(tr=tr, data=data, state=state, ex=ex,
+                          journal=journal, cur=0, ncur=0, rows=[], nrows=[],
+                          events=[]))
+    for step in range(rounds):
+        card = None
+        for sd in sides:
+            tr, state = sd["tr"], sd["state"]
+            if shared and card is not None:
+                state = state_copy(card, "cpu")
+            else:
+                state, _ = tr.train_step(state, sd["data"].batch(step))
+            if shared and card is None:
+                card = state_copy(state, "cpu")
+            probe = sd["data"].batch(10**6 + step)
+            state, _ = sd["ex"].consensus_round(state, probe) if asy \
+                else tr.consensus_step(state, probe)
+            if (step + 1) % 2 == 0:
+                r, sd["cur"], _ = obs.drain(state.ring, sd["cur"])
+                nr, sd["ncur"], _ = obs_node_ring.drain(state.node_ring,
+                                                        sd["ncur"])
+                sd["rows"].append(r)
+                sd["nrows"].append(nr)
+                sd["events"] += sd["journal"].observe(
+                    state.topo, state.penalty, step=step + 1)
+            if not asy and step == 2:
+                state = tr.apply_churn(state, 1)
+            sd["state"] = state
+    got = []
+    for sd in sides:
+        sd["journal"].close()
+        got.append((np.concatenate(sd["rows"]), np.concatenate(sd["nrows"]),
+                    sd["events"]))
+    del sides
+    (c_rows, c_nodes, c_ev), (p_rows, p_nodes, p_ev) = got
+    exact_rows = [obs.COLUMN_INDEX[k] for k in ("step", "age_max")]
+    exact_nodes = [obs.NODE_COLUMN_INDEX[k] for k in (
+        "step", "age_max", "alive", "advance", "wire_rx_bytes")]
+
+    def rel(a, b, skip, names):
+        """(largest relative difference, where) over the float columns."""
+        err = np.abs(a.astype(np.float64) - b) / np.maximum(np.abs(b), 1e-12)
+        err[..., skip] = 0.0
+        at = np.unravel_index(int(np.argmax(err)), err.shape)
+        return float(err[at]), (
+            f"{names[at[-1]]} at {tuple(int(i) for i in at[:-1])}: card "
+            f"{float(a[at])!r}, cpu {float(b[at])!r}")
+
+    check(np.array_equal(c_rows[:, exact_rows].view(np.int32),
+                         p_rows[:, exact_rows].view(np.int32))
+          and np.array_equal(c_nodes[..., exact_nodes].view(np.int32),
+                             p_nodes[..., exact_nodes].view(np.int32)),
+          f"obs agree {kind} {codec}: step, age, alive, advance or wire "
+          "bytes differ between card and CPU")
+    worst, where = max(rel(c_rows, p_rows, exact_rows, obs.RING_COLUMNS),
+                       rel(c_nodes, p_nodes, exact_nodes, obs.NODE_COLUMNS))
+    check(worst < rtol, f"obs agree {kind} {codec}: card vs cpu rows "
+          f"{worst:.3g} apart ({where})")
+    same_ev = len(c_ev) == len(p_ev) and all(
+        set(a) == set(b) and all(
+            (abs(a[k] - b[k]) <= rtol * abs(b[k]))
+            if isinstance(b[k], float) else a[k] == b[k] for k in b)
+        for a, b in zip(c_ev, p_ev))
+    check(same_ev, f"obs agree {kind} {codec}: events {c_ev} vs {p_ev}")
+    print(f"obs agree: reduced float32 {kind} trainer, {codec} wire, "
+          f"{rounds} rounds drained every 2"
+          + (", each round from the card's state" if shared else "")
+          + ": rows card vs cpu max relative "
+          f"difference {worst:.3g} ({where}), exact columns equal, "
+          f"{len(c_ev)} journal events equal", flush=True)
 
 
 def all_counters():
@@ -2303,6 +2749,23 @@ def main() -> int:
           f"{t2 - t1:.1f} s, 18b {time.perf_counter() - t2:.1f} s",
           flush=True)
 
+    # -- 19, 19b, 19c. observability on the dynamic and async paths --------
+    t0 = time.perf_counter()
+    obs_dyn = obs_slice("obs dyn", full, OBS_DYN_ARGS, card_line,
+                        dyn["in_round_ms"])
+    obs_async = obs_slice("obs async", full, ASYNC_ARGS, card_line,
+                          asy["in_round_ms"])
+    t1 = time.perf_counter()
+    agree_obs_with_cpu("dynamic")
+    agree_obs_with_cpu("async")
+    # e5m2 keeps two mantissa bits: card and CPU round their float32
+    # matmuls apart, some wire codes flip, the probes of the flipped
+    # payloads move the NAP penalties, and over free-running rounds this
+    # compounds (PERF.md section 7); each round starts from the card's state
+    agree_obs_with_cpu("async", codec="fp8_e5m2", shared=True)
+    print(f"obs slice: phases 19 and 19b {t1 - t0:.1f} s, 19c "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
     # -- (e) the flat update: one f32 row at the slice's size, and an N that
     # is not a block multiple
     flat = flat_update_check(layout.total, card_line)
@@ -2331,9 +2794,11 @@ def main() -> int:
                      f"{ref_file}:141", static["launches"], full_numbers,
                      in_round_ms=static["in_round_ms"]),
         kernel_entry("consensus_round_masked", src + "consensus_round.cu",
-                     f"{ref_file}:221", dyn["launches"] + asy["launches"],
+                     f"{ref_file}:221",
+                     dyn["launches"] + asy["launches"] + obs_dyn + obs_async,
                      dyn_full, in_round_ms=dyn["in_round_ms"],
                      async_launches=asy["launches"],
+                     obs_launches=obs_dyn + obs_async,
                      async_in_round_ms=asy["in_round_ms"],
                      async_round_ms=afull["ms"],
                      async_round_plain_ms=afull["plain_ms"],

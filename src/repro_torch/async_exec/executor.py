@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.async_exec.clock import RoundClock
+from repro_torch.obs import export as obs_export
+from repro_torch.obs.trace import host_span_factory
 
 
 class AsyncExecutor:
@@ -37,6 +39,8 @@ class AsyncExecutor:
             raise ValueError(f"clock models {clock.num_nodes} nodes, "
                              f"trainer has {trainer.num_nodes}")
         self.clock = clock
+        self._hspan = host_span_factory(
+            trainer.obs_on and trainer.obs_cfg.with_spans)
 
     def consensus_round(self, state, probe_batch):
         """One fleet tick: clock -> (arrivals, advance) -> the round.
@@ -55,8 +59,9 @@ class AsyncExecutor:
             self.clock.ticks += 1
         else:
             arrivals, advance = self.clock.tick()
-        return self.trainer.consensus_step_async(state, probe_batch,
-                                                 arrivals, advance)
+        with self._hspan("round/async"):
+            return self.trainer.consensus_step_async(state, probe_batch,
+                                                     arrivals, advance)
 
     @property
     def async_elapsed_s(self) -> float:
@@ -82,3 +87,10 @@ class AsyncExecutor:
             "tick_s": round(c.tick_s, 6),
             "max_staleness": self.cfg.max_staleness,
         }
+
+    def export_timeline(self, path: str) -> str:
+        """Write the clock's modelled timeline as a Chrome/Perfetto trace
+        (``obs.export.write_roundclock_trace``): per-node compute and wire
+        tracks from the clock's event model, to load next to a measured
+        ``--profile-rounds`` trace."""
+        return obs_export.write_roundclock_trace(self.clock, path)

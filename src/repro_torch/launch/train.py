@@ -16,13 +16,25 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --async --max-staleness 1 --slow-node 0:4.0 --nodes 3 \\
       --local-steps 1 --steps 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --steps 8 --local-steps 1 --obs-dir /tmp/obs --health \\
+      --device cpu
 
-The observability, checkpoint, mesh and pipeline flags come with their
-slices; until then argparse rejects them.
+With ``--obs-dir`` the rounds append to the device metrics rings, the
+launcher drains them every ``--obs-drain-every`` rounds into the
+``repro_torch.obs.export`` artifact set (which ``python -m
+repro_torch.obs.export --validate DIR`` checks and ``python -m
+repro_torch.obs.dashboard DIR`` renders), and ``--profile-rounds N`` writes
+a torch.profiler Chrome trace of the first N rounds under
+``<obs-dir>/profile/``.
+
+The checkpoint, mesh and pipeline flags come with their slices; until then
+argparse rejects them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -37,6 +49,7 @@ from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
+from repro_torch.obs import ObsConfig, ObsWriter, host_span_factory
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime import (ElasticController, StragglerMonitor,
@@ -96,7 +109,35 @@ def parse_args(argv=None):
                          "per-block f32 scales; empty resolves from "
                          "--compression")
     ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    ap.add_argument("--obs-dir", default="",
+                    help="observability (repro_torch.obs): drain the device "
+                         "metrics rings and the topology event journal into "
+                         "this directory (metrics.jsonl, node_metrics.jsonl, "
+                         "events.jsonl, rollup.json, run.json; async runs "
+                         "add the round clock's Perfetto trace). Unset = "
+                         "obs off: the round runs as without it")
+    ap.add_argument("--obs-ring-cap", type=int, default=256,
+                    help="rows in the device metrics ring")
+    ap.add_argument("--obs-drain-every", type=int, default=8,
+                    help="host drain cadence in consensus rounds")
+    ap.add_argument("--no-node-ring", action="store_true",
+                    help="leave out the per-node telemetry ring "
+                         "(obs.node_ring), keeping only the scalar ring")
+    ap.add_argument("--health", action="store_true",
+                    help="run the health monitor (repro_torch.obs.health) "
+                         "over drained per-node rows: health_* events in "
+                         "the journal, a per-node score table and advisory "
+                         "recommendations in the rollup, printed at exit. "
+                         "Advisory only. Requires --obs-dir")
+    ap.add_argument("--profile-rounds", type=int, default=0,
+                    help="write a torch.profiler Chrome trace covering the "
+                         "first N consensus rounds to <obs-dir>/profile "
+                         "(the obs spans label the round's phases)")
+    args = ap.parse_args(argv)
+    if args.health and not args.obs_dir:
+        ap.error("--health requires --obs-dir (the monitor feeds off "
+                 "drained per-node telemetry)")
+    return args
 
 
 def run(cfg: ArchConfig, args) -> dict:
@@ -106,8 +147,9 @@ def run(cfg: ArchConfig, args) -> dict:
     the launches of the ungated and the gated kernel and of those with
     per-block scales; async rounds add ``stale_edges``, ``age_max`` and the
     nodes that advanced), the layout,
-    the wire bytes per node per offset and, with ``--async``, the
-    executor's summary.
+    the wire bytes per node per offset, with ``--async`` the executor's
+    summary, and with ``--obs-dir`` the obs rollup (``record["obs"]``) and
+    the profile trace's path (``record["profile"]``).
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state."""
@@ -135,7 +177,11 @@ def run(cfg: ArchConfig, args) -> dict:
             dyn_topology=TopologyConfig(scheduler=topo_sched, churn=churn,
                                         max_staleness=args.max_staleness),
             async_exec=(AsyncConfig(max_staleness=args.max_staleness)
-                        if args.async_mode else None)))
+                        if args.async_mode else None),
+            obs=(ObsConfig(ring_capacity=args.obs_ring_cap,
+                           drain_every=args.obs_drain_every,
+                           with_node_ring=not args.no_node_ring)
+                 if args.obs_dir else None)))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))
     data = SyntheticTokens(DataConfig(
@@ -159,6 +205,31 @@ def run(cfg: ArchConfig, args) -> dict:
     record = {"losses": [], "step_seconds": [], "rounds": [],
               "layout": trainer.layout, "offsets": list(trainer.offsets),
               "wire_bytes": trainer.codec.wire_bytes()}
+    writer = None
+    if args.obs_dir:
+        writer = ObsWriter(args.obs_dir, meta={
+            "arch": cfg.arch_id, "scheme": args.scheme,
+            "topology": args.topology, "num_nodes": trainer.num_nodes,
+            "wire_codec": trainer.codec_name,
+            "wire_bytes_per_round":
+                trainer.codec.wire_bytes() * max(len(trainer.offsets), 1),
+            "offsets": [int(o) for o in trainer.offsets],
+            "async": bool(args.async_mode),
+            "ring_capacity": args.obs_ring_cap,
+            "drain_every": args.obs_drain_every,
+        }, max_staleness=(args.max_staleness if args.async_mode else None),
+            health=args.health)
+    round_span = host_span_factory(writer is not None)
+    rounds, prof = 0, None
+
+    def finish_profile():
+        prof.stop()
+        out_dir = os.path.join(args.obs_dir or ".", "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        record["profile"] = os.path.join(out_dir, "trace.json")
+        prof.export_chrome_trace(record["profile"])
+        print(f"profile trace ({rounds} rounds) -> {record['profile']}",
+              flush=True)
     t_start = time.perf_counter()
     for step in range(args.steps):
         t0 = time.perf_counter()
@@ -170,16 +241,31 @@ def run(cfg: ArchConfig, args) -> dict:
             counts = ("launches", "masked_launches", "per_block_launches")
             before = [getattr(kops.consensus_round, c) for c in counts]
             probe = data.batch(10**6 + step)
+            if args.profile_rounds > 0 and rounds == 0:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA]
+                    if device.type == "cuda" else []))
+                prof.start()
             sync()
             t_round = time.perf_counter()
-            if executor is not None:
-                ticks = executor.clock.rounds_done.copy()
-                state, cm = executor.consensus_round(state, probe)
-            else:
-                state, cm = trainer.consensus_step(state, probe)
+            with round_span("round/async" if executor is not None
+                            else "round/sync"):
+                if executor is not None:
+                    ticks = executor.clock.rounds_done.copy()
+                    state, cm = executor.consensus_round(state, probe)
+                else:
+                    state, cm = trainer.consensus_step(state, probe)
             sync()
+            round_s = time.perf_counter() - t_round
+            rounds += 1
+            if prof is not None and rounds == args.profile_rounds:
+                finish_profile()
+                prof = None
+            if writer is not None and rounds % args.obs_drain_every == 0:
+                writer.drain(state, step=step + 1)
             rnd = {k: float(v) for k, v in cm.items()}
-            rnd.update(alive=alive, seconds=time.perf_counter() - t_round,
+            rnd.update(alive=alive, seconds=round_s,
                        **{c: getattr(kops.consensus_round, c) - b
                           for c, b in zip(counts, before)})
             line += (f" | consensus r={rnd['r_max']:.4f} "
@@ -187,9 +273,6 @@ def run(cfg: ArchConfig, args) -> dict:
             if trainer.dynamic:
                 line += f" active={rnd['active_edges']:.2f}"
             if executor is not None:
-                # a max_staleness=0 round is the sync one: nothing is stale
-                rnd.setdefault("stale_edges", 0.0)
-                rnd.setdefault("age_max", 0.0)
                 rnd["advance"] = (executor.clock.rounds_done
                                   > ticks).tolist()
                 line += (f" stale={rnd['stale_edges']:.2f}"
@@ -229,9 +312,39 @@ def run(cfg: ArchConfig, args) -> dict:
         print(f"{line} {dt * 1e3:.0f}ms", flush=True)
     print(f"done: {args.steps} steps in {time.perf_counter() - t_start:.1f}s",
           flush=True)
+    if prof is not None:                # fewer rounds than asked for
+        finish_profile()
     if executor is not None:
         record["async"] = executor.summary()
         print(f"async executor: {record['async']}", flush=True)
+    if writer is not None:
+        writer.drain(state, step=args.steps)        # tail < drain_every
+        if executor is not None:
+            writer.observe_executor(executor.summary())
+            executor.export_timeline(
+                os.path.join(args.obs_dir, "roundclock_trace.json"))
+        rollup = writer.finalize(
+            extra=({"async_summary": executor.summary()}
+                   if executor is not None else None))
+        record["obs"] = rollup
+        print(f"obs: {rollup['rounds']} rounds, "
+              f"{rollup['journal_events']} topology events, "
+              f"{rollup['dropped_rows']} dropped rows -> {args.obs_dir}",
+              flush=True)
+        if args.health and "health" in rollup:
+            h = rollup["health"]
+            print("health scores (1.0 = clean):")
+            for n in h["nodes"]:
+                active = [k for k in ("divergence", "eta_stall",
+                                      "eta_oscillation", "straggler",
+                                      "drift") if n.get(k)]
+                tag = f" [{', '.join(active)}]" if active else ""
+                print(f"  node {n['node']}: {n['score']:.2f}{tag}")
+            recs = h["recommendations"]
+            for note in recs["notes"]:
+                print(f"  advisory: {note}")
+            if not recs["notes"]:
+                print("  no advisories", flush=True)
     return record
 
 

@@ -36,6 +36,13 @@ to the wire ledger's held row; an edge older than ``max_staleness`` rounds
 is gated, with its last force absorbed into the dual; the penalties are
 damped by age; nodes still computing keep their rows. The async round
 always runs the edge-gated kernel.
+
+Observability (``ConsensusConfig.obs``, ``repro_torch.obs``): every round
+path returns through ``_finish_round``, which unifies its metrics to
+``obs.schema.ROUND_METRICS`` and, with obs on, appends one row to the
+device metrics ring and one ``[J, n_cols]`` slab to the node ring in
+place, with no host sync; ``record_function`` spans mark the round's
+phases. With obs off the round runs the same launches as without it.
 """
 from __future__ import annotations
 
@@ -55,6 +62,11 @@ from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
                                       init_penalty_state, update_penalty)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
+from repro_torch.obs import node_ring as obs_node_ring
+from repro_torch.obs import ring as obs_ring
+from repro_torch.obs import schema as obs_schema
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ring import ObsConfig
 from repro_torch.optim import adamw as adamw_lib
 from repro_torch.optim import flatten
 from repro_torch.topology import (TopologyConfig, TopologyRuntime,
@@ -82,6 +94,9 @@ class ConsensusConfig:
     # bounded-staleness async executor: None keeps the trainer synchronous;
     # max_staleness=0 makes consensus_step_async the synchronous round
     async_exec: AsyncConfig | None = None
+    # observability: the device metrics rings and the round's spans. None
+    # (or ObsConfig(enabled=False)) leaves the round as it is without them
+    obs: ObsConfig | None = None
 
 
 class TrainState(NamedTuple):
@@ -93,6 +108,8 @@ class TrainState(NamedTuple):
     step: torch.Tensor             # [] int32
     topo: TopologyState            # [J, J] dynamic-topology state
     ledger: Any = None             # WireLedger [deg, J, W] — async only
+    ring: Any = None               # obs.MetricsRing [cap, n_metrics]
+    node_ring: Any = None          # obs.NodeRing [cap, J, n_node_cols]
 
 
 def _roll_into(dst: torch.Tensor, src: torch.Tensor, off: int) -> None:
@@ -146,6 +163,20 @@ class ConsensusTrainer:
         self.block_leaf = torch.as_tensor(table, dtype=torch.int32,
                                           device=self.device)
         self._adj = torch.as_tensor(self.graph.adj, device=self.device)
+        self.obs_cfg = consensus.obs
+        self.obs_on = self.obs_cfg is not None and self.obs_cfg.enabled
+        self.node_ring_on = self.obs_on and self.obs_cfg.with_node_ring
+        self._span = obs_trace.span_factory(
+            self.obs_on and self.obs_cfg.with_spans)
+        # the [J, J] pairs the offsets move payloads between: the async
+        # node ring counts arrivals from it without a host copy per round
+        self._covered = None
+        if self.node_ring_on:
+            covered = np.zeros((self.num_nodes, self.num_nodes), dtype=bool)
+            for off in self.offsets:
+                covered |= np.roll(np.eye(self.num_nodes, dtype=bool), off,
+                                   axis=1)
+            self._covered = torch.as_tensor(covered, device=self.device)
 
     def _check_circulant(self):
         j = self.num_nodes
@@ -178,7 +209,12 @@ class ConsensusTrainer:
             penalty=init_penalty_state(self.ccfg.penalty, j,
                                        device=self.device),
             step=torch.zeros((), dtype=torch.int32, device=self.device),
-            topo=self.topo_rt.init_state(self.device), ledger=ledger)
+            topo=self.topo_rt.init_state(self.device), ledger=ledger,
+            ring=(obs_ring.init_ring(self.obs_cfg.ring_capacity,
+                                     self.device) if self.obs_on else None),
+            node_ring=(obs_node_ring.init_node_ring(
+                self.obs_cfg.ring_capacity, j, self.device)
+                if self.node_ring_on else None))
 
     # ------------------------------------------------------- local steps ----
     def train_step(self, state: TrainState, batch: dict
@@ -218,6 +254,26 @@ class ConsensusTrainer:
         return self.num_nodes > 1 and (step + 1) % self.ccfg.local_steps == 0
 
     # --------------------------------------------------- consensus round ----
+    def _finish_round(self, new: TrainState, metrics: dict,
+                      node_metrics: dict | None = None
+                      ) -> tuple[TrainState, dict]:
+        """Every consensus round's single exit: the schema and the rings.
+
+        Unifies ``metrics`` to the full ``obs.schema.ROUND_METRICS`` key set
+        (every round path returns the same keys) and, with obs on, appends
+        the round's row to the metrics ring and its per-node slab
+        (``node_metrics``, ``[J]`` tensors; missing keys pad to the defined
+        not-applicable values) to the node ring, in place on the device.
+        """
+        metrics = obs_schema.unify_round_metrics(metrics, self.device)
+        if self.obs_on and new.ring is not None:
+            obs_ring.ring_append(new.ring,
+                                 obs_schema.metrics_row(new.step, metrics))
+        if self.node_ring_on and new.node_ring is not None:
+            obs_node_ring.node_ring_append(new.node_ring, obs_schema.node_row(
+                new.step, node_metrics or {}, self.num_nodes))
+        return new, metrics
+
     @torch.no_grad()
     def _probe_losses(self, params: dict, batch: dict) -> torch.Tensor:
         """[J] local objectives f_i at node i's row of ``params``."""
@@ -233,9 +289,10 @@ class ConsensusTrainer:
         dev = self.device
         f32 = torch.float32
         if self.num_nodes <= 1:
-            return state, {"r_max": torch.zeros((), device=dev),
-                           "eta_mean": torch.tensor(self.ccfg.penalty.eta0,
-                                                    device=dev)}
+            return self._finish_round(state, {
+                "r_max": torch.zeros((), device=dev),
+                "eta_mean": torch.tensor(self.ccfg.penalty.eta0,
+                                         device=dev)})
         j = self.num_nodes
         offsets = self.offsets
         deg = len(offsets)
@@ -261,11 +318,14 @@ class ConsensusTrainer:
             live = [bool(gates[rows, (rows + off) % j].sum() > 0)
                     for off in offsets]
 
-        f_self = self._probe_losses(state.params, probe_batch)     # [J]
+        with self._span("consensus/probe"):
+            f_self = self._probe_losses(state.params, probe_batch)  # [J]
 
         # pack in the params' float dtype (bf16 params -> bf16 wire)
-        theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
-        wire = self.codec.encode(theta_flat)
+        with self._span("consensus/pack"):
+            theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
+            with self._span("wire/encode"):
+                wire = self.codec.encode(theta_flat)
 
         # exchange: rolled[d] = torch.roll(wire, -off_d, 0). These are
         # COPIES, never views of theta_flat: the kernel updates theta_flat
@@ -275,11 +335,13 @@ class ConsensusTrainer:
                              device=dev)
         for d, off in enumerate(offsets):
             if live[d]:
-                _roll_into(rolled[d], wire, off)
+                with self._span(f"consensus/exchange/off{off}"):
+                    _roll_into(rolled[d], wire, off)
             else:
                 rolled[d].zero_()
         del wire
-        payloads, dec_scales = self.codec.decode(rolled)
+        with self._span("wire/decode"):
+            payloads, dec_scales = self.codec.decode(rolled)
         wires = payloads.contiguous()                 # [deg, J, total]
         del rolled, payloads
 
@@ -290,12 +352,17 @@ class ConsensusTrainer:
         if dynamic:
             mask_f = topo.mask.to(f32)
             act = torch.zeros((j,), dtype=f32, device=dev)
+            # node ring: the offsets each node consumed a payload on
+            rx = torch.zeros((j,), dtype=f32, device=dev) \
+                if self.node_ring_on else None
         for d, off in enumerate(offsets):
             jidx = (idx + off) % j
             if live[d]:
-                f_off = self._probe_losses(self.codec.unpack(
-                    wires[d], None if dec_scales is None else dec_scales[d]),
-                    probe_batch)
+                with self._span("consensus/probe"):
+                    f_off = self._probe_losses(self.codec.unpack(
+                        wires[d],
+                        None if dec_scales is None else dec_scales[d]),
+                        probe_batch)
             else:                  # a dead offset probes f_self (no forward)
                 f_off = f_self
             e_sym = 0.5 * (eta[idx, jidx] + eta[jidx, idx])             # [J]
@@ -308,6 +375,9 @@ class ConsensusTrainer:
                 w_rows.append(m_off)
                 if kick_on:
                     kick_rows.append(topo.kick[idx, jidx])
+                if rx is not None and live[d]:
+                    consumed = m_off + kick_rows[-1] if kick_on else m_off
+                    rx = rx + (consumed > 0).to(f32)
             # F[i, (i+off) % J] through the static circulant mask
             mask = torch.as_tensor(np.roll(np.eye(j), off, axis=1),
                                    dtype=f32, device=dev)
@@ -334,11 +404,12 @@ class ConsensusTrainer:
                 gated["kick_w"] = torch.stack(kick_rows)
         else:
             eta_node = sym_sum / deg
-        theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-            theta_flat, state.lam, state.theta_bar_prev, wires, scales,
-            e_stack, alpha, sym_sum, eta_node, block_leaf=self.block_leaf,
-            block_size=lay.block_size,
-            scales_per_block=self.dequant_spec.per_block, **gated)
+        with self._span("consensus/fused_round"):
+            theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
+                theta_flat, state.lam, state.theta_bar_prev, wires, scales,
+                e_stack, alpha, sym_sum, eta_node,
+                block_leaf=self.block_leaf, block_size=lay.block_size,
+                scales_per_block=self.dequant_spec.per_block, **gated)
         del wires
 
         # theta_new -> the parameter replicas, in place
@@ -358,11 +429,12 @@ class ConsensusTrainer:
             adj_pen = (adj & alive[:, None] & alive[None, :]) | topo.mask
         else:
             adj_pen = adj
-        penalty_new = update_penalty(
-            self.ccfg.penalty, state.penalty, adj=adj_pen, f_self=f_self,
-            f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
-        topo_new = self.topo_rt.update(topo, penalty=penalty_new,
-                                       r_norm=r_norm) if dynamic else topo
+        with self._span("consensus/penalty"):
+            penalty_new = update_penalty(
+                self.ccfg.penalty, state.penalty, adj=adj_pen,
+                f_self=f_self, f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
+            topo_new = self.topo_rt.update(topo, penalty=penalty_new,
+                                           r_norm=r_norm) if dynamic else topo
         if kick_on:
             # edges the scheduler just gated: park their final consensus
             # force (the symmetrized weight applied THIS round) for the
@@ -390,7 +462,24 @@ class ConsensusTrainer:
             "active_edges": (active_edge_fraction(topo, adj) if dynamic
                              else torch.ones((), device=dev)),
         }
-        return new, metrics
+        node_metrics = None
+        if self.node_ring_on:
+            if not dynamic:        # every offset's payload, every node
+                rx = torch.full((j,), float(deg), device=dev)
+            node_metrics = {
+                "r": r_rep, "s": s_rep, "f_local": f_self,
+                "eta_row_mean": self._eta_row_mean(penalty_new.eta),
+                "alive": (topo.node_alive.to(f32) if dynamic
+                          else torch.ones((j,), dtype=f32, device=dev)),
+                "wire_rx_bytes": rx * float(self.codec.wire_bytes()),
+            }
+        return self._finish_round(new, metrics, node_metrics)
+
+    def _eta_row_mean(self, eta: torch.Tensor) -> torch.Tensor:
+        """[J] mean penalty over each node's graph row."""
+        adj = self._adj
+        return torch.where(adj, eta, 0.0).sum(dim=1) \
+            / torch.clamp_min(adj.sum(dim=1), 1)
 
     # --------------------------------------------- async consensus round ----
     @torch.no_grad()
@@ -426,9 +515,10 @@ class ConsensusTrainer:
         dev = self.device
         f32 = torch.float32
         if self.num_nodes <= 1:
-            return state, {"r_max": torch.zeros((), device=dev),
-                           "eta_mean": torch.tensor(self.ccfg.penalty.eta0,
-                                                    device=dev)}
+            return self._finish_round(state, {
+                "r_max": torch.zeros((), device=dev),
+                "eta_mean": torch.tensor(self.ccfg.penalty.eta0,
+                                         device=dev)})
         acfg = self.async_cfg
         if acfg.max_staleness == 0:
             return self.consensus_step(state, probe_batch)
@@ -485,18 +575,25 @@ class ConsensusTrainer:
                        + gk[1][rows, (rows + off) % j].sum() > 0)
                   for off in offsets]
 
-        f_self = self._probe_losses(state.params, probe_batch)      # [J]
-        theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
-        wire = self.codec.encode(theta_flat)
+        with self._span("consensus/probe"):
+            f_self = self._probe_losses(state.params, probe_batch)  # [J]
+        with self._span("consensus/pack"):
+            theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
+            with self._span("wire/encode"):
+                wire = self.codec.encode(theta_flat)
         # merge: a receiver whose payload landed copies it into its ledger
         # slot (a COPY: a native wire is theta_flat, which the kernel
         # overwrites); the others keep their held row. An offset where
         # nothing landed moves nothing.
         for d, off in enumerate(offsets):
-            for i in np.nonzero(arr_np[d])[0]:
-                ledger.wires[d, i].copy_(wire[(i + off) % j])
+            landed = np.nonzero(arr_np[d])[0]
+            if len(landed):
+                with self._span(f"consensus/exchange/off{off}"):
+                    for i in landed:
+                        ledger.wires[d, i].copy_(wire[(i + off) % j])
         del wire
-        payloads, dec_scales = self.codec.decode(ledger.wires)
+        with self._span("wire/decode"):
+            payloads, dec_scales = self.codec.decode(ledger.wires)
         wires = payloads.contiguous()     # native: the ledger itself
         del payloads
 
@@ -510,9 +607,11 @@ class ConsensusTrainer:
             # probe the payload actually consumed (a held one included); a
             # fully gated, kick-free offset skips the forward pass
             if probed[d]:
-                f_off = self._probe_losses(self.codec.unpack(
-                    wires[d], None if dec_scales is None else dec_scales[d]),
-                    probe_batch)
+                with self._span("consensus/probe"):
+                    f_off = self._probe_losses(self.codec.unpack(
+                        wires[d],
+                        None if dec_scales is None else dec_scales[d]),
+                        probe_batch)
             else:
                 f_off = f_self
             e_sym = w_applied[idx, jidx]
@@ -539,13 +638,14 @@ class ConsensusTrainer:
         held = None if frozen is None else (
             state.lam.index_select(0, frozen),
             state.theta_bar_prev.index_select(0, frozen))
-        theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-            theta_flat, state.lam, state.theta_bar_prev, wires, scales,
-            torch.stack(e_rows), alpha, sym_sum, eta_node,
-            block_leaf=self.block_leaf, block_size=lay.block_size,
-            scales_per_block=self.dequant_spec.per_block,
-            bar_w=torch.stack(w_rows), inv_deg=inv_deg,
-            kick_w=torch.stack(kick_rows))
+        with self._span("consensus/fused_round"):
+            theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
+                theta_flat, state.lam, state.theta_bar_prev, wires, scales,
+                torch.stack(e_rows), alpha, sym_sum, eta_node,
+                block_leaf=self.block_leaf, block_size=lay.block_size,
+                scales_per_block=self.dequant_spec.per_block,
+                bar_w=torch.stack(w_rows), inv_deg=inv_deg,
+                kick_w=torch.stack(kick_rows))
         del wires, scales
 
         # theta_new -> the parameter replicas of the advancing nodes
@@ -566,12 +666,13 @@ class ConsensusTrainer:
         # (the eq. 10 top-up revives them), never on ghost rows
         alive = topo.node_alive
         adj_pen = (adj & alive[:, None] & alive[None, :]) | topo.mask
-        penalty_new = update_penalty(
-            self.ccfg.penalty, state.penalty, adj=adj_pen, f_self=f_self,
-            f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
-        topo_new = self.topo_rt.update(topo, penalty=penalty_new,
-                                       r_norm=r_norm) \
-            if self.dynamic else topo
+        with self._span("consensus/penalty"):
+            penalty_new = update_penalty(
+                self.ccfg.penalty, state.penalty, adj=adj_pen,
+                f_self=f_self, f_nbr=f_nbr, r_norm=r_norm, s_norm=s_norm)
+            topo_new = self.topo_rt.update(topo, penalty=penalty_new,
+                                           r_norm=r_norm) \
+                if self.dynamic else topo
         if self.dynamic and self.topo_cfg.can_gate:
             # park kicks only for edges ACTIVE this round (mask and within
             # the bound): an edge that aged out was absorbed in-round, and
@@ -607,7 +708,21 @@ class ConsensusTrainer:
             "stale_edges": (base_mask & ~live).to(f32).sum() / mask_edges,
             "age_max": torch.where(base_mask, age_s, 0).max(),
         }
-        return new, metrics
+        node_metrics = None
+        if self.node_ring_on:
+            # fresh wire bytes per node: the offsets whose payload landed
+            # this tick (held ledger rows are not paid again), read off the
+            # clock grid on the device
+            rx = (fresh & self._covered).sum(dim=1).to(f32)
+            node_metrics = {
+                "r": r_rep, "s": s_rep, "f_local": f_self,
+                "eta_row_mean": self._eta_row_mean(penalty_new.eta),
+                "age_max": torch.where(base_mask, age_s, 0).amax(dim=1),
+                "alive": topo.node_alive.to(f32),
+                "advance": adv_f,
+                "wire_rx_bytes": rx * float(self.codec.wire_bytes()),
+            }
+        return self._finish_round(new, metrics, node_metrics)
 
     def _freeze_rows(self, advance: torch.Tensor, new: TrainState,
                      old_penalty: PenaltyState, frozen, held) -> TrainState:

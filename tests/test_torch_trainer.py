@@ -174,9 +174,17 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch.train import parse_args
-    for flag in (["--obs-dir", "x"], ["--mesh", "debug"]):
+    for flag in (["--ckpt-dir", "x"], ["--mesh", "debug"],
+                 ["--health"]):      # --health needs --obs-dir
         with pytest.raises(SystemExit):
             parse_args(flag)
+    # the obs flags are ported
+    args = parse_args(["--obs-dir", "x", "--health", "--obs-ring-cap", "4",
+                       "--obs-drain-every", "2", "--no-node-ring",
+                       "--profile-rounds", "1"])
+    assert (args.obs_dir, args.health, args.obs_ring_cap,
+            args.obs_drain_every, args.no_node_ring,
+            args.profile_rounds) == ("x", True, 4, 2, True, 1)
     # the async executor is ported: its flags parse, with the reference's
     # default bound
     args = parse_args(["--async", "--slow-node", "0:2.0"])
