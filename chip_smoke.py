@@ -203,6 +203,54 @@ with the obs rings appended in each round):
               card's state. Step, age, liveness, advance and wire-byte
               columns equal; the rest within 1e-3; journal events equal.
 
+The model zoo (after phase 12; every arch of the reference beyond qwen3-4b
+and rwkv6-7b, random weights from seed 0, bf16; each phase prints its
+seconds):
+
+ 20. zflash — the flash kernels at the zoo's shapes no earlier phase
+              launches, as phase 9 holds and times them: the CUDA-core
+              kernel at hd 80 (stablelm-3b: B 4, S 512, 32/32 heads) and
+              hd 112 (kimi-k2: 64 heads after the model's repeat), bf16
+              and f32, and the tensor-core kernel at hymba's 25 heads of
+              64 with a window of 1024 at S 2048. The build phase prints
+              the hd 80 and 112 instantiations' registers, spills, output
+              columns a thread and dynamic shared bytes.
+ 21. zserve — ``launch.serve.run`` on glm4-9b, qwen2-7b, stablelm-3b,
+              moonshot-v1-16b-a3b, kimi-k2-1t-a32b (1 layer of 61: the
+              whole model does not fit one card), musicgen-large and
+              llava-next-mistral-7b (the frontend stubs serve random
+              embeddings) at batch 4, prompt 512, and hymba-1.5b at prompt
+              1280 (past its window of 1024, so the prefill's window binds
+              and the decode's ring wraps), 8 generated tokens, one after
+              the other. Counters from
+              0: the prefill launches the flash kernel once per layer, on
+              the route ``kernels.flash_attention.route`` gives its head
+              dim (stablelm-3b and kimi-k2 the CUDA-core kernel, the rest
+              the tensor-core one), the decode none; every logit finite;
+              layer 0's attention on the served prompt's activations
+              through the kernel against the plain version (2e-2 of
+              max(1, max|out|)). Prints prefill ms, decode ms per token,
+              the kernel's device ms in the served prefill (CUDA events
+              around each launch), the peak memory and
+              ``Model.param_count`` beside the configs' reckoning.
+ 22. ztrain — ``launch.train.run`` at full width with depth cut
+              (``ZOO_TRAIN_LAYERS``: glm4-9b, qwen2-7b and moonshot 1
+              layer, llava 4, stablelm-3b and musicgen 8, hymba 4,
+              rwkv6-7b 2): 2 nodes, ring, nap, eta0 0.1, native wire, lr
+              3e-4, 4 x 512 tokens a node, 4 steps with a round after
+              every second one (the frontend stubs train on embeddings).
+              Every round launches the ungated kernel once, no other
+              kernel runs; its device time per round (CUDA events around
+              the launch) is printed beside its byte bound, with the step
+              seconds, wire bytes, losses and peak memory. kimi-k2 does
+              not train on the card (about 450 GB of training state for
+              its embedding and one layer).
+ 23. zagree — each zoo arch and rwkv6-7b, reduced, float32, on the card
+              against the CPU from the same weights: served logits within
+              1e-4 of their largest magnitude and tokens equal; one local
+              step and one round: loss, r_max and eta to 1e-3, the duals
+              to 5e-3 of their norm.
+
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
 """
@@ -255,6 +303,43 @@ OBS_DYN_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
                 "4", "--seq", "512", "--lr", "3e-4", "--device", DEV]
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen-len", "32",
               "--device", DEV]
+# the model zoo (phases 20-23): the archs beyond qwen3-4b and rwkv6-7b
+ZOO = ("glm4-9b", "qwen2-7b", "stablelm-3b", "moonshot-v1-16b-a3b",
+       "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b",
+       "llava-next-mistral-7b")
+ZOO_HEAD_DIMS = (80, 112)           # new to the CUDA-core flash kernel
+# phase 21: (layers, prompt length); None keeps the full depth. kimi-k2's
+# 61 layers (1.03 T parameters) do not fit one card: its embedding, one
+# layer and its head are 19.4 B parameters, 38.8 GB in bf16. hymba's window
+# of 1024 binds only past 1024 tokens: at 1280 the prefill's window binds
+# and the decode's ring wraps by 256 positions (its replay, a step of eager
+# launches per token, takes 1.6x as long at 2048; phase 20 runs the kernel
+# at 2048)
+ZOO_SERVE = {arch: (None, 512) for arch in ZOO}
+ZOO_SERVE["kimi-k2-1t-a32b"] = (1, 512)
+ZOO_SERVE["hymba-1.5b"] = (None, 1280)
+ZOO_GEN = 8                         # generated tokens per served arch
+# billions of parameters at those depths, reckoned from the configs
+# before the port counted them (printed beside Model.param_count)
+ZOO_PARAMS_B = {"glm4-9b": 9.40, "qwen2-7b": 7.61, "stablelm-3b": 2.80,
+                "moonshot-v1-16b-a3b": 28.05, "kimi-k2-1t-a32b": 19.38,
+                "musicgen-large": 3.23, "hymba-1.5b": 1.39,
+                "llava-next-mistral-7b": 7.24}
+# phase 22: layers at full width, so that two replicas with f32 AdamW
+# moments and the f32 dual and neighbour-mean rows fit in 80 GB (about 23
+# bytes per parameter per node with the activations, as the static
+# training slice measured).
+# kimi-k2 does not train on the card: its embedding and one layer are
+# 19.4 B parameters a node, about 450 GB of training state. hymba is cut to
+# 4 layers for time, not memory: its SSM loop is an eager step per token
+# in every layer, so a local step's time grows with the depth.
+ZOO_TRAIN_LAYERS = {"glm4-9b": 1, "qwen2-7b": 1, "moonshot-v1-16b-a3b": 1,
+                    "llava-next-mistral-7b": 4, "stablelm-3b": 8,
+                    "rwkv6-7b": 2, "musicgen-large": 8, "hymba-1.5b": 4}
+ZOO_TRAIN_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
+                  "--eta0", "0.1", "--wire-codec", "native",
+                  "--local-steps", "2", "--steps", "4", "--batch-per-node",
+                  "4", "--seq", "512", "--lr", "3e-4", "--device", DEV]
 SOURCES = ("consensus_round", "consensus_update", "flash_attention",
            "flash_attention_tc", "rwkv6_scan")
 # the round wrapper's launch counters
@@ -2567,6 +2652,344 @@ def scale_sfm(card_line, frames=300, points=20000, iters=50):
           flush=True)
 
 
+# -- the model zoo: phases 20-23 --------------------------------------------
+def zoo_flash(card_line):
+    """Phase 20: the flash kernels at the zoo's shapes no earlier phase
+    launches, each against its plain version under phase 9's bounds and
+    timed beside the library and the bound: the CUDA-core kernel at
+    stablelm-3b's hd 80 (32/32 heads) and kimi-k2's hd 112 (64 heads after
+    the model's repeat), bf16 and f32; the tensor-core kernel at hymba's
+    25 heads of 64 with a window of 1024 at S 2048."""
+    out = {}
+    for hd, h, seed in ((80, 32, 51), (112, 64, 53)):
+        for dtype in ("bfloat16", "float32"):
+            rec = flash_case(f"hd{hd} {dtype}", card_line, h=h, kv=h, hd=hd,
+                             dtype=dtype, seed=seed + (dtype == "float32"))
+            check(rec["route"] == "cc", f"flash hd{hd} {dtype}: routed to "
+                  f"{rec['route']}, want the CUDA-core kernel")
+            out[f"hd{hd}_{dtype}"] = rec
+    rec = flash_case("hymba", card_line, h=25, kv=25, hd=64, s=2048,
+                     window=1024, seed=55)
+    check(rec["route"] == "tc", f"flash hymba: routed to {rec['route']}")
+    out["hymba"] = rec
+    return out
+
+
+def zoo_config(arch, layers):
+    """``arch``'s full-width config, cut to ``layers`` unless None."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def zoo_layer_check(cfg, params, batch) -> float:
+    """Phase 21: the first layer's attention on the served prompt's own
+    activations, through ``ops.flash_attention`` (the routed kernel) against
+    the plain attention evaluated in f32 and cast to bf16, within phase 9's
+    bf16 bound of 2e-2 (of max|out| where that exceeds 1). The launch is a
+    check, not the path: the counters are put back."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
+    from repro_torch.models.transformer import _layer
+    with torch.inference_mode():
+        x = (batch["embeds"] if "embeds" in batch
+             else embed_tokens(params, batch["tokens"])).to(torch.bfloat16)
+        lp = _layer(params, 0)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
+        q, k, v = attn_lib._project_qkv(cfg, lp["attn"], h)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        n_rep = q.shape[2] // k.shape[2]
+        k, v = attn_lib._repeat_kv(k, n_rep), attn_lib._repeat_kv(v, n_rep)
+        before = (ops.flash_attention.launches,
+                  ops.flash_attention.tc_launches)
+        got = ops.flash_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window)
+        torch.cuda.synchronize()
+        ops.flash_attention.launches, ops.flash_attention.tc_launches = \
+            before
+        want = attn_lib.flash_ref(q.float(), k.float(), v.float(),
+                                  causal=True, window=cfg.sliding_window)
+        err = float((got.float() - want).abs().max())
+        scale = float(want.abs().max())
+    tol = 2e-2 * max(1.0, scale)
+    check(got.dtype == torch.bfloat16 and err <= tol,
+          f"zoo serve {cfg.arch_id}: layer 0's attention through the kernel "
+          f"differs from the plain version by {err:.3g} (max|out| "
+          f"{scale:.3g}, bound {tol:.3g})")
+    return err
+
+
+def zoo_serve(arch, card_line):
+    """Phase 21: ``launch.serve.run`` at full width (kimi-k2 at one layer)
+    with every counter from 0: the prefill launches the routed flash kernel
+    once per layer and nothing else, the decode none; every logit finite;
+    the kernel on layer 0's activations against the plain version. The
+    kernel's device time in the served prefill comes from CUDA events
+    around each of its launches (a profiler trace of hymba's prefill, some
+    400,000 launches of its SSM loop, took longer than the run). Returns
+    the launches and times."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    layers, prompt = ZOO_SERVE[arch]
+    cfg = zoo_config(arch, layers)
+    args = serve.parse_args(["--arch", arch, "--batch", "4", "--prompt-len",
+                             str(prompt), "--gen-len", str(ZOO_GEN),
+                             "--device", DEV])
+    route = fa.route(torch.bfloat16, cfg.head_dim)
+    n = cfg.n_layers
+    launch, timed = fa.launch, []
+
+    def timed_launch(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = launch(*a, **kw)
+        ev[1].record()
+        timed.append(ev)
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    fa.launch = timed_launch
+    try:
+        t0 = time.perf_counter()
+        record = serve.run(cfg, args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        fa.launch = launch
+    counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in all_counters()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention.launches"] = n
+    want["flash_attention.tc_launches"] = n if route == "tc" else 0
+    check(counts == want, f"zoo serve {arch}: launches {counts}, want {want}")
+    check(record["prefill_launches"]["flash_attention"] == n
+          and not any(record["decode_launches"].values()) and len(timed) == n,
+          f"zoo serve {arch}: prefill launches {record['prefill_launches']}, "
+          f"decode launches {record['decode_launches']}, {len(timed)} timed")
+    logits = record["prefill_logits"]
+    b, s = args.batch, args.prompt_len
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        logits, record["replay_logits"], record["step_logits"]))
+    check(tuple(logits.shape) == (b, s, cfg.vocab) and finite,
+          f"zoo serve {arch}: prefill logits {tuple(logits.shape)}, all "
+          f"finite {finite}")
+    toks = record["tokens"]
+    check(tuple(toks.shape) == (b, ZOO_GEN) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab,
+          f"zoo serve {arch}: tokens {tuple(toks.shape)}")
+    in_prefill = [x.elapsed_time(y) for x, y in timed]
+    layer_err = zoo_layer_check(cfg, record["params"], record["batch"])
+    count = build_model(cfg).param_count()
+    print(f"zoo serve {arch}: {n} layers at full width "
+          f"({count / 1e9:.2f} B parameters; reckoned "
+          f"{ZOO_PARAMS_B[arch]:.2f} B), batch {b}, prompt {s}, {ZOO_GEN} "
+          f"tokens; flash launches {n}, "
+          f"{counts['flash_attention.tc_launches']} on the tensor-core "
+          f"kernel ({route} route, hd {cfg.head_dim}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, window "
+          f"{cfg.sliding_window}); prefill {record['prefill_ms']:.2f} ms, "
+          f"decode {record['decode_ms_per_token']:.3f} ms per token, "
+          f"{wall_s:.1f} s in all (replay included); flash in the prefill "
+          f"median {np.median(in_prefill):.4f} ms, sum "
+          f"{sum(in_prefill):.3f} ms; layer 0's attention kernel vs plain "
+          f"{layer_err:.3g}; peak memory {peak_gb:.2f} GB [{card_line}]",
+          flush=True)
+    out = dict(launches=n, route=route, param_count=count,
+               in_prefill_ms=float(np.median(in_prefill)),
+               in_prefill_sum_ms=float(sum(in_prefill)),
+               prefill_ms=record["prefill_ms"],
+               decode_ms=record["decode_ms_per_token"], peak_gb=peak_gb,
+               seconds=wall_s)
+    del record, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train(arch, card_line):
+    """Phase 22: ``launch.train.run`` at full width with depth cut
+    (``ZOO_TRAIN_LAYERS``): 2 nodes, ring, nap, native wire, 4 steps of 4 x
+    512 tokens per node with a round after every second one. Every round
+    launches the ungated kernel once (counters from 0) and none other; its
+    device time in each round comes from CUDA events around the launch,
+    beside its byte bound. Returns the launches and times."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    cfg = zoo_config(arch, ZOO_TRAIN_LAYERS[arch])
+    args = train_lib.parse_args(["--arch", arch] + ZOO_TRAIN_ARGS)
+    n_rounds = args.steps // args.local_steps
+    launch, timed = ops._cu.launch, []
+
+    def timed_launch(theta, lam, bar_prev, wires, scales, e_sym, *rest,
+                     **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        bound = round_bound(theta, lam, bar_prev, wires, scales, e_sym,
+                            rest[3])[0]
+        a.record()
+        out = launch(theta, lam, bar_prev, wires, scales, e_sym, *rest, **kw)
+        b.record()
+        timed.append((a, b, bound))
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    ops._cu.launch = timed_launch
+    try:
+        t0 = time.perf_counter()
+        record = train_lib.run(cfg, args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        ops._cu.launch = launch
+    launches, masked, per_block = (getattr(ops.consensus_round, c)
+                                   for c in COUNTS)
+    others = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+              for obj, attr in all_counters()[3:]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, rounds = record["losses"], record["rounds"]
+    check(len(losses) == args.steps and all(map(math.isfinite, losses)),
+          f"zoo train {arch}: losses {losses}")
+    check(len(rounds) == n_rounds and all(
+        math.isfinite(r["r_max"]) and math.isfinite(r["eta_mean"])
+        for r in rounds), f"zoo train {arch}: rounds {rounds}")
+    check(launches == n_rounds and masked == 0 and per_block == 0
+          and len(timed) == n_rounds and not any(others.values()),
+          f"zoo train {arch}: {launches} ungated, {masked} gated, "
+          f"{per_block} per-block launches in {n_rounds} rounds, others "
+          f"{others} (training runs no attention or scan kernel)")
+    kernel_ms = [a.elapsed_time(b) for a, b, _ in timed]
+    bound_ms = timed[0][2]
+    steps = record["step_seconds"]
+    layout = record["layout"]
+    count = build_model(cfg).param_count()
+    print(f"zoo train {arch}: {cfg.n_layers} layers at full width, {count} "
+          f"parameters per node, {layout.total} elements per node row, "
+          f"{len(rounds)} rounds, ungated launches {launches}; local steps "
+          + " ".join(f"{t:.3f}" for t in steps[0::2]) + " s, round steps "
+          + " ".join(f"{t:.3f}" for t in steps[1::2]) + " s (rounds alone "
+          + " ".join(f"{r['seconds']:.3f}" for r in rounds) + " s); "
+          "consensus_round " + " ".join(f"{t:.3f}" for t in kernel_ms)
+          + f" ms in rounds, bound {bound_ms:.3f} ms (bytes); wire "
+          f"{record['wire_bytes']} bytes per node per offset; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; other kernels {others}; peak memory {peak_gb:.2f} GB; "
+          f"{wall_s:.1f} s [{card_line}]", flush=True)
+    del record
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, in_round_ms=float(np.median(kernel_ms)),
+                bound_ms=bound_ms, peak_gb=peak_gb, seconds=wall_s)
+
+
+def zoo_agree(arch) -> None:
+    """Phase 23: the reduced float32 arch on the card against the same on
+    the CPU from the same weights: served prefill, replay and step logits
+    within 1e-4 of their largest magnitude and greedy tokens equal (the
+    card's prefill launching the kernel once per layer); then one local step
+    and one consensus round (J 2, ring, nap): loss and eta to rtol 1e-3, and
+    the duals to 5e-3 of their norm (one AdamW step moves a parameter by
+    about lr times its gradient's sign, so where a gradient cancels to
+    round-off the two devices move it differently: see
+    tests/test_torch_zoo.py)."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.penalty import PenaltyConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.model import stub_embeds
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    s = 40 if cfg.sliding_window else 32      # past hymba's window of 32
+    g = torch.Generator().manual_seed(1)
+    stub = cfg.frontend != "none"
+    if stub:
+        inputs = dict(embeds=stub_embeds(cfg, (4, s), g, "cpu"))
+        table = stub_embeds(cfg, (cfg.vocab, 4), g, "cpu")
+    else:
+        inputs = dict(prompts=torch.randint(0, cfg.vocab, (4, s),
+                                            generator=g))
+    recs = {}
+    for dev in (DEV, "cpu"):
+        args = serve.parse_args(["--device", dev, "--prompt-len", str(s),
+                                 "--gen-len", "8"])
+        kw = {k: v.to(dev) for k, v in inputs.items()}
+        if stub:
+            kw["step_embed"] = (lambda tok, d=dev:
+                                table[int(tok[0])].to(d))
+        recs[dev] = serve.run(cfg, args, params=tree_lib.tree_map(
+            lambda a, d=dev: a.to(d), params), **kw)
+    kernel = "rwkv6_scan" if cfg.rwkv else "flash_attention"
+    check(recs[DEV]["prefill_launches"][kernel] == cfg.n_layers,
+          f"zoo agree {arch}: prefill launches "
+          f"{recs[DEV]['prefill_launches']}")
+    check(torch.equal(recs[DEV]["tokens"].cpu(), recs["cpu"]["tokens"]),
+          f"zoo agree {arch}: tokens differ")
+    worst = 0.0
+    for key in ("prefill_logits", "replay_logits", "step_logits"):
+        a, b = recs[DEV][key].cpu(), recs["cpu"][key]
+        worst = max(worst, float((a - b).abs().max()) / float(b.abs().max()))
+    check(worst <= 1e-4, f"zoo agree {arch}: logits differ by {worst:.3g} "
+          "of their largest magnitude")
+    rounds = {}
+    for dev in (DEV, "cpu"):
+        tr = ConsensusTrainer(
+            model, num_nodes=2, device=dev, adamw=AdamWConfig(lr=1e-2),
+            consensus=ConsensusConfig(
+                penalty=PenaltyConfig(scheme="nap", eta0=0.1),
+                topology="ring", local_steps=1))
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          batch_per_node=4, num_nodes=2),
+                               device=dev)
+
+        def make_batch(step, data=data):
+            return (data.embeds_batch(step, cfg.d_model) if stub
+                    else data.batch(step))
+
+        state = tr.init_state(params)
+        state, m = tr.train_step(state, make_batch(0))
+        state, cm = tr.consensus_step(state, make_batch(10**6))
+        rounds[dev] = (float(m["loss"]), float(cm["r_max"]),
+                       state.penalty.eta.cpu(), state.lam.cpu())
+    (l_c, r_c, eta_c, lam_c), (l_h, r_h, eta_h, lam_h) = (rounds[DEV],
+                                                          rounds["cpu"])
+    lam_rel = float((lam_c - lam_h).norm() / lam_h.norm())
+    eta_rel = float(((eta_c - eta_h).abs() / eta_h.abs()).max())
+    check(abs(l_c - l_h) <= 1e-3 * abs(l_h) and abs(r_c - r_h) <= 1e-3 * r_h
+          and eta_rel <= 1e-3 and lam_rel <= 5e-3,
+          f"zoo agree {arch}: loss {l_c} vs {l_h}, r_max {r_c} vs {r_h}, "
+          f"eta {eta_rel:.3g}, lam {lam_rel:.3g} (relative)")
+    print(f"zoo agree {arch}: reduced float32, card vs cpu: serve tokens "
+          f"equal, logits within {worst:.3g} of their largest magnitude; one "
+          f"round: loss {abs(l_c - l_h) / abs(l_h):.3g}, r_max "
+          f"{abs(r_c - r_h) / r_h:.3g}, eta {eta_rel:.3g}, lam {lam_rel:.3g} "
+          "(relative)", flush=True)
+
+
 def build_phase():
     """Phase 2: build every source (one nvcc each, all started together),
     print each kernel's registers and spills (nvcc's -Xptxas -v) and its
@@ -2579,7 +3002,7 @@ def build_phase():
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, rec in built.items():
-        regs, spills, kern = [], [], None
+        regs, spills, kern, kern_regs = [], [], None, {}
         for ln in rec["log"].splitlines():
             m = re.search(r"Function properties for (\S+)", ln)
             if m:
@@ -2587,6 +3010,7 @@ def build_phase():
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 regs.append(int(m.group(1)))
+                kern_regs[kern] = int(m.group(1))
             if "spill" in ln and " 0 bytes spill stores" not in ln:
                 spills.append(f"{kern}: {ln.strip()}")
         if regs:
@@ -2595,6 +3019,19 @@ def build_phase():
                   flush=True)
         for ln in spills:
             print(f"  {name}: {ln}")
+        if name == "flash_attention":
+            # the zoo's head dims on the CUDA-core kernel: hd / 16 output
+            # columns a thread, and the dynamic shared memory of its padded
+            # q and k rows, v rows and p tile
+            for hd in ZOO_HEAD_DIMS:
+                smem = 4 * (64 * (hd + 1) * 2 + 64 * hd + 64 * 65)
+                for kn in sorted(k for k in kern_regs
+                                 if k.endswith(f",{hd}>")):
+                    spilled = any(x.startswith(kn + ":") for x in spills)
+                    print(f"  {kn}: {kern_regs[kn]} registers per thread, "
+                          f"{'spills' if spilled else 'no spills'}, "
+                          f"{hd // 16} output columns a thread, {smem} "
+                          "dynamic shared bytes a block", flush=True)
     # what the kernels were compiled to: tensor-core products, asynchronous
     # copies and mbarrier operations, counted in each kernel's SASS
     sass = {}
@@ -2779,6 +3216,23 @@ def main() -> int:
     for arch in ("qwen3-4b", "rwkv6-7b"):
         agree_serve_with_cpu(arch)
 
+    # -- 20-23. the model zoo ----------------------------------------------
+    t0 = time.perf_counter()
+    zflash = zoo_flash(card_line)
+    t1 = time.perf_counter()
+    zserve = {arch: zoo_serve(arch, card_line) for arch in ZOO}
+    t2 = time.perf_counter()
+    ztrain = {arch: zoo_train(arch, card_line) for arch in ZOO_TRAIN_LAYERS}
+    print("zoo train kimi-k2-1t-a32b: not on the card (its embedding and "
+          "one layer are 19.4 B parameters a node, about 450 GB of training "
+          "state); it trains at reduced size on the CPU only", flush=True)
+    t3 = time.perf_counter()
+    for arch in ZOO + ("rwkv6-7b",):
+        zoo_agree(arch)
+    print(f"zoo: phase 20 {t1 - t0:.1f} s, 21 {t2 - t1:.1f} s, 22 "
+          f"{t3 - t2:.1f} s, 23 {time.perf_counter() - t3:.1f} s",
+          flush=True)
+
     # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
     t0 = time.perf_counter()
     paper_phases(card_line)
@@ -2791,8 +3245,16 @@ def main() -> int:
     ref_file = "src/repro/kernels/consensus_update.py"
     kernels = [
         kernel_entry("consensus_round", src + "consensus_round.cu",
-                     f"{ref_file}:141", static["launches"], full_numbers,
-                     in_round_ms=static["in_round_ms"]),
+                     f"{ref_file}:141",
+                     static["launches"] + sum(
+                         z["launches"] for z in ztrain.values()),
+                     full_numbers, in_round_ms=static["in_round_ms"],
+                     zoo_launches={a: z["launches"]
+                                   for a, z in ztrain.items()},
+                     zoo_in_round_ms={a: z["in_round_ms"]
+                                      for a, z in ztrain.items()},
+                     zoo_bound_ms={a: z["bound_ms"]
+                                   for a, z in ztrain.items()}),
         kernel_entry("consensus_round_masked", src + "consensus_round.cu",
                      f"{ref_file}:221",
                      dyn["launches"] + asy["launches"] + obs_dyn + obs_async,
@@ -2810,14 +3272,25 @@ def main() -> int:
                      f"{ref_file}:74", flat["launches"], flat),
         kernel_entry("flash_attention", src + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:26",
-                     serve_qwen["launches"], flash,
+                     serve_qwen["launches"] + sum(
+                         z["launches"] for z in zserve.values()), flash,
                      library_ms=flash["library_ms"],
                      in_prefill_ms=serve_qwen["in_prefill_ms"],
                      cuda_core_ms=flash["cc_ms"],
                      f32_source=src + "flash_attention.cu",
                      f32_ms=flash_f32["ms"],
                      f32_max_abs_err=flash_f32["max_abs_err"],
-                     sass=tc_sass),
+                     sass=tc_sass,
+                     zoo_launches={a: z["launches"]
+                                   for a, z in zserve.items()},
+                     zoo_tc_launches={a: z["launches"] * (z["route"] == "tc")
+                                      for a, z in zserve.items()},
+                     zoo_in_prefill_ms={a: z["in_prefill_ms"]
+                                        for a, z in zserve.items()},
+                     zoo_shapes={k: {f: v[f] for f in (
+                         "route", "max_abs_err", "ms", "plain_ms",
+                         "library_ms", "bound_ms", "bound_by")}
+                         for k, v in zflash.items()}),
         kernel_entry("rwkv6_scan", src + "rwkv6_scan.cu",
                      "src/repro/kernels/rwkv6_scan.py:30",
                      serve_rwkv["launches"], scan,

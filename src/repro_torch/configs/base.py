@@ -2,9 +2,9 @@
 ``repro/configs/base.py``).
 
 ``ArchConfig`` describes a transformer-family model precisely enough to
-build it; each ported architecture registers itself via ``register``. Only
-the architectures whose slice has been ported are loaded; asking for
-another raises ``NotImplementedError``.
+build it; each of the reference's ten architectures has its own file next
+to this module and registers itself via ``register``. Asking for an
+unknown architecture raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -72,7 +72,6 @@ ARCH_IDS = (
     "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b", "rwkv6-7b",
     "llava-next-mistral-7b",
 )
-PORTED_ARCH_IDS = ("qwen3-4b", "rwkv6-7b")
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, Callable[[], ArchConfig]] = {}
@@ -85,9 +84,6 @@ def register(cfg: ArchConfig, reduced: Callable[[], ArchConfig]):
 
 
 def _check(arch_id: str) -> None:
-    if arch_id in ARCH_IDS and arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported; ported: {PORTED_ARCH_IDS}")
     _ensure_loaded()
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
@@ -111,7 +107,7 @@ def _ensure_loaded():
     global _LOADED
     if _LOADED:
         return
-    for arch in PORTED_ARCH_IDS:
+    for arch in ARCH_IDS:
         importlib.import_module(
             f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     _LOADED = True

@@ -63,3 +63,25 @@ class SyntheticTokens:
         return {k: torch.from_numpy(v).to(device=self.device,
                                           dtype=self.dtype)
                 for k, v in self.batch_numpy(step, probe=probe).items()}
+
+    def embeds_batch_numpy(self, step: int, d_model: int, *,
+                           probe: bool = False) -> dict:
+        """Frontend-stub variant, as the reference draws it: {embeds:
+        [J, B, S, d_model] float32 (precomputed frame or patch
+        embeddings), labels: [J, B, S] int32}."""
+        labels = self.batch_numpy(step, probe=probe)["labels"]
+        cfg = self.cfg
+        rng = np.random.default_rng(cfg.seed * 13 + step
+                                    + (7 if probe else 0))
+        emb = rng.normal(size=(cfg.num_nodes, cfg.batch_per_node,
+                               cfg.seq_len, d_model)).astype(np.float32)
+        return {"embeds": emb, "labels": labels}
+
+    def embeds_batch(self, step: int, d_model: int, *,
+                     probe: bool = False) -> dict:
+        """``embeds_batch_numpy`` as tensors on the source's device (the
+        labels in the source's integer dtype)."""
+        b = self.embeds_batch_numpy(step, d_model, probe=probe)
+        return {"embeds": torch.from_numpy(b["embeds"]).to(self.device),
+                "labels": torch.from_numpy(b["labels"]).to(
+                    device=self.device, dtype=self.dtype)}

@@ -28,9 +28,10 @@
 // rate: bytes bound it on this card. This kernel computes in f32 on the
 // CUDA cores, the TPU kernel's arithmetic; at the card's 67 TFLOP/s f32 rate
 // the same products take at least 0.13 ms, so it cannot reach the bound.
-// It takes float32 inputs, and bf16 at head dims 16 and 32; bf16 at 64 and
-// 128 goes to the tensor-core kernel, flash_attention_tc.cu, which rounds p
-// to bf16 (kernels/flash_attention.py:route).
+// It takes float32 inputs, and bf16 at head dims 16, 32, 80 and 112 (hd 80
+// is stablelm-3b's, 112 kimi-k2's); bf16 at 64 and 128 goes to the
+// tensor-core kernel, flash_attention_tc.cu, which rounds p to bf16
+// (kernels/flash_attention.py:route).
 //
 // Design. Grid (query tiles of 64, H, B); 256 threads as 16 x 16. A block
 // keeps its 64 x hd query tile in shared memory and streams 64-key tiles of
@@ -39,12 +40,14 @@
 // piece of the 64 x 64 logits (rows 4 ty + i, keys tx + 16 j), reduces the
 // row max and sum over the 16 threads of its row group with shuffles, keeps
 // m and l for its 4 rows, writes p to shared memory, and accumulates its
-// 4 x hd/16 piece of the output (columns tx + 16 c). The inputs are read
-// through strides (batch, sequence, head; the head dim is contiguous), so
+// 4 x hd/16 piece of the output (columns tx + 16 c; hd 80 and 112 give 5
+// and 7 columns a thread). The inputs are read through strides (batch,
+// sequence, head; the head dim is contiguous), so
 // the model layout [B, S, H, hd] and the head-major one take the same kernel
 // without a transposed copy. At hd 128 a block holds 115 KB of shared
-// memory (dynamic, opted in). Built without -fmad=false: the products are
-// sums in an order the plain version does not fix anyway.
+// memory (dynamic, opted in), at hd 112 103 KB, at hd 80 79 KB. Built
+// without -fmad=false: the products are sums in an order the plain version
+// does not fix anyway.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,6 +240,8 @@ int launch_t(const FlashArgs& a, int hd, int batch, cudaStream_t st) {
     case 16: return launch_hd<T, 16>(a, batch, st);
     case 32: return launch_hd<T, 32>(a, batch, st);
     case 64: return launch_hd<T, 64>(a, batch, st);
+    case 80: return launch_hd<T, 80>(a, batch, st);
+    case 112: return launch_hd<T, 112>(a, batch, st);
     case 128: return launch_hd<T, 128>(a, batch, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -244,11 +249,12 @@ int launch_t(const FlashArgs& a, int hd, int batch, cudaStream_t st) {
 
 }  // namespace
 
-// kind: 0 = float32, 1 = bfloat16 (q, k, v and out alike). hd: 16, 32, 64
-// or 128. strides: 12 element strides, (batch, seq, head) for q, k, v and
-// out in that order; the head dim is contiguous. heads must be a multiple
-// of kv_heads. Returns a cudaError_t: the launch's own (cudaGetLastError)
-// or cudaErrorInvalidValue for arguments the kernel does not take.
+// kind: 0 = float32, 1 = bfloat16 (q, k, v and out alike). hd: 16, 32, 64,
+// 80, 112 or 128. strides: 12 element strides, (batch, seq, head) for q, k,
+// v and out in that order; the head dim is contiguous. heads must be a
+// multiple of kv_heads. Returns a cudaError_t: the launch's own
+// (cudaGetLastError) or cudaErrorInvalidValue for arguments the kernel does
+// not take.
 extern "C" int flash_attention_launch(
     int kind, int hd, int batch, int heads, int kv_heads, int seq,
     int causal, int window, const void* q, const void* k, const void* v,

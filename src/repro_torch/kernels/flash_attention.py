@@ -13,7 +13,7 @@ Which kernel runs is a rule on the inputs' dtype and head dim, ``route``:
 bf16 at head dim 64 or 128 goes to the tensor-core kernel
 (``flash_attention_tc.cu``: wgmma in bf16 with f32 sums, p rounded to bf16
 for the p.v product, K/V streamed by TMA); everything else (float32, and
-bf16 at head dim 16 or 32) goes to the CUDA-core kernel
+bf16 at head dim 16, 32, 80 or 112) goes to the CUDA-core kernel
 (``flash_attention.cu``: f32 arithmetic, the TPU kernel's). The rule is not
 a fallback: a kernel that fails to build or launch raises, and the other is
 never tried.
@@ -33,7 +33,7 @@ import torch
 from repro_torch.kernels import build
 
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 TC_HEAD_DIMS = (64, 128)        # the tensor-core kernel's, in bf16
 # (batch, seq, head) axes of each layout
 LAYOUTS = {"bshd": (0, 1, 2), "bhsd": (0, 2, 1)}
@@ -120,7 +120,8 @@ def launch(q, k, v, *, causal: bool, window: int, layout: str = "bshd",
 
     q: [B, S, H, hd] (``layout="bshd"``) or [B, H, S, hd] (``"bhsd"``);
     k, v: the same with K heads, H a multiple of K. float32 or bfloat16,
-    one dtype and one CUDA device for all three; hd 16, 32, 64 or 128; the
+    one dtype and one CUDA device for all three; hd 16, 32, 64, 80, 112 or
+    128; the
     head dim contiguous (any strides elsewhere, but see ``plan`` for the
     tensor-core kernel's). ``kernel="cc"`` runs the CUDA-core kernel on
     inputs that ``route`` sends to the tensor-core one, to time the two on

@@ -4,10 +4,17 @@ topology, or bounded-staleness async rounds (``--async``).
 
 Every node row lives on one device (``--device``, CUDA unless ``cpu`` is
 asked for), so ``--nodes`` takes the place of the reference's ``--mesh``.
+Every arch of the reference trains: the audio and vision archs on the
+frontend stubs' embeddings (``SyntheticTokens.embeds_batch``), rwkv6 on the
+plain per-step recurrence (the scan kernel has no backward, as in the
+reference).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 8 --scheme nap --local-steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch moonshot-v1-16b-a3b --reduced --steps 4 --local-steps 2 \\
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 10 --local-steps 2 --nodes 4 --topology complete \\
       --topo-scheduler round_robin --drop-node 5:1 --device cpu
@@ -153,10 +160,6 @@ def run(cfg: ArchConfig, args) -> dict:
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state."""
-    if cfg.rwkv:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the RWKV6 archs is not ported yet "
-            "(serving them is: repro_torch.launch.serve)")
     device = resolve_device(args.device)
     model = build_model(cfg)
     drop_at, drop_victim = (-1, -1)
@@ -188,6 +191,13 @@ def run(cfg: ArchConfig, args) -> dict:
         vocab=cfg.vocab, seq_len=args.seq,
         batch_per_node=args.batch_per_node, num_nodes=trainer.num_nodes,
         seed=args.seed), device=device)
+
+    def make_batch(step):
+        # the frontend stubs train on precomputed embeddings
+        if cfg.frontend != "none":
+            return data.embeds_batch(step, cfg.d_model)
+        return data.batch(step)
+
     executor = None
     if args.async_mode and trainer.num_nodes > 1:
         compute = np.ones(trainer.num_nodes)
@@ -233,14 +243,14 @@ def run(cfg: ArchConfig, args) -> dict:
     t_start = time.perf_counter()
     for step in range(args.steps):
         t0 = time.perf_counter()
-        state, m = trainer.train_step(state, data.batch(step))
+        state, m = trainer.train_step(state, make_batch(step))
         loss = float(m["loss"])
         line = f"step {step:5d} loss {loss:.4f}"
         if trainer.should_sync(step):
             alive = state.topo.node_alive.tolist()
             counts = ("launches", "masked_launches", "per_block_launches")
             before = [getattr(kops.consensus_round, c) for c in counts]
-            probe = data.batch(10**6 + step)
+            probe = make_batch(10**6 + step)
             if args.profile_rounds > 0 and rounds == 0:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU] + (

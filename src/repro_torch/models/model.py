@@ -1,11 +1,21 @@
-"""Public model API (port of ``repro/models/model.py``): init, loss,
-prefill and decode."""
+"""Public model API (port of ``repro/models/model.py``): init, parameter
+counts, loss, prefill and decode.
+
+The audio and vision archs' frontends are stubs, as in the reference: they
+take precomputed embeddings in place of tokens (``embeds`` [B, S, D] for a
+training or prefill batch, ``embed_in`` [B, D] for a decode step).
+``stub_embeds`` draws such embeddings, standard normal float32, as the
+reference's ``make_batch`` and serve launcher draw them (from a
+``torch.Generator``, so not the reference's numbers).
+"""
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import params as plib
@@ -26,26 +36,47 @@ class Model:
     def param_count(self) -> int:
         return plib.count(self.param_defs())
 
+    def active_param_count(self) -> int:
+        """Per-token touched params (MoE experts scaled by top_k/E)."""
+        total = 0
+        for path, leaf in tree_lib.leaves_with_paths(self.param_defs(),
+                                                     is_leaf=plib.is_def):
+            n = int(np.prod(leaf.shape))
+            if self.cfg.moe is not None and any(
+                    k in ("wg", "wu", "wd") for k in path):
+                n = n * self.cfg.moe.top_k // self.cfg.moe.num_experts
+            total += n
+        return total
+
     def loss(self, params: dict, batch: dict):
         return tf.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params: dict, batch: dict,
                 use_kernel: bool = False) -> torch.Tensor:
-        """Full-sequence logits of ``batch["tokens"]`` [B, S]; with
-        ``use_kernel`` the attention or time-mix runs its kernel (see
-        ``transformer.forward``)."""
-        return tf.forward(self.cfg, params, tokens=batch["tokens"],
-                          use_kernel=use_kernel)
+        """Full-sequence logits of ``batch["tokens"]`` [B, S] (or
+        ``batch["embeds"]`` [B, S, D]); with ``use_kernel`` the attention or
+        time-mix runs its kernel (see ``transformer.forward``)."""
+        return tf.forward(self.cfg, params, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"), use_kernel=use_kernel)
 
     def init_decode_state(self, batch: int, max_len: int,
                           device: torch.device | str) -> tf.DecodeState:
         return tf.init_decode_state(self.cfg, batch, max_len, device)
 
     def decode_step(self, params: dict, state: tf.DecodeState,
-                    token: torch.Tensor, *, max_len: int):
+                    token: torch.Tensor | None, *, max_len: int,
+                    embed_in: torch.Tensor | None = None):
         return tf.decode_step(self.cfg, params, state, token,
-                              max_len=max_len)
+                              max_len=max_len, embed_in=embed_in)
 
 
 def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg=cfg, dtype=torch_dtype(cfg.dtype))
+
+
+def stub_embeds(cfg: ArchConfig, shape: tuple[int, ...],
+                gen: torch.Generator, device) -> torch.Tensor:
+    """Frontend-stub embeddings of ``shape`` + (d_model,): standard normal,
+    float32 (the model casts them to its dtype)."""
+    return torch.randn(tuple(shape) + (cfg.d_model,), generator=gen,
+                       dtype=torch.float32, device=device)

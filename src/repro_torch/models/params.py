@@ -25,6 +25,10 @@ class ParamDef:
     scale: float | None = None  # None => 1/sqrt(fan-in)
 
 
+# a leaf is drawn in flat float32 pieces of at most this many elements (1 GB)
+_PIECE = 1 << 28
+
+
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
@@ -45,9 +49,18 @@ def _init_one(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
         scale = 1.0 / math.sqrt(fan_in)
     if d.init == "embed":
         scale = 1.0
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return (scale * x).to(d.dtype)
+    # flat pieces, so that a large leaf's float32 draw never sits whole
+    # beside it (one expert stack of kimi-k2-1t-a32b's single layer is 22.5
+    # GB in float32); randn fills memory in order, so a leaf of one piece
+    # is the draw of its whole shape
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _PIECE):
+        part = flat[i:i + _PIECE]
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 def materialize(gen: torch.Generator, defs: Any,

@@ -1,14 +1,21 @@
-"""Decoder stack: dense and RWKV6 blocks, full-sequence forward, decode
-step (port of ``repro/models/transformer.py``).
+"""Decoder stack: block definitions, full-sequence forward, decode step
+(port of ``repro/models/transformer.py``).
 
-  * dense       : pre-norm attention + SwiGLU FFN
-  * ssm (rwkv6) : RWKV time-mix + channel-mix (attention-free)
+One generic block covers all the reference's families:
+  * dense / moe / audio / vlm : pre-norm attention + (SwiGLU | MoE) FFN
+  * hybrid (hymba)            : attention and SSM heads run in PARALLEL on
+                                the same normed input, outputs averaged,
+                                then FFN
+  * ssm (rwkv6)               : RWKV time-mix + channel-mix (attention-free)
 
-The MoE, SSM-hybrid and frontend families are not ported yet. Layers are
-stacked on a leading L axis as in the reference; the forward pass and the
-decode step loop over them in Python where the reference scans. There is
-no rematerialization: at the depths this port trains (a few layers at full
-width) the activations fit beside the state, so autograd keeps them.
+The audio and vision archs' frontends are stubs, as in the reference:
+``forward`` takes precomputed frame or patch embeddings (``embeds``) in
+place of tokens, and ``decode_step`` one embedding per sequence
+(``embed_in``). Layers are stacked on a leading L axis as in the
+reference; the forward pass and the decode step loop over them in Python
+where the reference scans. There is no rematerialization: at the depths
+this port trains (a few layers at full width) the activations fit beside
+the state, so autograd keeps them.
 
 ``forward`` takes ``use_kernel`` (the reference's ``forward`` does not):
 it routes the reference's own switch on ``attention`` and ``time_mix`` to
@@ -25,21 +32,16 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_defs, embed_tokens, mlp_apply,
                                        mlp_defs, rms_norm, unembed)
 from repro_torch.models.params import ParamDef, is_def
 from repro_torch.device import torch_dtype
 
 
-def _check_ported(cfg: ArchConfig):
-    if cfg.ssm_state or cfg.moe is not None or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense and RWKV6 blocks are ported")
-
-
 def block_defs(cfg: ArchConfig, dtype) -> dict:
-    _check_ported(cfg)
     d = cfg.d_model
     out: dict[str, Any] = {
         "ln1": ParamDef((d,), dtype, init="zeros"),
@@ -49,7 +51,12 @@ def block_defs(cfg: ArchConfig, dtype) -> dict:
         out["rwkv"] = rwkv_lib.rwkv_defs(cfg, dtype)
         return out
     out["attn"] = attn_lib.attn_defs(cfg, dtype)
-    out["mlp"] = mlp_defs(cfg, dtype)
+    if cfg.ssm_state:
+        out["ssm"] = ssm_lib.ssm_defs(cfg, dtype)
+    if cfg.moe is not None:
+        out["moe"] = moe_lib.moe_defs(cfg, dtype)
+    else:
+        out["mlp"] = mlp_defs(cfg, dtype)
     return out
 
 
@@ -76,21 +83,34 @@ def _block_full(cfg: ArchConfig, p: dict, x: torch.Tensor, cos, sin,
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         y2, _ = rwkv_lib.channel_mix(cfg, p["rwkv"], h2, None)
         return x + y2
-    x = x + attn_lib.attention(cfg, p["attn"], h, cos, sin,
-                               use_kernel=use_kernel)
+    y = attn_lib.attention(cfg, p["attn"], h, cos, sin,
+                           use_kernel=use_kernel)
+    if cfg.ssm_state:
+        y_ssm, _ = ssm_lib.ssm_apply(cfg, p["ssm"], h)
+        y = 0.5 * (y + y_ssm)            # hymba: parallel heads, averaged
+    x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2)
+    return x + _ffn(cfg, p, h2)
+
+
+def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_lib.moe_apply(cfg, p["moe"], h)
+    return mlp_apply(p["mlp"], h)
 
 
 def _layer(params: dict, layer: int) -> dict:
     return tree_lib.tree_map(lambda a: a[layer], params["blocks"])
 
 
-def forward(cfg: ArchConfig, params: dict, *, tokens: torch.Tensor,
+def forward(cfg: ArchConfig, params: dict, *,
+            tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
             use_kernel: bool = False) -> torch.Tensor:
-    """Full-sequence forward to logits. tokens [B, S]."""
-    _check_ported(cfg)
-    x = embed_tokens(params, tokens).to(torch_dtype(cfg.dtype))
+    """Full-sequence forward to logits. tokens [B, S] or embeds [B, S, D]
+    (the frontend stubs' precomputed embeddings)."""
+    x = embed_tokens(params, tokens) if embeds is None else embeds
+    x = x.to(torch_dtype(cfg.dtype))
     cos = sin = None
     if not cfg.rwkv:
         cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
@@ -103,8 +123,10 @@ def forward(cfg: ArchConfig, params: dict, *, tokens: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross-entropy over labels >= 0 (f32)."""
-    logits = forward(cfg, params, tokens=batch["tokens"]).to(torch.float32)
+    """Mean next-token cross-entropy over labels >= 0 (f32). The batch
+    holds ``tokens`` or, for the frontend stubs, ``embeds``."""
+    logits = forward(cfg, params, tokens=batch.get("tokens"),
+                     embeds=batch.get("embeds")).to(torch.float32)
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
     # masked labels (-1) gather index 0; the mask zeroes their term
@@ -122,7 +144,6 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device) -> DecodeState:
-    _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     l = cfg.n_layers
 
@@ -141,19 +162,27 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
             k=zeros((l,) + tuple(kv.k.shape), dt),
             v=zeros((l,) + tuple(kv.v.shape), dt),
             pos=zeros((l,), torch.int32))}
+        if cfg.ssm_state:
+            cache["ssm"] = ssm_lib.SSMState(h=zeros(
+                (l, batch, cfg.n_heads, cfg.head_dim, cfg.ssm_state),
+                torch.float32))
     return DecodeState(cache=cache, pos=0)
 
 
 def decode_step(cfg: ArchConfig, params: dict, state: DecodeState,
-                token: torch.Tensor, *, max_len: int
+                token: torch.Tensor | None, *, max_len: int,
+                embed_in: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, DecodeState]:
-    """One new token for every sequence. token: [B] int. Returns (logits
-    [B, V], the next state).
+    """One new token for every sequence. token: [B] int (or, for the
+    frontend stubs, ``embed_in`` [B, D]). Returns (logits [B, V], the next
+    state).
 
     The caches are updated IN PLACE (the reference returns new ones): the
     returned state holds the same tensors as ``state`` with ``pos + 1``.
     """
-    x = embed_tokens(params, token[:, None]).to(torch_dtype(cfg.dtype))
+    x = embed_in[:, None, :] if embed_in is not None \
+        else embed_tokens(params, token[:, None])
+    x = x.to(torch_dtype(cfg.dtype))
     pos = state.pos
     if not cfg.rwkv:
         cos_full, sin_full = attn_lib.make_rope(cfg, max_len,
@@ -179,9 +208,15 @@ def decode_step(cfg: ArchConfig, params: dict, state: DecodeState,
             cfg, lp["attn"], h,
             attn_lib.KVCache(k=kv.k[layer], v=kv.v[layer], pos=kv.pos[layer]),
             pos, cos_full, sin_full)
+        if cfg.ssm_state:
+            sc = state.cache["ssm"]
+            y_ssm, ssm_new = ssm_lib.ssm_decode(
+                cfg, lp["ssm"], h, ssm_lib.SSMState(h=sc.h[layer]))
+            y = 0.5 * (y + y_ssm)
+            sc.h[layer].copy_(ssm_new.h)
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h2)
+        x = x + _ffn(cfg, lp, h2)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0, :]
     return logits, DecodeState(cache=state.cache, pos=pos + 1)

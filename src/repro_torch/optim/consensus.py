@@ -232,7 +232,10 @@ class ConsensusTrainer:
                       for x in tree_lib.leaves(p_i)]
             loss, _ = self.model.loss(tree_lib.unflatten(paths, leaves),
                                       {k: v[i] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (the frontend stubs' embed
+            # table) gets a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
             del leaves
             opt_i = adamw_lib.AdamWState(
                 step=state.opt.step,

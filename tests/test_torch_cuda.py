@@ -200,13 +200,17 @@ def test_cuda_flat_update_matches_plain_version(n, dtype):
 
 
 # flash attention: (b, h, kv heads, s, hd, causal, window) — the reference
-# tests' shapes and the model's, a ragged S below one tile, and S not a
-# multiple of the kernel's 64-row tile
+# tests' shapes and the model's, a ragged S below one tile, S not a
+# multiple of the kernel's 64-row tile, and head dims 80 and 112
 FLASH_CASES = [
     (1, 2, 2, 128, 32, True, 0), (2, 4, 2, 256, 64, True, 0),
     (1, 4, 1, 256, 32, True, 64), (1, 2, 2, 128, 32, False, 0),
     (1, 8, 2, 128, 128, True, 0), (2, 4, 2, 16, 16, True, 0),
-    (1, 4, 4, 96, 16, True, 40), (1, 4, 2, 256, 128, True, 100)]
+    (1, 4, 4, 96, 16, True, 40), (1, 4, 2, 256, 128, True, 100),
+    # the zoo's head dims on the CUDA-core kernel: stablelm-3b's 80 (MHA),
+    # kimi-k2's 112 (GQA 8/1, a window, S not a multiple of the tile)
+    (2, 4, 4, 256, 80, True, 0), (1, 8, 1, 112, 112, True, 64),
+    (1, 4, 4, 128, 80, False, 0)]
 
 
 @pytest.mark.cuda

@@ -20,13 +20,18 @@ from repro_torch.kernels import ops, ref
 from torch_round_cases import bf16_round, run_reference
 
 # (b, h, kv heads, s, hd, causal, window, block_q, block_k): the reference's
-# tests/test_kernels.py cases; the blocks are the Pallas kernel's tiling
+# tests/test_kernels.py cases, then the zoo's other head dims; the blocks
+# are the Pallas kernel's tiling
 CASES = [
     (1, 2, 2, 128, 32, True, 0, 64, 64),
     (2, 4, 2, 256, 64, True, 0, 128, 128),
     (1, 4, 1, 256, 32, True, 64, 64, 64),
     (1, 2, 2, 128, 32, False, 0, 32, 64),
     (1, 8, 2, 128, 128, True, 0, 128, 64),
+    # the zoo's head dims: stablelm-3b's 80 (MHA) and kimi-k2's 112 (GQA,
+    # with a window)
+    (1, 4, 4, 128, 80, True, 0, 64, 64),
+    (1, 8, 1, 128, 112, True, 48, 64, 64),
 ]
 DTYPES = ("float32", "bfloat16")
 # model layout [B, S, H, hd]: (causal, window, kv heads) with 4 query heads

@@ -3,7 +3,8 @@ that ``chip_smoke.py`` reads a build with: all of it plain Python that runs
 before any kernel is built, so it is tested here on the CPU.
 
 * ``kernels.flash_attention.route`` sends bf16 at head dim 64 or 128 to the
-  tensor-core kernel and everything else to the CUDA-core one.
+  tensor-core kernel and everything else (float32, and bf16 at head dim
+  16, 32, 80 or 112) to the CUDA-core one.
 * ``flash_attention.plan`` and ``rwkv6_scan.plan`` refuse what their
   kernel does not take (a 16-byte-misaligned tensor for the tensor-core
   kernel's TMA, a head dim or a chunk outside the compiled ones) with a
@@ -31,10 +32,22 @@ def no_build(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 32, "cc"), (torch.bfloat16, 16, "cc"),
+    (torch.bfloat16, 80, "cc"), (torch.bfloat16, 112, "cc"),
     (torch.float32, 128, "cc"), (torch.float32, 64, "cc"),
-    (torch.float16, 128, "cc")])
+    (torch.float32, 80, "cc"), (torch.float16, 128, "cc")])
 def test_flash_route_rule(dtype, hd, want):
     assert fa.route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("hd", [80, 112])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_plan_takes_the_zoo_head_dims(no_build, hd, dtype):
+    """stablelm-3b's hd 80 and kimi-k2's 112 (GQA 64/8 in the model layout)
+    go to the CUDA-core kernel in either dtype, by rule."""
+    q = torch.zeros(2, 128, 64, hd, dtype=dtype)
+    k = torch.zeros(2, 128, 8, hd, dtype=dtype)
+    p = fa.plan(q, k, k, window=0)
+    assert p["route"] == "cc" and (p["h"], p["kv"], p["hd"]) == (64, 8, hd)
 
 
 def _misaligned(shape, dtype, offset=1):

@@ -200,19 +200,3 @@ def test_serve_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced"])
-
-
-def test_serve_refuses_unported_families():
-    cfg = get_reduced_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="frontend"):
-        serve.run(dataclasses.replace(cfg, frontend="audio_frames"), _args())
-    with pytest.raises(NotImplementedError, match="dense and RWKV6"):
-        serve.run(dataclasses.replace(cfg, ssm_state=8), _args())
-
-
-def test_training_an_rwkv_arch_is_refused():
-    """Serving ports rwkv6-7b; its training is not ported yet."""
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="training the RWKV6"):
-        train.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
-                    "--steps", "1"])
