@@ -12,8 +12,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
               nvcc per source, all started together), then count each
               kernel's tensor-core (HGMMA, HMMA), asynchronous-copy
               (UTMALDG, LDGSTS) and mbarrier (SYNCS) instructions in
-              ``cuobjdump -sass``: the bf16 flash kernel must have all
-              three.
+              ``cuobjdump -sass``: each of the bf16 flash kernel's four
+              instantiations (hd 64, 80, 112, 128) must have all three,
+              and none may spill.
   3. kernel — hold ``consensus_round`` against its plain PyTorch version on
               the card at three shapes in working dtypes, with real qwen3-4b
               leaf structure: J=2/deg=1 bf16 native wire (one full-width
@@ -208,13 +209,17 @@ and rwkv6-7b, random weights from seed 0, bf16; each phase prints its
 seconds):
 
  20. zflash — the flash kernels at the zoo's shapes no earlier phase
-              launches, as phase 9 holds and times them: the CUDA-core
-              kernel at hd 80 (stablelm-3b: B 4, S 512, 32/32 heads) and
-              hd 112 (kimi-k2: 64 heads after the model's repeat), bf16
-              and f32, and the tensor-core kernel at hymba's 25 heads of
-              64 with a window of 1024 at S 2048. The build phase prints
-              the hd 80 and 112 instantiations' registers, spills, output
-              columns a thread and dynamic shared bytes.
+              launches, as phase 9 holds and times them: hd 80
+              (stablelm-3b: B 4, S 512, 32/32 heads) and hd 112 (kimi-k2:
+              64 heads after the model's repeat), bf16 on the tensor-core
+              kernel (timed beside the CUDA-core kernel on the same
+              inputs, which must be at least 5x slower) and f32 on the
+              CUDA-core one, and the tensor-core kernel at hymba's 25
+              heads of 64 with a window of 1024 at S 2048. The build phase
+              prints the registers and spills of the tensor-core kernel's
+              four instantiations, and the CUDA-core kernel's at hd 80 and
+              112 with its output columns a thread and dynamic shared
+              bytes.
  21. zserve — ``launch.serve.run`` on glm4-9b, qwen2-7b, stablelm-3b,
               moonshot-v1-16b-a3b, kimi-k2-1t-a32b (1 layer of 61: the
               whole model does not fit one card), musicgen-large and
@@ -225,8 +230,9 @@ seconds):
               the other. Counters from
               0: the prefill launches the flash kernel once per layer, on
               the route ``kernels.flash_attention.route`` gives its head
-              dim (stablelm-3b and kimi-k2 the CUDA-core kernel, the rest
-              the tensor-core one), the decode none; every logit finite;
+              dim, which is the tensor-core kernel for every zoo arch
+              (bf16 at hd 64, 80, 112 or 128), the decode none; every
+              logit finite;
               layer 0's attention on the served prompt's activations
               through the kernel against the plain version (2e-2 of
               max(1, max|out|)). Prints prefill ms, decode ms per token,
@@ -307,7 +313,7 @@ SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen-len", "32",
 ZOO = ("glm4-9b", "qwen2-7b", "stablelm-3b", "moonshot-v1-16b-a3b",
        "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b",
        "llava-next-mistral-7b")
-ZOO_HEAD_DIMS = (80, 112)           # new to the CUDA-core flash kernel
+ZOO_HEAD_DIMS = (80, 112)           # stablelm-3b's and kimi-k2's head dims
 # phase 21: (layers, prompt length); None keeps the full depth. kimi-k2's
 # 61 layers (1.03 T parameters) do not fit one card: its embedding, one
 # layer and its head are 19.4 B parameters, 38.8 GB in bf16. hymba's window
@@ -2656,17 +2662,26 @@ def scale_sfm(card_line, frames=300, points=20000, iters=50):
 def zoo_flash(card_line):
     """Phase 20: the flash kernels at the zoo's shapes no earlier phase
     launches, each against its plain version under phase 9's bounds and
-    timed beside the library and the bound: the CUDA-core kernel at
-    stablelm-3b's hd 80 (32/32 heads) and kimi-k2's hd 112 (64 heads after
-    the model's repeat), bf16 and f32; the tensor-core kernel at hymba's
-    25 heads of 64 with a window of 1024 at S 2048."""
+    timed beside the library and the bound: stablelm-3b's hd 80 (32/32
+    heads) and kimi-k2's hd 112 (64 heads after the model's repeat), bf16
+    on the tensor-core kernel (the padded tile), at least 5x faster than
+    the CUDA-core kernel on the same inputs, and f32 on the CUDA-core
+    kernel; the tensor-core kernel at hymba's 25 heads of 64 with a window
+    of 1024 at S 2048."""
     out = {}
     for hd, h, seed in ((80, 32, 51), (112, 64, 53)):
         for dtype in ("bfloat16", "float32"):
             rec = flash_case(f"hd{hd} {dtype}", card_line, h=h, kv=h, hd=hd,
                              dtype=dtype, seed=seed + (dtype == "float32"))
-            check(rec["route"] == "cc", f"flash hd{hd} {dtype}: routed to "
-                  f"{rec['route']}, want the CUDA-core kernel")
+            want = "tc" if dtype == "bfloat16" else "cc"
+            check(rec["route"] == want, f"flash hd{hd} {dtype}: routed to "
+                  f"{rec['route']}, want {want}")
+            if want == "tc":
+                check(5 * rec["ms"] <= rec["cc_ms"],
+                      f"flash hd{hd} {dtype}: the tensor-core kernel took "
+                      f"{rec['ms']:.4f} ms, the CUDA-core kernel "
+                      f"{rec['cc_ms']:.4f} ms on the same inputs (want the "
+                      "tensor-core kernel at least 5x faster)")
             out[f"hd{hd}_{dtype}"] = rec
     rec = flash_case("hymba", card_line, h=25, kv=25, hd=64, s=2048,
                      window=1024, seed=55)
@@ -2993,14 +3008,17 @@ def zoo_agree(arch) -> None:
 def build_phase():
     """Phase 2: build every source (one nvcc each, all started together),
     print each kernel's registers and spills (nvcc's -Xptxas -v) and its
-    SASS instruction counts; the bf16 flash kernel must have wgmma, TMA and
-    mbarrier instructions. Returns (every kernel's counts, the tensor-core
-    flash kernel's)."""
+    SASS instruction counts; each instantiation of the bf16 flash kernel
+    (hd 64, 80, 112, 128) must have wgmma, TMA and mbarrier instructions
+    and no spills. Returns (every kernel's counts, the tensor-core flash
+    kernel's, its instantiations' registers)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS
     t0 = time.perf_counter()
     built = build.build_all(SOURCES)
     print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    tc_regs = {}
     for name, rec in built.items():
         regs, spills, kern, kern_regs = [], [], None, {}
         for ln in rec["log"].splitlines():
@@ -3019,6 +3037,18 @@ def build_phase():
                   flush=True)
         for ln in spills:
             print(f"  {name}: {ln}")
+        if name == "flash_attention_tc" and rec["log"]:
+            # the tensor-core kernel's instantiations, the padded tile's
+            # (hd 80, 112) beside hd 64 and 128
+            for hd in TC_HEAD_DIMS:
+                kn = f"{FLASH_TC_NAME}<{hd}>"
+                spilled = any(x.startswith(kn + ":") for x in spills)
+                tc_regs[kn] = kern_regs.get(kn)
+                print(f"  {kn}: {kern_regs.get(kn)} registers per thread, "
+                      f"{'spills' if spilled else 'no spills'}", flush=True)
+                check(kn in kern_regs and not spilled,
+                      f"{kn}: registers {kern_regs.get(kn)}, spills "
+                      f"{spilled} (want it built, without spills)")
         if name == "flash_attention":
             # the zoo's head dims on the CUDA-core kernel: hd / 16 output
             # columns a thread, and the dynamic shared memory of its padded
@@ -3047,12 +3077,14 @@ def build_phase():
     for kern, counts in tc_sass.items():
         print(f"  sass {kern}: " + ", ".join(
             f"{fam} {n}" for fam, n in counts.items()), flush=True)
-    check(len(tc_sass) >= 2 and all(
+    want = {f"{FLASH_TC_NAME}<{hd}>" for hd in TC_HEAD_DIMS}
+    check(set(tc_sass) == want and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["SYNCS"] > 0
         for c in tc_sass.values()),
-        f"the bf16 flash kernel's SASS lacks wgmma, TMA or mbarrier "
-        f"instructions: {tc_sass}")
-    return sass, tc_sass
+        f"the bf16 flash kernel's SASS lacks an instantiation of "
+        f"{sorted(want)} or wgmma, TMA or mbarrier instructions in one: "
+        f"{tc_sass}")
+    return sass, tc_sass, tc_regs
 
 
 def kernel_entry(name, source, replaces, launches, numbers, **extra):
@@ -3087,7 +3119,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # -- 2. build: one nvcc per source, all started together ---------------
-    sass, tc_sass = build_phase()
+    sass, tc_sass, tc_regs = build_phase()
 
     # -- 9. flash attention vs its plain version and the library ----------
     flash = flash_case("path", card_line, seed=31, model_layout=True)
@@ -3221,6 +3253,10 @@ def main() -> int:
     zflash = zoo_flash(card_line)
     t1 = time.perf_counter()
     zserve = {arch: zoo_serve(arch, card_line) for arch in ZOO}
+    check(all(z["route"] == "tc" for z in zserve.values()),
+          "zoo serve: flash routes " + str({a: z["route"]
+                                            for a, z in zserve.items()})
+          + ", want the tensor-core kernel for every arch")
     t2 = time.perf_counter()
     ztrain = {arch: zoo_train(arch, card_line) for arch in ZOO_TRAIN_LAYERS}
     print("zoo train kimi-k2-1t-a32b: not on the card (its embedding and "
@@ -3280,7 +3316,7 @@ def main() -> int:
                      f32_source=src + "flash_attention.cu",
                      f32_ms=flash_f32["ms"],
                      f32_max_abs_err=flash_f32["max_abs_err"],
-                     sass=tc_sass,
+                     sass=tc_sass, tc_registers=tc_regs,
                      zoo_launches={a: z["launches"]
                                    for a, z in zserve.items()},
                      zoo_tc_launches={a: z["launches"] * (z["route"] == "tc")
@@ -3288,7 +3324,7 @@ def main() -> int:
                      zoo_in_prefill_ms={a: z["in_prefill_ms"]
                                         for a, z in zserve.items()},
                      zoo_shapes={k: {f: v[f] for f in (
-                         "route", "max_abs_err", "ms", "plain_ms",
+                         "route", "max_abs_err", "ms", "cc_ms", "plain_ms",
                          "library_ms", "bound_ms", "bound_by")}
                          for k, v in zflash.items()}),
         kernel_entry("rwkv6_scan", src + "rwkv6_scan.cu",

@@ -28,10 +28,12 @@
 // rate: bytes bound it on this card. This kernel computes in f32 on the
 // CUDA cores, the TPU kernel's arithmetic; at the card's 67 TFLOP/s f32 rate
 // the same products take at least 0.13 ms, so it cannot reach the bound.
-// It takes float32 inputs, and bf16 at head dims 16, 32, 80 and 112 (hd 80
-// is stablelm-3b's, 112 kimi-k2's); bf16 at 64 and 128 goes to the
-// tensor-core kernel, flash_attention_tc.cu, which rounds p to bf16
-// (kernels/flash_attention.py:route).
+// It takes float32 inputs at every head dim, and bf16 at head dims 16 and
+// 32; bf16 at 64, 80, 112 and 128 goes to the tensor-core kernel,
+// flash_attention_tc.cu, which rounds p to bf16
+// (kernels/flash_attention.py:route). Its bf16 instantiations at those
+// dims stay, reached only through the wrapper's kernel="cc", to time the
+// two kernels on the same inputs; its bf16 loads are 2-byte scalars.
 //
 // Design. Grid (query tiles of 64, H, B); 256 threads as 16 x 16. A block
 // keeps its 64 x hd query tile in shared memory and streams 64-key tiles of

@@ -5,9 +5,11 @@
 //
 // Replaces the TPU kernel `_kernel` (:26) of
 // src/repro/kernels/flash_attention.py, reached from `flash_attention`
-// (:82, `pallas_call` at :100), for bf16 inputs at head dim 64 or 128
-// (kernels/flash_attention.py:route says which inputs come here; float32
-// and the other head dims go to csrc/flash_attention.cu). For query head h
+// (:82, `pallas_call` at :100), for bf16 inputs at head dim 64, 80, 112
+// or 128 (kernels/flash_attention.py:route says which inputs come here;
+// float32, and bf16 at hd 16 and 32, go to csrc/flash_attention.cu). hd 80
+// is stablelm-3b's, 112 kimi-k2's (after the model's repeat of its 8 KV
+// heads to 64). For query head h
 // of batch b (KV head h / n_rep) and every query row i:
 //   s_ij = (q_i . k_j)                 wgmma, bf16 x bf16 products summed
 //                                      in f32 (exact products, as the TPU
@@ -36,33 +38,40 @@
 // 67.1 MB, 0.020 ms at 3.35 TB/s; its 8.61 GFLOP of products (the causal
 // half) take 0.0087 ms at the bf16 tensor-core rate (989 TFLOP/s): bytes
 // bound it. With 128 x 128 tiles the kernel computes 10 of the 16 tile
-// pairs of each (batch, head), 10.7 GFLOP.
+// pairs of each (batch, head), 10.7 GFLOP. At the zoo's widths (B 4, S 512,
+// causal): hd 80 with 32 heads (stablelm-3b) moves 41.9 MB, 0.0125 ms, and
+// does 5.37 GFLOP, 0.0054 ms; hd 112 with 64 heads (kimi-k2) moves
+// 117.4 MB, 0.0351 ms, and does 15.0 GFLOP, 0.0152 ms: bytes bound both.
 //
 // Design. Grid (query tiles of 128, H, B): 512 blocks at the path's shape,
 // the heaviest query tiles first. 288 threads: warpgroups 0 and 1 each own
 // 64 query rows; warp 8 is the producer, one of whose threads issues every
 // TMA load. Shared memory, all 1024-byte aligned, 128-byte swizzled as TMA
-// writes it and wgmma reads it, each tile as hd/64 column halves of
-// [rows][64] bf16: Q [128 x hd] (32 KB at hd 128), then 2 stages of K and
-// of V [128 x hd] (64 KB per stage), and 5 mbarriers: 161 KB at hd 128
-// (81 KB at hd 64), so one block per SM. q k^T is wgmma m64n128k16 with
-// both operands in shared memory (K-major); p v is wgmma m64n{hd}k16 with
-// p in registers (the accumulator's fragment is the A operand's, so p
-// needs no shuffle; it is packed to bf16 as the softmax makes it) and V
-// read transposed (MN-major) from the same tile, so V needs no transposed
-// copy. The two warpgroups take turns at issuing q k^T (named barriers),
-// so that one's softmax overlaps the other's products. Masks are taken
-// without branches and only on the tiles that cross the diagonal, the
-// window's edge or the sequence's end. Registers: 166 per thread, no
-// spills, under the cap of 168 for 288 threads at one block per SM (the
-// register file is shared out by SM quarter, and one quarter holds three
-// of the nine warps); a consumer thread holds 64 f32 logits, hd/2 f32
-// outputs and 32 packed p registers. Full and empty mbarriers per stage
-// carry the ring; the producer waits for both consumer warpgroups to
-// release a stage (8 warp arrivals) before it refills it. The output is
-// staged through the warpgroup's own rows of the Q tile (the same swizzle,
-// no bank conflicts) and written with 16-byte stores, rows past the
-// sequence's end skipped.
+// writes it and wgmma reads it, each tile as HDP/64 column halves of
+// [rows][64] bf16, HDP = hd rounded up to a multiple of 64 (64 at hd 64,
+// 128 at hd 80, 112 and 128): Q [128 x HDP] (32 KB at HDP 128), then 2
+// stages of K and of V [128 x HDP] (64 KB per stage), and 5 mbarriers:
+// 161 KB at HDP 128 (81 KB at 64), so one block per SM. q k^T is wgmma
+// m64n128k16 with both operands in shared memory (K-major), hd/16 k-steps
+// (5 at hd 80, 7 at 112); p v is wgmma m64n{hd}k16 with p in registers
+// (the accumulator's fragment is the A operand's, so p needs no shuffle;
+// it is packed to bf16 as the softmax makes it) and V read transposed
+// (MN-major) from the same tile, so V needs no transposed copy: n64 or
+// n128 at hd 64 and 128, and at hd 80 and 112 n64 on the first column
+// half and n16 or n48 on the second. The two warpgroups take turns at
+// issuing q k^T (named barriers), so that one's softmax overlaps the
+// other's products. Masks are taken without branches and only on the
+// tiles that cross the diagonal, the window's edge or the sequence's end.
+// Registers: 166 per thread, no spills at hd 128, under the cap of 168 for
+// 288 threads at one block per SM (the register file is shared out by SM
+// quarter, and one quarter holds three of the nine warps); a consumer
+// thread holds 64 f32 logits, hd/2 f32 outputs (40 at hd 80, 56 at 112)
+// and 32 packed p registers. Full and empty mbarriers per stage carry the
+// ring; the producer waits for both consumer warpgroups to release a stage
+// (8 warp arrivals) before it refills it. The output is staged through the
+// warpgroup's own rows of the Q tile (the same swizzle, no bank conflicts)
+// and written with 16-byte stores, hd/8 a row, rows past the sequence's
+// end skipped.
 // What bounds it now is its own arithmetic, not its loads (a copy without
 // its loads ran as long; one without its math, well under half as long):
 // each warpgroup still waits for its q k^T before its softmax and for its
@@ -71,6 +80,18 @@
 // a third K/V stage, and issuing one tile's p v with the next tile's q k^T
 // (a second logit accumulator; setmaxnreg with a producer warpgroup did
 // not lift nvcc's allocation of 168).
+//
+// The padded tile (hd 80, 112). A 160- or 224-byte row does not fit one
+// 128-byte swizzle row, so a row is kept as two 64-column halves, each
+// loaded by its own TMA box of 64 columns, as at hd 128. The tensor maps
+// keep the real hd as their inner dimension, so the second box runs past
+// it: TMA fills columns hd..127 with zeros and reads none of them from
+// memory (the next head's columns in the model layout stay unread). TMA
+// reports the whole box to the mbarrier, zero-filled columns included (as
+// it does for rows past the sequence's end), so each stage expects the
+// padded tile's bytes, 2 x 128 x HDP x 2. The zero columns are never read
+// by a product: q k^T stops at hd and p v's second half is hd - 64 wide.
+// Shared memory is hd 128's 161 KB, one block per SM as there.
 //
 // Layouts. Tensor maps are built per launch over the caller's strides
 // (batch, sequence, head; the head dim contiguous), so the model layout
@@ -106,9 +127,14 @@ struct TcArgs {
   int seq_inner[3];                      // q, k, v maps: seq before head
 };
 
+// the shared tiles' width: hd rounded up to whole 64-column halves
+__host__ __device__ constexpr int padded(int hd) {
+  return 64 * ((hd + 63) / 64);
+}
+
 template <int HD>
 constexpr int smem_bytes() {
-  return 1024 + kBQ * HD * 2 + 2 * kStages * kBK * HD * 2 +
+  return 1024 + kBQ * padded(HD) * 2 + 2 * kStages * kBK * padded(HD) * 2 +
          8 * (2 * kStages + 1);
 }
 
@@ -249,72 +275,139 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// p v's products, A (p, bf16) from registers, B (V) MN-major from shared
+// memory: m64n{n}k16 into the accumulator's registers d[OFF, OFF + n / 2),
+// its columns [2 OFF, 2 OFF + n) (8-column chunk j of the product in
+// d[OFF + 4 j .. OFF + 4 j + 3])
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[R],
     const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 64 <= R, "accumulator too short");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
-      "%42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[R],
     const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 32 <= R, "accumulator too short");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[R],
+    const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 24 <= R, "accumulator too short");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[R],
+    const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 8 <= R, "accumulator too short");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// o += p v over one 16-key step, V's tile at vaddr (its first column
+// half; the second, if any, kHalf bytes further): one instruction at hd 64
+// and 128; at hd 80 and 112 n64 on the first half into o[0, 32) and n16 or
+// n48 on the second into o[32, 40) or o[32, 56), the real columns only
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
+                                         const uint32_t (&a)[4],
+                                         uint32_t vaddr, uint32_t kHalf) {
+  const uint64_t lo = desc(vaddr, kHalf, 1024);
+  if constexpr (HD == 64) {
+    wgmma_rs_n64<0>(o, a, lo);
+  } else if constexpr (HD == 128) {
+    wgmma_rs_n128<0>(o, a, lo);
+  } else {
+    static_assert(HD == 80 || HD == 112, "head dim 64, 80, 112 or 128");
+    const uint64_t hi = desc(vaddr + kHalf, kHalf, 1024);
+    wgmma_rs_n64<0>(o, a, lo);
+    if constexpr (HD == 80)
+      wgmma_rs_n16<32>(o, a, hi);
+    else
+      wgmma_rs_n48<32>(o, a, hi);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -330,15 +423,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const TcArgs a) {
-  constexpr int NH = HD / 64;                  // 128-byte column halves
+  constexpr int HDP = padded(HD);              // the tiles' width
+  constexpr int NH = HDP / 64;                 // 128-byte column halves
   constexpr uint32_t kHalfQ = kBQ * 128;       // bytes of one half of Q
   constexpr uint32_t kHalfK = kBK * 128;
-  constexpr uint32_t kTile = kBK * HD * 2;     // one K or V tile
+  constexpr uint32_t kTile = kBK * HDP * 2;    // one K or V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023u) & ~1023u;  // 1024-byte aligned base
   uint8_t* const qgen = smem_raw + (sq - raw);
-  const uint32_t sk = sq + kBQ * HD * 2;       // kStages K tiles
+  const uint32_t sk = sq + kBQ * HDP * 2;      // kStages K tiles
   const uint32_t sv = sk + kStages * kTile;    // kStages V tiles
   const uint32_t bars = sv + kStages * kTile;  // full[s], empty[s], q
   const uint32_t qbar = bars + 16 * kStages;
@@ -368,7 +462,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= kConsumers) {                         // the producer warp
     if (tid == kConsumers) {
-      mbar_expect_tx(qbar, kBQ * HD * 2);
+      // whole boxes: TMA counts the zero-filled columns past hd and rows
+      // past the sequence's end as bytes delivered
+      mbar_expect_tx(qbar, kBQ * HDP * 2);
       for (int c = 0; c < NH; ++c)
         tma_load(sq + c * kHalfQ, &tq, qbar, a.seq_inner[0], 64 * c, q_start,
                  h, b);
@@ -494,7 +590,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_pv<HD>(o, pa[kk], desc(vb + kk * 16 * 128, kHalfK, 1024));
+      wgmma_pv<HD>(o, pa[kk], vb + kk * 16 * 128, kHalfK);
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -503,7 +599,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // out = acc / max(l, 1e-30) in bf16, staged in this warpgroup's own rows
-  // of the Q tile (same swizzle: chunk ^ (row % 8)), then 16-byte stores
+  // of the Q tile (same swizzle: chunk ^ (row % 8)), then 16-byte stores of
+  // the hd / 8 real chunks of a row
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const float denom = fmaxf(l[hr], 1e-30f);
@@ -621,7 +718,7 @@ int launch_hd(const void* q, const void* k, const void* v, TcArgs& a,
 
 }  // namespace
 
-// bf16 q, k, v and out; hd 64 or 128. strides: 12 element strides,
+// bf16 q, k, v and out; hd 64, 80, 112 or 128. strides: 12 element strides,
 // (batch, seq, head) for q, k, v and out in that order; the head dim is
 // contiguous, the bases 16-byte aligned and the q, k, v strides multiples
 // of 8 elements (TMA's rule), heads a multiple of kv_heads. Returns a
@@ -653,6 +750,8 @@ extern "C" int flash_attention_tc_launch(
   a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_hd<64>(q, k, v, a, batch, strides, st);
+  if (hd == 80) return launch_hd<80>(q, k, v, a, batch, strides, st);
+  if (hd == 112) return launch_hd<112>(q, k, v, a, batch, strides, st);
   if (hd == 128) return launch_hd<128>(q, k, v, a, batch, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,13 +10,13 @@ strides, so the model layout ``[B, S, H, hd]`` and the head-major
 head h reads KV head ``h // (H // K)``.
 
 Which kernel runs is a rule on the inputs' dtype and head dim, ``route``:
-bf16 at head dim 64 or 128 goes to the tensor-core kernel
+bf16 at head dim 64, 80, 112 or 128 goes to the tensor-core kernel
 (``flash_attention_tc.cu``: wgmma in bf16 with f32 sums, p rounded to bf16
-for the p.v product, K/V streamed by TMA); everything else (float32, and
-bf16 at head dim 16, 32, 80 or 112) goes to the CUDA-core kernel
-(``flash_attention.cu``: f32 arithmetic, the TPU kernel's). The rule is not
-a fallback: a kernel that fails to build or launch raises, and the other is
-never tried.
+for the p.v product, K/V streamed by TMA; hd 80 and 112 in tiles padded to
+128 columns); float32 at every head dim, and bf16 at head dim 16 or 32, go
+to the CUDA-core kernel (``flash_attention.cu``: f32 arithmetic, the TPU
+kernel's). The rule is not a fallback: a kernel that fails to build or
+launch raises, and the other is never tried.
 
 ``launch`` checks device, dtype, shape and strides (``plan``) and raises on
 anything the chosen kernel does not take; it allocates the output and
@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
-TC_HEAD_DIMS = (64, 128)        # the tensor-core kernel's, in bf16
+TC_HEAD_DIMS = (64, 80, 112, 128)   # the tensor-core kernel's, in bf16
 # (batch, seq, head) axes of each layout
 LAYOUTS = {"bshd": (0, 1, 2), "bhsd": (0, 2, 1)}
 
@@ -50,8 +50,8 @@ def _require(cond: bool, msg: str):
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """Which kernel takes inputs of ``dtype`` at head dim ``hd``: "tc" (the
-    tensor-core kernel) for bf16 at hd 64 or 128, else "cc" (the CUDA-core
-    kernel)."""
+    tensor-core kernel) for bf16 at hd 64, 80, 112 or 128, else "cc" (the
+    CUDA-core kernel: float32, and bf16 at hd 16 or 32)."""
     return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cc"
 
 

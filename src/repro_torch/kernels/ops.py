@@ -13,7 +13,7 @@ scales, the fp8 wires; counted in one of the first two as well),
 ``consensus_update.launches``, ``flash_attention.launches`` (the model
 layout's and the head-major wrapper's launches of either attention
 kernel), ``flash_attention.tc_launches`` (those of the tensor-core one,
-bf16 at head dim 64 or 128; counted in ``launches`` as well) and
+bf16 at head dim 64, 80, 112 or 128; counted in ``launches`` as well) and
 ``rwkv6_scan.launches``.
 """
 from __future__ import annotations
@@ -71,9 +71,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     ``min(128, S)``, as the reference's kernel asserts. The reference's
     ``block_q``/``block_k`` are its TPU tiling and have no counterpart:
     the CUDA kernels tile by their own sizes and compute the same function.
-    On the card, bf16 at head dim 64 or 128 runs the tensor-core kernel
-    (p rounded to bf16 for p.v) and the rest the f32 CUDA-core kernel
-    (``kernels.flash_attention.route``).
+    On the card, bf16 at head dim 64, 80, 112 or 128 runs the tensor-core
+    kernel (p rounded to bf16 for p.v) and the rest (float32, bf16 at hd
+    16 or 32) the f32 CUDA-core kernel (``kernels.flash_attention.route``).
     """
     return _flash(q, k, v, causal, window, "bshd")
 

@@ -15,11 +15,14 @@ and RWKV6 scan kernels hold to the reference's bounds against their plain
 versions (stated at each test), and reduced float32 serving on the card to
 the CPU's tokens and logits.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import wire
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.optim.flatten import FlatLayout, LeafSpec
 from torch_round_cases import (NAMES, fp8_round_case, masked_round_case,
@@ -207,8 +210,10 @@ FLASH_CASES = [
     (1, 4, 1, 256, 32, True, 64), (1, 2, 2, 128, 32, False, 0),
     (1, 8, 2, 128, 128, True, 0), (2, 4, 2, 16, 16, True, 0),
     (1, 4, 4, 96, 16, True, 40), (1, 4, 2, 256, 128, True, 100),
-    # the zoo's head dims on the CUDA-core kernel: stablelm-3b's 80 (MHA),
-    # kimi-k2's 112 (GQA 8/1, a window, S not a multiple of the tile)
+    # the zoo's head dims: stablelm-3b's 80 (MHA), kimi-k2's 112 (GQA 8/1,
+    # a window, S not a multiple of the tile); in bf16 these run the
+    # CUDA-core kernel through kernel="cc" (the route takes them to the
+    # tensor-core one, TC_CASES below)
     (2, 4, 4, 256, 80, True, 0), (1, 8, 1, 112, 112, True, 64),
     (1, 4, 4, 128, 80, False, 0)]
 
@@ -222,7 +227,10 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
     """The flash kernel against its plain version on the card (K/V of
     fewer heads read by the kernel's head index, repeated for the plain
     version): atol 2e-5 in float32, 2e-2 in bf16 (the plain version
-    rounds logits and probabilities to bf16, the kernel keeps f32)."""
+    rounds logits and probabilities to bf16, the kernel keeps f32). bf16
+    at hd 80 and 112 runs the CUDA-core kernel through
+    ``fa.launch(kernel="cc")``, which ``ops`` never passes, so the launch
+    counters stay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     b, h, kh, s, hd, causal, window = case
@@ -234,27 +242,55 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
     vr = v.repeat_interleave(h // kh, dim=1)
     want = ref.flash_attention_ref(q, kr, vr, causal=causal, window=window)
     before = ops.flash_attention.launches
-    if layout == "bhsd":
-        got = ops.flash_attention_hmajor(q, k, v, causal=causal,
+    cc_only = dt == torch.bfloat16 and hd in (80, 112)
+    args = (q, k, v) if layout == "bhsd" else \
+        tuple(t.transpose(1, 2) for t in (q, k, v))
+    if cc_only:
+        assert fa.route(dt, hd) == "tc"
+        got = fa.launch(*args, causal=causal, window=window, layout=layout,
+                        kernel="cc")
+    elif layout == "bhsd":
+        got = ops.flash_attention_hmajor(*args, causal=causal,
                                          window=window)
     else:
-        got = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
-                                  causal=causal, window=window)
+        got = ops.flash_attention(*args, causal=causal, window=window)
+    if layout == "bshd":
         got = got.transpose(1, 2)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches == before + (not cc_only)
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
-# the tensor-core flash kernel's edges (bf16, head dim 64 or 128), through
-# ops: (b, h, kv heads, s, hd, window) — the serve path's shape at B 1, a
-# window smaller than the kernel's 128-key tile, GQA 32/8 at hd 128, hd 64,
-# and S 96, below one 128-row tile
+# the tensor-core flash kernel's edges (bf16, head dim 64, 80, 112 or 128),
+# through ops: (b, h, kv heads, s, hd, window) — the serve path's shape at
+# B 1, a window smaller than the kernel's 128-key tile, GQA 32/8 at hd 128,
+# hd 64, and S 96, below one 128-row tile; then the padded tile's widths:
+# stablelm-3b's 32/32 heads of 80 at S 512, hd 80 at S 96, kimi-k2's GQA
+# 64/8 at hd 112 with a window of 40, and hd 112 at S 96
 TC_CASES = [(1, 32, 32, 512, 128, 0), (1, 4, 4, 256, 128, 40),
             (1, 32, 8, 256, 128, 0), (2, 4, 2, 256, 64, 0),
-            (2, 4, 2, 96, 64, 0)]
+            (2, 4, 2, 96, 64, 0),
+            (1, 32, 32, 512, 80, 0), (2, 4, 4, 96, 80, 0),
+            (1, 64, 8, 256, 112, 40), (2, 4, 2, 96, 112, 0)]
+# a kernel that never ends (an mbarrier expecting more bytes than TMA
+# delivers waits for ever) fails its test after this many seconds
+TC_TIMEOUT_S = 60.0
+
+
+def _sync_within(seconds: float = TC_TIMEOUT_S) -> None:
+    """Wait for the card's queue to drain, and fail the test if it has not
+    within ``seconds``: a hang of the tensor-core kernel becomes a failure
+    (the kernel itself traps after 2^26 polls of one barrier)."""
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.monotonic()
+    while not ev.query():
+        if time.monotonic() - t0 > seconds:
+            pytest.fail(f"the flash kernel did not finish in {seconds} s")
+        time.sleep(1e-3)
+    torch.cuda.synchronize()
 
 
 def _tc_inputs(b, h, kh, s, hd, seed):
@@ -277,9 +313,10 @@ def _tc_want(q, k, v, window):
 @pytest.mark.parametrize("case", TC_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_cuda_flash_tensor_core_kernel(case, layout):
-    """bf16 at hd 64 and 128 runs the tensor-core kernel (both counters
-    move), held at 2e-2 against the plain version evaluated in f32 (the
-    kernel rounds p to bf16 for its p.v product)."""
+    """bf16 at hd 64, 80, 112 and 128 runs the tensor-core kernel (both
+    counters move), held at 2e-2 against the plain version evaluated in f32
+    (the kernel rounds p to bf16 for its p.v product); a launch that does
+    not end within TC_TIMEOUT_S fails."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     b, h, kh, s, hd, window = case
@@ -291,7 +328,7 @@ def test_cuda_flash_tensor_core_kernel(case, layout):
     else:
         got = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
                                   causal=True, window=window).transpose(1, 2)
-    torch.cuda.synchronize()
+    _sync_within()
     assert (ops.flash_attention.launches - before[0],
             ops.flash_attention.tc_launches - before[1]) == (1, 1)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
@@ -300,18 +337,20 @@ def test_cuda_flash_tensor_core_kernel(case, layout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-def test_cuda_flash_tensor_core_ragged_sequence(layout):
-    """S 192 is not a multiple of the kernel's 128-row tile: TMA fills the
-    rows past the end with zeros, the kernel masks those keys and writes
-    no row past the end. The wrappers in ``ops`` refuse S 192 (the
-    reference's S % min(128, S) rule), so the kernel is launched here
-    directly; its route is the tensor-core one."""
+@pytest.mark.parametrize("s,hd", [(192, 128), (200, 80), (200, 112)])
+def test_cuda_flash_tensor_core_ragged_sequence(layout, s, hd):
+    """S 192 or 200 is not a multiple of the kernel's 128-row tile: TMA
+    fills the rows past the end with zeros (and, at hd 80 and 112, the
+    columns past hd), the kernel masks those keys and writes no row past
+    the end. The wrappers in ``ops`` refuse such an S (the reference's
+    S % min(128, S) rule), so the kernel is launched here directly; its
+    route is the tensor-core one. A launch that does not end within
+    TC_TIMEOUT_S fails."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
-    from repro_torch.kernels import flash_attention as fa
-    q, k, v = _tc_inputs(2, 4, 2, 192, 128, seed=192)
+    q, k, v = _tc_inputs(2, 4, 2, s, hd, seed=s if hd == 128 else s + hd)
     want = _tc_want(q, k, v, 0)
-    assert fa.route(q.dtype, 128) == "tc"
+    assert fa.route(q.dtype, hd) == "tc"
     with pytest.raises(ValueError, match="multiple of the block"):
         ops.flash_attention_hmajor(q, k, v)
     if layout == "bhsd":
@@ -319,7 +358,7 @@ def test_cuda_flash_tensor_core_ragged_sequence(layout):
     else:
         got = fa.launch(*(t.transpose(1, 2) for t in (q, k, v)), causal=True,
                         window=0, layout="bshd").transpose(1, 2)
-    torch.cuda.synchronize()
+    _sync_within()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
 
 

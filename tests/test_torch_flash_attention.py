@@ -32,6 +32,17 @@ CASES = [
     # with a window)
     (1, 4, 4, 128, 80, True, 0, 64, 64),
     (1, 8, 1, 128, 112, True, 48, 64, 64),
+    # the edges of the tensor-core kernel's padded tile at hd 80 and 112:
+    # GQA 8/2, S 200 (not a multiple of its 128 rows; the Pallas kernel
+    # tiles it by 40), and a window of 100, under its 128-key tile; then
+    # the card tests' shapes: S 96 (below one tile) at both widths, and
+    # GQA with a window of 40 at hd 112
+    (1, 8, 2, 128, 80, True, 0, 64, 64),
+    (1, 2, 2, 200, 80, True, 0, 40, 40),
+    (1, 4, 2, 256, 112, True, 100, 128, 128),
+    (2, 4, 4, 96, 80, True, 0, 96, 96),
+    (2, 4, 2, 96, 112, True, 0, 96, 96),
+    (1, 8, 1, 256, 112, True, 40, 128, 128),
 ]
 DTYPES = ("float32", "bfloat16")
 # model layout [B, S, H, hd]: (causal, window, kv heads) with 4 query heads
@@ -103,18 +114,26 @@ def _torch(x, dtype):
 def test_plain_flash_matches_pallas_and_oracle(reference, case, dtype):
     """The plain version (K/V repeated to the query heads) and the
     head-major wrapper's CPU path (which repeats them itself) against the
-    Pallas kernel and the reference's oracle."""
+    Pallas kernel and the reference's oracle. The wrapper refuses an S
+    that is not a multiple of min(128, S), as the reference's wrapper
+    does; at such an S only the kernel, called directly, meets the plain
+    version (tests/test_torch_cuda.py)."""
     n = CASES.index(case)
-    _, h, kh, _, _, causal, window, _, _ = case
+    _, h, kh, s, _, causal, window, _, _ = case
     q, k, v = (_torch(x, dtype) for x in _inputs(n, case, dtype))
     kr = k.repeat_interleave(h // kh, dim=1)
     vr = v.repeat_interleave(h // kh, dim=1)
     plain = ref.flash_attention_ref(q, kr, vr, causal=causal, window=window)
-    hmajor = ops.flash_attention_hmajor(q, k, v, causal=causal,
-                                        window=window)
-    assert plain.dtype == hmajor.dtype == q.dtype
+    outs = [plain]
+    if s % min(ops.ATTN_BLOCK, s):
+        with pytest.raises(ValueError, match="multiple of the block"):
+            ops.flash_attention_hmajor(q, k, v, causal=causal, window=window)
+    else:
+        outs.append(ops.flash_attention_hmajor(q, k, v, causal=causal,
+                                               window=window))
+    assert all(x.dtype == q.dtype for x in outs)
     key = f"{_case_id(case)}/{dtype}"
-    for got in (plain, hmajor):
+    for got in outs:
         for want in ("pallas", "oracle"):
             np.testing.assert_allclose(got.float().numpy(),
                                        reference[f"{want}/{key}"],

@@ -2,9 +2,9 @@
 that ``chip_smoke.py`` reads a build with: all of it plain Python that runs
 before any kernel is built, so it is tested here on the CPU.
 
-* ``kernels.flash_attention.route`` sends bf16 at head dim 64 or 128 to the
-  tensor-core kernel and everything else (float32, and bf16 at head dim
-  16, 32, 80 or 112) to the CUDA-core one.
+* ``kernels.flash_attention.route`` sends bf16 at head dim 64, 80, 112 or
+  128 to the tensor-core kernel and everything else (float32 at every head
+  dim, and bf16 at head dim 16 or 32) to the CUDA-core one.
 * ``flash_attention.plan`` and ``rwkv6_scan.plan`` refuse what their
   kernel does not take (a 16-byte-misaligned tensor for the tensor-core
   kernel's TMA, a head dim or a chunk outside the compiled ones) with a
@@ -32,9 +32,11 @@ def no_build(monkeypatch):
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 32, "cc"), (torch.bfloat16, 16, "cc"),
-    (torch.bfloat16, 80, "cc"), (torch.bfloat16, 112, "cc"),
+    (torch.bfloat16, 80, "tc"), (torch.bfloat16, 112, "tc"),
     (torch.float32, 128, "cc"), (torch.float32, 64, "cc"),
-    (torch.float32, 80, "cc"), (torch.float16, 128, "cc")])
+    (torch.float32, 80, "cc"), (torch.float16, 128, "cc"),
+    (torch.float32, 112, "cc"), (torch.float32, 32, "cc"),
+    (torch.float32, 16, "cc")])
 def test_flash_route_rule(dtype, hd, want):
     assert fa.route(dtype, hd) == want
 
@@ -43,11 +45,29 @@ def test_flash_route_rule(dtype, hd, want):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_plan_takes_the_zoo_head_dims(no_build, hd, dtype):
     """stablelm-3b's hd 80 and kimi-k2's 112 (GQA 64/8 in the model layout)
-    go to the CUDA-core kernel in either dtype, by rule."""
+    go to the tensor-core kernel in bf16 and to the CUDA-core one in
+    float32, by rule."""
     q = torch.zeros(2, 128, 64, hd, dtype=dtype)
     k = torch.zeros(2, 128, 8, hd, dtype=dtype)
     p = fa.plan(q, k, k, window=0)
-    assert p["route"] == "cc" and (p["h"], p["kv"], p["hd"]) == (64, 8, hd)
+    want = "tc" if dtype == torch.bfloat16 else "cc"
+    assert p["route"] == want and (p["h"], p["kv"], p["hd"]) == (64, 8, hd)
+
+
+@pytest.mark.parametrize("hd,h,kv", [(80, 32, 32), (112, 64, 8)])
+def test_flash_plan_zoo_model_layout_passes_tma_checks(no_build, hd, h, kv):
+    """stablelm-3b's [B, S, 32, 80] and kimi-k2's [B, S, 64, 112] (8 KV
+    heads) in the model layout: bf16 routes to the tensor-core kernel, and
+    their strides (hd and H x hd elements, multiples of 8) pass its TMA
+    checks as they are."""
+    b, s = 2, 512
+    q = torch.zeros(b, s, h, hd, dtype=torch.bfloat16)
+    k = torch.zeros(b, s, kv, hd, dtype=torch.bfloat16)
+    p = fa.plan(q, k, k, window=0)
+    assert p["route"] == "tc" and (p["b"], p["s"], p["h"], p["kv"],
+                                   p["hd"]) == (b, s, h, kv, hd)
+    assert p["strides"][0] == [s * h * hd, h * hd, hd]
+    assert p["strides"][1] == p["strides"][2] == [s * kv * hd, kv * hd, hd]
 
 
 def _misaligned(shape, dtype, offset=1):
@@ -82,6 +102,31 @@ def test_flash_plan_refuses_misaligned_bf16(no_build, layout):
     q32 = _misaligned(shape, torch.float32)
     ok32 = ok.float()
     assert fa.plan(q32, ok32, ok32, window=0, layout=layout)["route"] == "cc"
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_plan_refuses_misaligned_bf16_at_hd80(no_build, layout):
+    """hd 80 routes to the tensor-core kernel: a base off 16 bytes raises,
+    it is not sent to the CUDA-core kernel (which would read it)."""
+    shape = (2, 128, 4, 80) if layout == "bshd" else (2, 4, 128, 80)
+    q = _misaligned(shape, torch.bfloat16)
+    ok = torch.zeros(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.plan(q, ok, ok, window=0, layout=layout)
+    assert fa.plan(q, ok, ok, window=0, layout=layout,
+                   route_to="cc")["route"] == "cc"
+
+
+def test_flash_plan_refuses_strides_off_16_bytes_at_hd80(no_build):
+    """Heads of 84 bf16 cut to 80: a head stride of 168 bytes, not a
+    multiple of 16, raises; only the timing override reaches the
+    CUDA-core kernel with it."""
+    q = torch.zeros(2, 64, 2, 84, dtype=torch.bfloat16)[..., :80]
+    ok = torch.zeros(2, 64, 2, 80, dtype=torch.bfloat16)
+    assert fa.route(q.dtype, 80) == "tc"
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.plan(q, ok, ok, window=0)
+    assert fa.plan(q, ok, ok, window=0, route_to="cc")["route"] == "cc"
 
 
 def test_flash_plan_refuses_strides_off_16_bytes(no_build):
