@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root (the hash
-covers the source and the flags, so an edited source is never served from a
-stale library). Nothing is compiled when this module is imported: the first
-call that needs a kernel builds it.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source is never served from a stale library). Nothing is compiled
+when this module is imported: the first call that needs a kernel builds
+it.
 
 There is no fallback: without ``nvcc`` (or without a card) a kernel cannot
 be built, and the caller gets an error saying so.
@@ -60,7 +61,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the headers too (every source may include them)
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -89,6 +89,8 @@
 
 #include <type_traits>
 
+#include "mma_tf32.cuh"   // tf32, mma_tf32, SplitA, mma3
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -195,50 +197,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
          "r"(c1), "r"(c2), "r"(b), "r"(bar)
       : "memory");
-}
-
-// ---- tensor cores: mma.sync m16n8k8 in TF32, three products a term ------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// an m16 x k8 operand in two TF32 parts, x = hi + lo
-struct SplitA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ explicit SplitA(const float (&x)[4]) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      hi[n] = tf32(x[n]);
-      lo[n] = tf32(x[n] - __uint_as_float(hi[n]));
-    }
-  }
-};
-
-// c += a b to about f32's precision: a_lo b_hi + a_hi b_lo + a_hi b_hi
-// (a_lo b_lo, 2^-22 of the product, dropped); with `b_exact` b is a TF32
-// number (v widened from bf16) and its low part is 0
-template <bool b_exact>
-__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, float b0,
-                                     float b1) {
-  const uint32_t h0 = b_exact ? __float_as_uint(b0) : tf32(b0);
-  const uint32_t h1 = b_exact ? __float_as_uint(b1) : tf32(b1);
-  mma_tf32(c, a.lo, h0, h1);
-  if (!b_exact)
-    mma_tf32(c, a.hi, tf32(b0 - __uint_as_float(h0)),
-             tf32(b1 - __uint_as_float(h1)));
-  mma_tf32(c, a.hi, h0, h1);
 }
 
 template <typename T, int HD, int CM>

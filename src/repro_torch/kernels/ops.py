@@ -73,7 +73,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     the CUDA kernels tile by their own sizes and compute the same function.
     On the card, bf16 at head dim 64, 80, 112 or 128 runs the tensor-core
     kernel (p rounded to bf16 for p.v) and the rest (float32, bf16 at hd
-    16 or 32) the f32 CUDA-core kernel (``kernels.flash_attention.route``).
+    16 or 32) the "cc" kernel, whose TF32 products in three parts keep
+    about f32's precision (``kernels.flash_attention.route``).
     """
     return _flash(q, k, v, causal, window, "bshd")
 

@@ -212,7 +212,7 @@ FLASH_CASES = [
     (1, 4, 4, 96, 16, True, 40), (1, 4, 2, 256, 128, True, 100),
     # the zoo's head dims: stablelm-3b's 80 (MHA), kimi-k2's 112 (GQA 8/1,
     # a window, S not a multiple of the tile); in bf16 these run the
-    # CUDA-core kernel through kernel="cc" (the route takes them to the
+    # "cc" kernel through kernel="cc" (the route takes them to the
     # tensor-core one, TC_CASES below)
     (2, 4, 4, 256, 80, True, 0), (1, 8, 1, 112, 112, True, 64),
     (1, 4, 4, 128, 80, False, 0)]
@@ -228,7 +228,7 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
     fewer heads read by the kernel's head index, repeated for the plain
     version): atol 2e-5 in float32, 2e-2 in bf16 (the plain version
     rounds logits and probabilities to bf16, the kernel keeps f32). bf16
-    at hd 80 and 112 runs the CUDA-core kernel through
+    at hd 80 and 112 runs the "cc" kernel through
     ``fa.launch(kernel="cc")``, which ``ops`` never passes, so the launch
     counters stay."""
     if not torch.cuda.is_available():
@@ -261,6 +261,61 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype, layout):
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+# the "cc" kernel (mma.sync in TF32 parts) at the shapes chip_smoke.py
+# times it: f32 at B 4, S 512, 32 heads of 128 (key tiles through both
+# cp.async buffers, causal), and bf16 at hd 16 and 32, its own route
+CC_PATH_CASES = [("float32", 128), ("bfloat16", 16), ("bfloat16", 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", CC_PATH_CASES)
+def test_cuda_flash_cc_kernel_at_path_shape(dtype, hd):
+    """Through ``ops`` on the "cc" route (one launch, none on the
+    tensor-core kernel), against the plain version evaluated in f32 on the
+    same inputs: atol 2e-5 in f32, 2e-2 in bf16 (the output's rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(70 + hd)
+    q, k, v = (torch.randn(4, 32, 512, hd, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True, window=0)
+    assert fa.route(dt, hd) == "cc"
+    before = (ops.flash_attention.launches, ops.flash_attention.tc_launches)
+    got = ops.flash_attention_hmajor(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - before[0],
+            ops.flash_attention.tc_launches - before[1]) == (1, 0)
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset,copy", [
+    ("float32", 1, 4), ("bfloat16", 2, 4), ("bfloat16", 1, 2)])
+def test_cuda_flash_cc_kernel_misaligned_views(dtype, offset, copy):
+    """q, k and v as views ``offset`` elements into their buffers: rows
+    that do not start 16-byte aligned take the 4-byte copies (bf16 rows at
+    an odd element, plain loads), as ``plan`` reports, and the kernel still
+    holds its plain version (S 200: a ragged last key tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dt = getattr(torch, dtype)
+    shape, n = (2, 4, 200, 32), 2 * 4 * 200 * 32
+    g = torch.Generator(device="cuda").manual_seed(80 + offset)
+    q, k, v = (torch.randn(n + 8, generator=g, device="cuda").to(dt)
+               [offset:offset + n].view(shape) for _ in range(3))
+    assert fa.plan(q, k, v, window=0, layout="bhsd")["copy_bytes"] == copy
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True, window=0)
+    got = fa.launch(q, k, v, causal=True, window=0, layout="bhsd")
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
 
 
 # the tensor-core flash kernel's edges (bf16, head dim 64, 80, 112 or 128),

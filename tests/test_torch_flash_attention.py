@@ -10,6 +10,15 @@ generators below (bf16 inputs rounded to bf16 through f32 on both sides).
 Tolerances are the reference's own (``tests/test_kernels.py``): atol 2e-5
 in float32, 2e-2 in bf16 (the plain version rounds the logits and the
 probabilities to bf16 where the kernel keeps f32).
+
+The card's "cc" kernel (``csrc/flash_attention.cu``) takes its products on
+the tensor cores in TF32, each f32 operand split into two TF32 parts. Its
+arithmetic is emulated here in numpy (TF32 rounding as ``cvt.rna`` on the
+bit pattern for the high part, the low part truncated as the tensor cores
+read it, a_lo b_lo dropped, its key tiles and base-2 online softmax) and
+held to the plain version at the f32 tolerance; one TF32 part a product
+misses it, so the test guards the split. ``plan``'s copy width for that
+kernel is checked on aligned and misaligned views.
 """
 import numpy as np
 import pytest
@@ -174,3 +183,145 @@ def test_flash_has_no_path_off_the_cpu_and_the_card():
     c = torch.zeros(1, 64, 2, 16)
     with pytest.raises(ValueError, match="not on a CUDA card"):
         fa_kernel.launch(c, c, c, causal=True, window=0)
+
+
+# -- the "cc" kernel's arithmetic: mma.sync in TF32 parts -------------------
+EMU_HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32 on the bit pattern: round the f32 magnitude to 10
+    mantissa bits, ties away from zero (finite x)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_trunc(x):
+    """A TF32 operand as the tensor cores read an f32 bit pattern: the low
+    13 bits dropped."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_product(a, b, parts, a_exact=False, b_exact=False):
+    """a @ b as the kernel takes it: f32 sums of TF32 products, each f32
+    operand split as x = hi + lo (hi = tf32(x), lo = x - hi, read by the
+    tensor cores as tf32_trunc(lo)) and the terms a_lo b_hi + a_hi b_lo +
+    a_hi b_hi summed in that order (a_lo b_lo dropped); an exact operand
+    (bf16 widened: a TF32 number) has no low part; ``parts`` 1 takes
+    a_hi b_hi alone. A product of two TF32 numbers is exact in f32."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    if parts == 1:
+        return a_hi @ b_hi
+    out = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    if not a_exact:
+        out += tf32_trunc(a - a_hi) @ b_hi
+    if not b_exact:
+        out += a_hi @ tf32_trunc(b - b_hi)
+    return out + a_hi @ b_hi
+
+
+def emulate_cc_kernel(q, k, v, *, parts, exact, key_tile, causal=True):
+    """The "cc" kernel on [H, S, hd] f32 numpy inputs: key tiles of
+    ``key_tile`` rows, S = Q K^T (``exact``: q and k are TF32 numbers, one
+    product a term), logits scaled by log2(e) / sqrt(hd) in f32, masked at
+    -1e30, the online softmax in base 2 in f32, O += P V (p split, v exact
+    when ``exact``), and out = acc / max(l, 1e-30)."""
+    h, s, hd = q.shape
+    scale = np.float32(np.float32(1.4426950408889634)
+                       / np.sqrt(np.float32(hd)))
+    m = np.full((h, s, 1), -1e30, np.float32)
+    l = np.zeros((h, s, 1), np.float32)
+    acc = np.zeros((h, s, hd), np.float32)
+    qpos = np.arange(s)[:, None]
+    for k0 in range(0, s, key_tile):
+        kt, vt = k[:, k0:k0 + key_tile], v[:, k0:k0 + key_tile]
+        logits = tf32_product(q, kt.transpose(0, 2, 1), parts,
+                              b_exact=exact, a_exact=exact) * scale
+        kpos = np.arange(k0, k0 + kt.shape[1])[None, :]
+        if causal:
+            logits = np.where(kpos <= qpos, logits, np.float32(-1e30))
+        m_new = np.maximum(m, logits.max(-1, keepdims=True))
+        alpha = np.exp2(m - m_new)
+        p = np.exp2(logits - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        acc = acc * alpha + tf32_product(p, vt, parts, b_exact=exact)
+        m = m_new
+    return acc / np.maximum(l, np.float32(1e-30))
+
+
+@pytest.mark.parametrize("mode", ["f32, three parts", "bf16 operands",
+                                  "f32, one part"])
+@pytest.mark.parametrize("hd", EMU_HEAD_DIMS)
+def test_cc_kernel_tf32_arithmetic_holds_f32_tolerance(hd, mode):
+    """Three TF32 parts a product (bf16 operands unsplit) keep the "cc"
+    kernel within the f32 tolerance 2e-5 of the plain version at every
+    head dim; one part misses it (1 head of 4 x S 256, causal)."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (rng.normal(size=(4, 256, hd)).astype(np.float32)
+               for _ in range(3))
+    exact = mode == "bf16 operands"
+    if exact:
+        q, k, v = (bf16_round(x) for x in (q, k, v))
+    key_tile = 32 if hd >= 80 and not exact else 64
+    got = emulate_cc_kernel(q, k, v, parts=1 if "one" in mode else 3,
+                            exact=exact, key_tile=key_tile)
+    want = ref.flash_attention_ref(*(torch.from_numpy(x)[None]
+                                     for x in (q, k, v)),
+                                   causal=True, window=0)[0].numpy()
+    err = float(np.abs(got - want).max())
+    if "one" in mode:
+        assert err > TOL["float32"], err
+    else:
+        assert err <= TOL["float32"], err
+
+
+def test_every_finite_bf16_is_a_tf32_number():
+    """bf16 widened to f32 keeps 7 mantissa bits: TF32 rounding (10 bits)
+    leaves every finite one unchanged, so the kernel's bf16 operands need
+    no split."""
+    bits = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    finite = bits[np.isfinite(bits)]
+    assert finite.size == (1 << 16) - 2 * 128     # all but inf and NaN
+    assert np.array_equal(tf32(finite).view(np.uint32),
+                          finite.view(np.uint32))
+
+
+def _view(shape, dtype, offset):
+    n = int(np.prod(shape))
+    return torch.zeros(n + 16, dtype=dtype)[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype,offset,layout,copy", [
+    (torch.float32, 0, "bhsd", 16), (torch.float32, 0, "bshd", 16),
+    (torch.float32, 1, "bhsd", 4), (torch.float32, 2, "bshd", 4),
+    (torch.bfloat16, 0, "bhsd", 16), (torch.bfloat16, 2, "bhsd", 4),
+    (torch.bfloat16, 1, "bhsd", 2), (torch.bfloat16, 3, "bshd", 2)])
+def test_flash_plan_reports_the_cc_copy_width(dtype, offset, layout, copy):
+    """16-byte copies when every row of q, k and v starts 16-byte aligned,
+    4-byte ones when 4-byte aligned, plain loads for bf16 rows at an odd
+    element; a tensor map of the tensor-core route reports none."""
+    shape = (2, 4, 64, 32) if layout == "bhsd" else (2, 64, 4, 32)
+    q = _view(shape, dtype, offset)
+    ok = torch.zeros(shape, dtype=dtype)
+    p = fa_kernel.plan(q, ok, ok, window=0, layout=layout)
+    assert p["route"] == "cc" and p["copy_bytes"] == copy
+    # every row must be aligned: an aligned q with a misaligned v
+    assert fa_kernel.plan(ok, ok, q, window=0,
+                          layout=layout)["copy_bytes"] == copy
+    tc = torch.zeros(shape[:3] + (128,), dtype=torch.bfloat16)
+    assert fa_kernel.plan(tc, tc, tc, window=0,
+                          layout=layout)["copy_bytes"] is None
+
+
+def test_flash_plan_cc_copy_width_follows_the_strides():
+    """Rows of 36 floats cut to 32 start 16-byte aligned (144-byte
+    stride); rows of 33 floats cut to 32 only 4-byte aligned; a dim of
+    size 1 is never stepped, so its stride does not count."""
+    q = torch.zeros(1, 64, 2, 36)[..., :32]
+    assert fa_kernel.plan(q, q, q, window=0)["copy_bytes"] == 16
+    q = torch.zeros(1, 64, 2, 33)[..., :32]
+    assert fa_kernel.plan(q, q, q, window=0)["copy_bytes"] == 4
+    q = torch.zeros(64 * 2 * 32).as_strided((1, 64, 2, 32), (5, 64, 32, 1))
+    assert fa_kernel.plan(q, q, q, window=0)["copy_bytes"] == 16
