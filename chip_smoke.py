@@ -261,6 +261,33 @@ seconds):
               step and one round: loss, r_max and eta to 1e-3, the duals
               to 5e-3 of their norm.
 
+The ranks slice (after phase 19c; the consensus trainer over
+torch.distributed, each rank holding a block of the nodes; the ranks are
+``chip_smoke.py --ranks-worker SPEC`` processes under ``torchrun
+--standalone``, each returning digests of its rows, computed on the card):
+
+ 24. ranks  — ``launch.train.run`` on qwen3-4b at full width, 1 layer, 3
+              nodes on a ring, nap, eta0 0.1, the budget scheduler, node 1
+              dropped after step 3, 1 local step, 6 steps, 4 x 512 tokens
+              a node, lr 3e-4: first as one process, then as three ranks
+              of one node each sharing the card over gloo
+              (``--dist-backend gloo``: rows staged through pinned host
+              memory). Every node's parameter, lam and theta_bar_prev
+              rows, eta, the mask and liveness after the last round, and
+              every round's metrics, equal the one-process run's bit for
+              bit; each rank launches the gated kernel once a round and
+              the ungated one never. Prints each rank's peak memory, its
+              kernel ms per round (CUDA events around the launch) beside
+              the row's byte bound, the exchange's seconds per round
+              (staging included), the wire bytes per node per offset, the
+              step and round medians beside the one process's, and in how
+              many rounds the ranks' kernels overlapped on the card.
+ 25. nccl1  — the static slice's arguments (2 nodes, 4 layers, the
+              ungated round) as one rank over NCCL: the process group, the
+              gathers and the exchange's local copies on the NCCL path;
+              state and per-round metrics equal to phase 4's run bit for
+              bit.
+
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
 """
@@ -2257,19 +2284,32 @@ def static_slice(full, card_line, codec):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
     from repro_torch.models import build_model
+    from repro_torch.optim import consensus as cons_lib
     cfg = dataclasses.replace(full, n_layers=SLICE_LAYERS)
     args = train_lib.parse_args(SLICE_ARGS + ["--wire-codec", codec])
     tag = "slice" if codec == "native" else f"{codec} slice"
     torch.cuda.reset_peak_memory_stats()
     for c in COUNTS:
         setattr(ops.consensus_round, c, 0)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            acc_events=True) as prof:
-        t0 = time.perf_counter()
-        record = train_lib.run(cfg, args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the last round's state, for phase 25 (a reference kept, no work)
+    orig_step, last = cons_lib.ConsensusTrainer.consensus_step, []
+
+    def step(self, *a, **kw):
+        out = orig_step(self, *a, **kw)
+        last[:] = [out[0]]
+        return out
+
+    cons_lib.ConsensusTrainer.consensus_step = step
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            t0 = time.perf_counter()
+            record = train_lib.run(cfg, args)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cons_lib.ConsensusTrainer.consensus_step = orig_step
     launches, masked, per_block = (getattr(ops.consensus_round, c)
                                    for c in COUNTS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2324,10 +2364,324 @@ def static_slice(full, card_line, codec):
           flush=True)
     for name, (n, ms) in top:
         print(f"  {ms:10.1f} ms {n:6d}x  {name[:110]}")
+    nodes, replicated = state_digests(last.pop(), 0)
     del record
     torch.cuda.empty_cache()
     return dict(launches=launches, per_block=per_block,
-                in_round_ms=float(np.median(in_round)), layout=layout)
+                in_round_ms=float(np.median(in_round)), layout=layout,
+                nodes=nodes, replicated=replicated, rounds=rounds)
+
+
+# -- the ranks slice: the trainer over torch.distributed -------------------
+RANKS_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
+              "--eta0", "0.1", "--topo-scheduler", "budget", "--drop-node",
+              "3:1", "--local-steps", "1", "--steps", "6",
+              "--batch-per-node", "4", "--seq", "512", "--lr", "3e-4",
+              "--device", DEV]
+RANKS_LAYERS = 1
+RANKS_PROCS = 3
+RANKS_TIMEOUT_S = 480           # one torchrun call, start to end
+
+
+def digest(t, chunk=1 << 24) -> str:
+    """A digest of a tensor's bytes, computed on its device: the element
+    count, the sum of its bytes read as integers of its element size, and
+    a position-weighted sum, wrapping in int64 (integer sums do not depend
+    on the order of their terms). Not cryptographic."""
+    import torch
+    flat = t.reshape(-1)
+    ints = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    s1 = s2 = 0
+    for c0 in range(0, ints.numel(), chunk):
+        x = ints[c0:c0 + chunk].to(torch.int64)
+        w = torch.arange(c0, c0 + x.numel(), dtype=torch.int64,
+                         device=x.device) % 65521 + 1
+        s1 += int(x.sum())
+        s2 = (s2 + int((x * w).sum())) % (1 << 64)
+    return f"{ints.numel()}:{s1}:{s2}"
+
+
+def state_digests(state, node_lo):
+    """({node id: digests of its parameter rows, lam and theta_bar_prev
+    rows}, the replicated eta, mask and liveness) of a trainer state
+    holding nodes ``node_lo``... ."""
+    from repro_torch import tree as tree_lib
+    leaves = tree_lib.leaves(state.params)
+    nodes = {str(node_lo + i): {
+        "params": [digest(x[i]) for x in leaves],
+        "lam": digest(state.lam[i]), "bar": digest(state.theta_bar_prev[i])}
+        for i in range(state.lam.shape[0])}
+    return nodes, {"eta": digest(state.penalty.eta),
+                   "mask": digest(state.topo.mask),
+                   "alive": state.topo.node_alive.tolist()}
+
+
+def traced_train(cfg, args):
+    """``launch.train.run`` with hooks: the last round's state, each round
+    kernel's device ms (CUDA events) and host interval (``time.time``,
+    synchronized, comparable across processes), and each round's seconds
+    in ``circulant_into`` (synchronized). Counters from 0. Returns (record,
+    state, kernel ms, intervals, exchange seconds per round)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import consensus as cons_lib
+    orig_step = cons_lib.ConsensusTrainer.consensus_step
+    orig_launch = ops._cu.launch
+    orig_exchange = cons_lib.circulant_into
+    last, ms, spans, ex = [], [], [], []
+
+    def step(self, *a, **kw):
+        ex.append(0.0)
+        out = orig_step(self, *a, **kw)
+        last[:] = [out[0]]
+        return out
+
+    def launch(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = orig_launch(*a, **kw)
+        ev1.record()
+        ev1.synchronize()
+        spans.append((t0, time.time()))
+        ms.append(ev0.elapsed_time(ev1))
+        return out
+
+    def exchange(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_exchange(*a, **kw)
+        torch.cuda.synchronize()
+        ex[-1] += time.perf_counter() - t0
+
+    for c in COUNTS:
+        setattr(ops.consensus_round, c, 0)
+    cons_lib.ConsensusTrainer.consensus_step = step
+    ops._cu.launch = launch
+    cons_lib.circulant_into = exchange
+    try:
+        record = train_lib.run(cfg, args)
+    finally:
+        cons_lib.ConsensusTrainer.consensus_step = orig_step
+        ops._cu.launch = orig_launch
+        cons_lib.circulant_into = orig_exchange
+    torch.cuda.synchronize()
+    record["counts"] = {c: getattr(ops.consensus_round, c) for c in COUNTS}
+    return record, last[0], ms, spans, ex
+
+
+def ranks_worker(spec_path) -> int:
+    """One rank of a torchrun call (``chip_smoke.py --ranks-worker
+    SPEC``): ``traced_train`` on the spec's arguments and depth, then this
+    rank's digests and numbers into ``rank<r>.json`` beside the spec."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_lib
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              n_layers=spec["layers"])
+    args = train_lib.parse_args(spec["args"])
+    torch.cuda.reset_peak_memory_stats()
+    record, state, ms, spans, ex = traced_train(cfg, args)
+    per = args.nodes // int(os.environ["WORLD_SIZE"])
+    nodes, rep = state_digests(state, rank * per)
+    out = dict(rank=rank, nodes=nodes, replicated=rep,
+               rounds=record["rounds"], step_seconds=record["step_seconds"],
+               kernel_ms=ms, spans=spans, exchange_s=ex,
+               counts=record["counts"], wire_bytes=record["wire_bytes"],
+               total=record["layout"].total,
+               device=str(state.lam.device),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_ranks(tag, nproc, args_list, layers):
+    """``chip_smoke.py --ranks-worker`` under ``torchrun --standalone
+    --nproc-per-node nproc`` (its own process group, killed whole at the
+    time limit); fails unless every rank ends with 0. Returns the ranks'
+    records and the call's seconds."""
+    import signal
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"args": args_list, "layers": layers}, f)
+        env = dict(os.environ)
+        # one host: the ranks' sockets stay on the loopback interface
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        # ranks sharing a card: each process's allocator maps and unmaps
+        # pages instead of keeping segments of its own phases' sizes
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        log = os.path.join(tmp, "torchrun.log")
+        t0 = time.perf_counter()
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(nproc),
+                 os.path.join(ROOT, "chip_smoke.py"), "--ranks-worker",
+                 spec], stdout=out, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=RANKS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = f"none: killed at its {RANKS_TIMEOUT_S} s limit"
+            finally:
+                # the agent and its ranks: nothing outlives the call
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines() if "consensus r=" in ln]
+        print(f"{tag}: torchrun --nproc-per-node {nproc}, rc {rc}, "
+              f"{seconds:.1f} s; rank 0's last lines:\n  "
+              + "\n  ".join(lines[-3:]), flush=True)
+        if rc != 0:        # every rank's traceback, then the agent's tail
+            print("\n".join(ln for ln in text.splitlines()
+                            if ln.startswith("[rank"))[-12000:], flush=True)
+        check(rc == 0, f"{tag}: torchrun exited {rc}:\n{text[-3000:]}")
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def same_run(tag, ranks, nodes, rep, rounds):
+    """Each rank's node digests and replicated digests equal the
+    one-process run's (``nodes``, ``rep``), and its rounds' metrics equal
+    ``rounds``, bit for bit."""
+    got = {}
+    for r in ranks:
+        got.update(r["nodes"])
+        check(r["replicated"] == rep,
+              f"{tag}: rank {r['rank']}'s replicated state "
+              f"{r['replicated']} != {rep}")
+        check(len(r["rounds"]) == len(rounds),
+              f"{tag}: rank {r['rank']} ran {len(r['rounds'])} rounds, "
+              f"want {len(rounds)}")
+        for a, b in zip(r["rounds"], rounds):
+            keys = [k for k in b if k not in ("seconds",) + COUNTS]
+            check(all(a[k] == b[k] for k in keys),
+                  f"{tag}: rank {r['rank']}'s round "
+                  f"{ {k: a[k] for k in keys} } != { {k: b[k] for k in keys} }")
+    check(got == nodes, f"{tag}: node rows differ: "
+          + str([n for n in nodes if got.get(n) != nodes[n]]))
+
+
+def ranks_slice(full, card_line):
+    """Phase 24: three ranks share the card over gloo against one process,
+    on qwen3-4b at full width, one layer (``RANKS_ARGS``)."""
+    import torch
+    from repro_torch.launch import train as train_lib
+    cfg = dataclasses.replace(full, n_layers=RANKS_LAYERS)
+    args = train_lib.parse_args(RANKS_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    record, state, ms1, _, ex1 = traced_train(cfg, args)
+    one_s = time.perf_counter() - t0
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    nodes, rep = state_digests(state, 0)
+    del state
+    torch.cuda.empty_cache()
+    free, card_bytes = torch.cuda.mem_get_info()
+    print(f"ranks: {free / 1e9:.2f} of {card_bytes / 1e9:.2f} GB free "
+          "before the ranks start", flush=True)
+    n_rounds = args.steps // args.local_steps
+    check(record["counts"] == {"launches": 0, "masked_launches": n_rounds,
+                               "per_block_launches": 0},
+          f"ranks one process: launches {record['counts']}")
+    ranks, call_s = launch_ranks(
+        "ranks", RANKS_PROCS, RANKS_ARGS + ["--dist-backend", "gloo"],
+        RANKS_LAYERS)
+    same_run("ranks", ranks, nodes, rep, record["rounds"])
+    for r in ranks:
+        check(r["counts"] == {"launches": 0, "masked_launches": n_rounds,
+                              "per_block_launches": 0}
+              and len(r["kernel_ms"]) == n_rounds,
+              f"ranks: rank {r['rank']} launches {r['counts']}")
+        check(r["wire_bytes"] == record["wire_bytes"],
+              f"ranks: wire bytes {r['wire_bytes']}")
+    total, deg = ranks[0]["total"], len(record["offsets"])
+    # one node's row: theta and the wires bf16, lam, bar_prev, lam', bar
+    # f32, theta' bf16
+    bound = total * (2 + 2 + 4 + 4 + 4 + 4 + 2 * deg) / HBM_BYTES_PER_S * 1e3
+    overlap = sum(
+        max(r["spans"][k][0] for r in ranks)
+        < min(r["spans"][k][1] for r in ranks) for k in range(n_rounds))
+    print(f"ranks: {cfg.arch_id} x{RANKS_LAYERS} layer at full width, "
+          f"{total} elements per node row, J {args.nodes} on "
+          f"{RANKS_PROCS} ranks over gloo sharing the card; state, rounds "
+          f"and liveness equal the one-process run bit for bit; "
+          f"{record['wire_bytes']} wire bytes per node per offset; one "
+          f"process {one_s:.1f} s, torchrun {call_s:.1f} s [{card_line}]",
+          flush=True)
+    for r in ranks:
+        print(f"ranks rank {r['rank']} ({r['device']}): peak "
+              f"{r['peak_gb']:.2f} GB ({r['reserved_gb']:.2f} reserved); "
+              "kernel ms per round "
+              + " ".join(f"{t:.3f}" for t in r["kernel_ms"])
+              + f" (bound {bound:.3f} at J/R 1); exchange s per round "
+              + " ".join(f"{t:.3f}" for t in r["exchange_s"])
+              + "; step s " + " ".join(f"{t:.3f}"
+                                       for t in r["step_seconds"])
+              + f"; step median {np.median(r['step_seconds']):.3f}, round "
+              f"median {np.median([x['seconds'] for x in r['rounds']]):.3f}",
+              flush=True)
+    print(f"ranks one process: peak {peak1:.2f} GB; kernel ms per round "
+          + " ".join(f"{t:.3f}" for t in ms1)
+          + f" (bound {bound * args.nodes:.3f} at J 3); local copies s per "
+          "round " + " ".join(f"{t:.3f}" for t in ex1)
+          + f"; step median {np.median(record['step_seconds']):.3f}, round "
+          f"median {np.median([x['seconds'] for x in record['rounds']]):.3f}"
+          f"; the ranks' kernels overlapped in {overlap} of {n_rounds} "
+          f"rounds [{card_line}]", flush=True)
+    return dict(launches=sum(r["counts"]["masked_launches"] for r in ranks),
+                kernel_ms=float(np.median([t for r in ranks
+                                           for t in r["kernel_ms"]])),
+                bound_ms=bound,
+                exchange_s=float(np.median([t for r in ranks
+                                            for t in r["exchange_s"]])),
+                overlap_rounds=overlap, seconds=one_s + call_s)
+
+
+def nccl1_slice(static, card_line):
+    """Phase 25: the static slice's arguments as one rank over NCCL,
+    against the static slice's run in this process (``static``)."""
+    ranks, call_s = launch_ranks(
+        "nccl1", 1, SLICE_ARGS + ["--wire-codec", "native",
+                                  "--dist-backend", "nccl"], SLICE_LAYERS)
+    same_run("nccl1", ranks, static["nodes"], static["replicated"],
+             static["rounds"])
+    r = ranks[0]
+    n_rounds = len(static["rounds"])
+    check(r["counts"] == {"launches": n_rounds, "masked_launches": 0,
+                          "per_block_launches": 0},
+          f"nccl1: launches {r['counts']}")
+    print(f"nccl1: one rank over NCCL ({r['device']}), state and rounds "
+          f"equal the static slice's bit for bit; kernel ms per round "
+          + " ".join(f"{t:.3f}" for t in r["kernel_ms"])
+          + "; exchange s per round " + " ".join(f"{t:.3f}"
+                                                 for t in r["exchange_s"])
+          + f"; step median {np.median(r['step_seconds']):.3f}; peak "
+          f"{r['peak_gb']:.2f} GB; torchrun {call_s:.1f} s [{card_line}]",
+          flush=True)
+    return dict(launches=r["counts"]["launches"], seconds=call_s)
 
 
 # -- the paper slice: dense ConsensusADMM and D-PPCA ---------------------
@@ -3146,6 +3500,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--ranks-worker":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return ranks_worker(sys.argv[2])
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import stacked_defs
     from repro_torch.optim.flatten import FlatLayout
@@ -3283,6 +3641,15 @@ def main() -> int:
     print(f"obs slice: phases 19 and 19b {t1 - t0:.1f} s, 19c "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
 
+    # -- 24, 25. the ranks slice: three gloo ranks sharing the card against
+    # one process; one NCCL rank against the static slice ----------------
+    t0 = time.perf_counter()
+    ranks = ranks_slice(full, card_line)
+    t1 = time.perf_counter()
+    nccl1 = nccl1_slice(static, card_line)
+    print(f"ranks slice: phase 24 {t1 - t0:.1f} s, 25 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
     # -- (e) the flat update: one f32 row at the slice's size, and an N that
     # is not a block multiple
     flat = flat_update_check(layout.total, card_line)
@@ -3330,9 +3697,10 @@ def main() -> int:
     kernels = [
         kernel_entry("consensus_round", src + "consensus_round.cu",
                      f"{ref_file}:141",
-                     static["launches"] + sum(
+                     static["launches"] + nccl1["launches"] + sum(
                          z["launches"] for z in ztrain.values()),
                      full_numbers, in_round_ms=static["in_round_ms"],
+                     nccl1_launches=nccl1["launches"],
                      zoo_launches={a: z["launches"]
                                    for a, z in ztrain.items()},
                      zoo_in_round_ms={a: z["in_round_ms"]
@@ -3341,8 +3709,14 @@ def main() -> int:
                                    for a, z in ztrain.items()}),
         kernel_entry("consensus_round_masked", src + "consensus_round.cu",
                      f"{ref_file}:221",
-                     dyn["launches"] + asy["launches"] + obs_dyn + obs_async,
+                     dyn["launches"] + asy["launches"] + obs_dyn + obs_async
+                     + ranks["launches"],
                      dyn_full, in_round_ms=dyn["in_round_ms"],
+                     ranks_launches=ranks["launches"],
+                     ranks_in_round_ms=ranks["kernel_ms"],
+                     ranks_bound_ms=ranks["bound_ms"],
+                     ranks_exchange_s=ranks["exchange_s"],
+                     ranks_overlap_rounds=ranks["overlap_rounds"],
                      async_launches=asy["launches"],
                      obs_launches=obs_dyn + obs_async,
                      async_in_round_ms=asy["in_round_ms"],

@@ -31,29 +31,41 @@ def _zipf_probs(vocab: int, a: float) -> np.ndarray:
 
 
 class SyntheticTokens:
-    """Stateless batch source: batch(step) is pure in (seed, step, node)."""
+    """Stateless batch source: batch(step) is pure in (seed, step, node).
+
+    ``nodes`` (``(lo, hi)``, default every node) is the range of nodes to
+    draw, a rank's block: node i's rows are the same whichever range holds
+    it, since each node is seeded by its global id.
+    """
 
     def __init__(self, cfg: DataConfig, *, device: torch.device | str,
-                 dtype: torch.dtype = torch.int64):
+                 dtype: torch.dtype = torch.int64,
+                 nodes: tuple[int, int] | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
+        self.nodes = (0, cfg.num_nodes) if nodes is None else tuple(nodes)
+        if not 0 <= self.nodes[0] < self.nodes[1] <= cfg.num_nodes:
+            raise ValueError(f"node range {self.nodes} outside "
+                             f"[0, {cfg.num_nodes})")
         self._probs = _zipf_probs(cfg.vocab, cfg.zipf_a)
 
     def batch_numpy(self, step: int, *, probe: bool = False) -> dict:
-        """{tokens, labels: [J, B, S] int32} as the reference draws them."""
+        """{tokens, labels: [J, B, S] int32} as the reference draws them
+        (the rows of ``nodes``)."""
         cfg = self.cfg
+        lo, hi = self.nodes
         domain = 1_000_003 if probe else 0
-        out_tok = np.empty((cfg.num_nodes, cfg.batch_per_node, cfg.seq_len),
+        out_tok = np.empty((hi - lo, cfg.batch_per_node, cfg.seq_len),
                            np.int32)
-        for node in range(cfg.num_nodes):
+        for node in range(lo, hi):
             rng = np.random.default_rng(
                 (cfg.seed * 7_919 + domain + node) * 2_654_435_761 + step)
             toks = rng.choice(cfg.vocab, p=self._probs,
                               size=(cfg.batch_per_node, cfg.seq_len))
             # induced bigram structure: every even position hints the next
             toks[:, 1::2] = (toks[:, 0::2] * 31 + 7) % cfg.vocab
-            out_tok[node] = toks
+            out_tok[node - lo] = toks
         labels = np.roll(out_tok, -1, axis=-1)
         labels[:, :, -1] = -1                      # masked final position
         return {"tokens": out_tok, "labels": labels}
@@ -73,8 +85,12 @@ class SyntheticTokens:
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed * 13 + step
                                     + (7 if probe else 0))
+        # one draw for every node, then the range's rows
         emb = rng.normal(size=(cfg.num_nodes, cfg.batch_per_node,
                                cfg.seq_len, d_model)).astype(np.float32)
+        lo, hi = self.nodes
+        if (lo, hi) != (0, cfg.num_nodes):
+            emb = np.ascontiguousarray(emb[lo:hi])
         return {"embeds": emb, "labels": labels}
 
     def embeds_batch(self, step: int, d_model: int, *,

@@ -122,7 +122,7 @@ rwkv6_scan.launches = 0
 def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
                     alpha, eta_sum, eta_node, *, block_leaf, block_size: int,
                     bar_w=None, inv_deg=None, kick_w=None,
-                    scales_per_block: bool = False):
+                    scales_per_block: bool = False, partials: bool = False):
     """Whole-round fused consensus update over the flat buffer (the
     reference's ``repro.kernels.ops.consensus_round``).
 
@@ -150,6 +150,12 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
         the dual also absorbs ``0.5 * sum_d kick_w[d] * (theta - x_d)``.
       scales_per_block: block b dequantizes with ``scales[..., b]`` (the
         fp8 codecs' granularity) instead of ``scales[..., block_leaf[b]]``.
+      partials: return r_sq and s_sq as ``[J, n]`` per-row partials whose
+        sum over dim 1 gives the ``[J]`` values: the kernel's block
+        partials on a CUDA tensor, one column on the CPU (the plain
+        version sums each row on its own). A caller that holds a block of
+        the nodes gathers these and sums them as the one-process call
+        does, so the bits do not depend on how the rows are split.
 
     Returns (theta_new [J, total], lam_new [J, total], bar [J, total] f32,
     r_sq [J], s_sq [J]). On a CUDA tensor the kernel writes theta_new, lam_new
@@ -158,11 +164,14 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
     """
     dev = theta.device
     if dev.type == "cpu":
-        return _ref.consensus_round_ref(
+        out = _ref.consensus_round_ref(
             theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
             eta_node, block_leaf=block_leaf, block_size=block_size,
             bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w,
             scales_per_block=scales_per_block)
+        if partials:
+            out = out[:3] + (out[3][:, None], out[4][:, None])
+        return out
     if dev.type != "cuda":
         raise ValueError(f"consensus_round: no kernel for device {dev}")
     rsq, ssq = _cu.launch(theta, lam, bar_prev, wires, scales, e_sym, alpha,
@@ -175,6 +184,8 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
         consensus_round.masked_launches += 1
     if scales_per_block:
         consensus_round.per_block_launches += 1
+    if partials:
+        return theta, lam, bar_prev, rsq, ssq
     return theta, lam, bar_prev, rsq.sum(dim=1), ssq.sum(dim=1)
 
 

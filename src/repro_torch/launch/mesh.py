@@ -1,0 +1,95 @@
+"""Ranks of a consensus run: which process holds which ADMM nodes (the role
+of ``repro/launch/mesh.py``, without its XLA flags).
+
+The reference lays the nodes on the ``pod`` axis of a device mesh and lets
+GSPMD place them. The port runs R processes under ``torch.distributed``,
+started by ``torchrun`` (``python -m torch.distributed.run``), and gives
+each a contiguous block of ``J / R`` nodes: rank r holds nodes
+``[r * J / R, (r + 1) * J / R)``.
+
+``init_ranks`` reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), or
+explicit arguments (the tests pass a ``file://`` store). The backend
+follows the device: ``nccl`` for ``cuda``, ``gloo`` for ``cpu``. Ranks that
+share one card run only when asked for, with ``gloo`` on ``cuda``: the
+exchange then stages its rows through host memory. NCCL does not run two
+ranks on one device, so that combination raises before any NCCL call, and
+nothing picks another backend or device on its own.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.distributed.grid import RankGrid, trivial_grid
+
+BACKENDS = ("nccl", "gloo")
+
+
+def check_backend(backend: str, device_type: str, local_world: int,
+                  cards: int) -> None:
+    """Raise for a backend the device cannot run: ``nccl`` off a card, or
+    more ranks on this host than it has cards. Runs before any NCCL call."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError(f"the nccl backend needs device cuda, not "
+                         f"{device_type!r} (use --dist-backend gloo on the "
+                         "CPU)")
+    if backend == "nccl" and local_world > cards:
+        raise ValueError(
+            f"the nccl backend needs one card a rank: {local_world} ranks "
+            f"on this host, {cards} card(s); ranks that share a card run "
+            "with --dist-backend gloo (rows staged through host memory)")
+    if backend == "gloo" and device_type not in ("cpu", "cuda"):
+        raise ValueError(f"no gloo path for device {device_type!r}")
+
+
+def init_ranks(num_nodes: int, device: str | torch.device, *,
+               backend: str | None = None, init_method: str | None = None,
+               world_size: int | None = None, rank: int | None = None,
+               local_rank: int | None = None) -> RankGrid:
+    """This process's ``RankGrid`` for ``num_nodes`` ADMM nodes.
+
+    The world size, rank and local rank come from the arguments or else
+    from torchrun's environment. With a world of one and no ``backend``
+    asked for, no process group is made and the trivial grid returns. An
+    explicit ``backend`` asks for a group even at one rank. ``backend``
+    None follows the device (``nccl`` for ``cuda``, ``gloo`` for ``cpu``).
+    Under NCCL the rank's device is ``cuda:{local_rank}``; under gloo on a
+    card, ``cuda:{local_rank % cards}``.
+    """
+    env = os.environ
+    world = int(world_size if world_size is not None
+                else env.get("WORLD_SIZE", "1"))
+    if world < 1:
+        raise ValueError(f"world size {world}")
+    if num_nodes % world:
+        raise ValueError(f"--nodes {num_nodes} is not a multiple of the "
+                         f"world size {world}: every rank holds J / R nodes")
+    dev = torch.device(device)
+    if world == 1 and backend is None:
+        return trivial_grid(num_nodes, resolve_device(dev))
+    rank = int(rank if rank is not None else env.get("RANK", "0"))
+    local_rank = int(local_rank if local_rank is not None
+                     else env.get("LOCAL_RANK", str(rank)))
+    local_world = world if world_size is not None \
+        else int(env.get("LOCAL_WORLD_SIZE", str(world)))
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    check_backend(backend, dev.type, local_world, cards)
+    if dev.type == "cuda":
+        dev = resolve_device(f"cuda:{local_rank % max(cards, 1)}")
+        torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(dev)
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            world_size=world, rank=rank)
+    per = num_nodes // world
+    return RankGrid(world=world, rank=rank, local_rank=local_rank,
+                    nodes_per_rank=per, node_lo=rank * per,
+                    node_hi=(rank + 1) * per, device=dev, backend=backend,
+                    group=dist.group.WORLD)

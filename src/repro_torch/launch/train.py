@@ -2,8 +2,15 @@
 ``repro/launch/train.py``): synchronous rounds on a static or dynamic
 topology, or bounded-staleness async rounds (``--async``).
 
-Every node row lives on one device (``--device``, CUDA unless ``cpu`` is
-asked for), so ``--nodes`` takes the place of the reference's ``--mesh``.
+The J nodes (``--nodes``) run on the ranks that ``torchrun`` (``python -m
+torch.distributed.run``) starts, each rank holding a contiguous block of
+J / R node rows on its device (``--device``, CUDA unless ``cpu`` is asked
+for; ``launch.mesh.init_ranks``). Started plainly, one process holds all
+J. The backend follows the device (NCCL on cards, gloo on the CPU);
+``--dist-backend gloo`` on ``cuda`` runs ranks that share one card, their
+rows staged through host memory. Only rank 0 prints and writes the
+``--obs-dir`` artifacts: the rings are replicated, so its drain is the
+run's.
 Every arch of the reference trains: the audio and vision archs on the
 frontend stubs' embeddings (``SyntheticTokens.embeds_batch``), rwkv6 on the
 plain per-step recurrence (the scan kernel has no backward, as in the
@@ -26,6 +33,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --steps 8 --local-steps 1 --obs-dir /tmp/obs --health \\
       --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 3 -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --nodes 3 --steps 8 --local-steps 2 --device cpu
 
 With ``--obs-dir`` the rounds append to the device metrics rings, the
 launcher drains them every ``--obs-drain-every`` rounds into the
@@ -35,8 +45,10 @@ repro_torch.obs.dashboard DIR`` renders), and ``--profile-rounds N`` writes
 a torch.profiler Chrome trace of the first N rounds under
 ``<obs-dir>/profile/``.
 
-The checkpoint, mesh and pipeline flags come with their slices; until then
-argparse rejects them.
+The ranks come from torchrun, not from a ``--mesh`` flag. The checkpoint,
+sharded-consensus and pipeline flags come with their slices; until then
+argparse rejects them. ``--async`` runs on one rank (its rounds across
+ranks come with ``pipeline_offsets``).
 """
 from __future__ import annotations
 
@@ -53,14 +65,15 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.penalty import SCHEMES, PenaltyConfig
 from repro_torch.data import DataConfig, SyntheticTokens
-from repro_torch.device import resolve_device
+from repro_torch.distributed import gather_nodes
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import init_ranks
 from repro_torch.models import build_model
 from repro_torch.obs import ObsConfig, ObsWriter, host_span_factory
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime import (ElasticController, StragglerMonitor,
-                                 aged_out_nodes)
+                                 aged_out_nodes, node_durations)
 from repro_torch.topology import SCHEDULERS, TopologyConfig
 
 
@@ -73,9 +86,17 @@ def parse_args(argv=None):
     ap.add_argument("--batch-per-node", type=int, default=4)
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--nodes", type=int, default=2,
-                    help="ADMM nodes J, all held on --device")
+                    help="ADMM nodes J, a multiple of the world size: each "
+                         "rank holds J / R of them on its device")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default="", choices=["", "nccl",
+                                                           "gloo"],
+                    help="process group backend of the ranks; empty follows "
+                         "the device (nccl on cuda, gloo on cpu) and makes "
+                         "no group for one process. gloo on cuda runs ranks "
+                         "that share a card (rows staged through host "
+                         "memory); nccl needs a card a rank")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
     ap.add_argument("--topo-scheduler", choices=SCHEDULERS,
@@ -159,8 +180,24 @@ def run(cfg: ArchConfig, args) -> dict:
     the profile trace's path (``record["profile"]``).
 
     The local step is not retried: it updates the replicas in place, so a
-    replay would start from a half-updated state."""
-    device = resolve_device(args.device)
+    replay would start from a half-updated state.
+
+    Under torchrun each rank runs this with its block of the nodes and
+    returns the same record (its own launch counts); only rank 0 prints,
+    writes ``--obs-dir`` and profiles. The process group lives for the
+    call."""
+    grid = init_ranks(args.nodes, args.device,
+                      backend=args.dist_backend or None)
+    try:
+        return _run(cfg, args, grid)
+    finally:
+        grid.close()
+
+
+def _run(cfg: ArchConfig, args, grid) -> dict:
+    device = grid.device
+    lead = grid.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     model = build_model(cfg)
     drop_at, drop_victim = (-1, -1)
     if args.drop_node:
@@ -171,7 +208,7 @@ def run(cfg: ArchConfig, args) -> dict:
         # the stale scheduler mirrors the executor's gating into the mask
         topo_sched = "stale"
     trainer = ConsensusTrainer(
-        model, num_nodes=args.nodes, device=device,
+        model, num_nodes=args.nodes, device=device, ranks=grid,
         adamw=AdamWConfig(lr=args.lr),
         consensus=ConsensusConfig(
             penalty=PenaltyConfig(scheme=args.scheme, eta0=args.eta0),
@@ -185,12 +222,13 @@ def run(cfg: ArchConfig, args) -> dict:
                            drain_every=args.obs_drain_every,
                            with_node_ring=not args.no_node_ring)
                  if args.obs_dir else None)))
+    # every rank draws the same one-node parameters from the seed
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq,
         batch_per_node=args.batch_per_node, num_nodes=trainer.num_nodes,
-        seed=args.seed), device=device)
+        seed=args.seed), device=device, nodes=(grid.node_lo, grid.node_hi))
 
     def make_batch(step):
         # the frontend stubs train on precomputed embeddings
@@ -216,7 +254,7 @@ def run(cfg: ArchConfig, args) -> dict:
               "layout": trainer.layout, "offsets": list(trainer.offsets),
               "wire_bytes": trainer.codec.wire_bytes()}
     writer = None
-    if args.obs_dir:
+    if args.obs_dir and lead:
         writer = ObsWriter(args.obs_dir, meta={
             "arch": cfg.arch_id, "scheme": args.scheme,
             "topology": args.topology, "num_nodes": trainer.num_nodes,
@@ -238,7 +276,7 @@ def run(cfg: ArchConfig, args) -> dict:
         os.makedirs(out_dir, exist_ok=True)
         record["profile"] = os.path.join(out_dir, "trace.json")
         prof.export_chrome_trace(record["profile"])
-        print(f"profile trace ({rounds} rounds) -> {record['profile']}",
+        say(f"profile trace ({rounds} rounds) -> {record['profile']}",
               flush=True)
     t_start = time.perf_counter()
     for step in range(args.steps):
@@ -251,7 +289,7 @@ def run(cfg: ArchConfig, args) -> dict:
             counts = ("launches", "masked_launches", "per_block_launches")
             before = [getattr(kops.consensus_round, c) for c in counts]
             probe = make_batch(10**6 + step)
-            if args.profile_rounds > 0 and rounds == 0:
+            if args.profile_rounds > 0 and rounds == 0 and lead:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU] + (
                     [torch.profiler.ProfilerActivity.CUDA]
@@ -305,7 +343,13 @@ def run(cfg: ArchConfig, args) -> dict:
             line += f" | dropped node {drop_victim} (topology epoch)"
         sync()
         dt = time.perf_counter() - t0
-        slow = monitor.observe(np.full(trainer.num_nodes, dt))
+        # each rank's step seconds, for each of its nodes
+        rank_s = [dt]
+        if grid.distributed:
+            rank_s = gather_nodes(torch.tensor(rank_s, dtype=torch.float64,
+                                               device=device),
+                                  grid).cpu().numpy()
+        slow = monitor.observe(node_durations(rank_s, grid.nodes_per_rank))
         if slow and executor is None:
             line += f" | stragglers: {slow}"
             if args.drop_stragglers and trainer.dynamic:
@@ -319,14 +363,14 @@ def run(cfg: ArchConfig, args) -> dict:
                         line += f" | ghosted straggler {v}"
         record["losses"].append(loss)
         record["step_seconds"].append(dt)
-        print(f"{line} {dt * 1e3:.0f}ms", flush=True)
-    print(f"done: {args.steps} steps in {time.perf_counter() - t_start:.1f}s",
+        say(f"{line} {dt * 1e3:.0f}ms", flush=True)
+    say(f"done: {args.steps} steps in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     if prof is not None:                # fewer rounds than asked for
         finish_profile()
     if executor is not None:
         record["async"] = executor.summary()
-        print(f"async executor: {record['async']}", flush=True)
+        say(f"async executor: {record['async']}", flush=True)
     if writer is not None:
         writer.drain(state, step=args.steps)        # tail < drain_every
         if executor is not None:
@@ -337,24 +381,24 @@ def run(cfg: ArchConfig, args) -> dict:
             extra=({"async_summary": executor.summary()}
                    if executor is not None else None))
         record["obs"] = rollup
-        print(f"obs: {rollup['rounds']} rounds, "
+        say(f"obs: {rollup['rounds']} rounds, "
               f"{rollup['journal_events']} topology events, "
               f"{rollup['dropped_rows']} dropped rows -> {args.obs_dir}",
               flush=True)
         if args.health and "health" in rollup:
             h = rollup["health"]
-            print("health scores (1.0 = clean):")
+            say("health scores (1.0 = clean):")
             for n in h["nodes"]:
                 active = [k for k in ("divergence", "eta_stall",
                                       "eta_oscillation", "straggler",
                                       "drift") if n.get(k)]
                 tag = f" [{', '.join(active)}]" if active else ""
-                print(f"  node {n['node']}: {n['score']:.2f}{tag}")
+                say(f"  node {n['node']}: {n['score']:.2f}{tag}")
             recs = h["recommendations"]
             for note in recs["notes"]:
-                print(f"  advisory: {note}")
+                say(f"  advisory: {note}")
             if not recs["notes"]:
-                print("  no advisories", flush=True)
+                say("  no advisories", flush=True)
     return record
 
 

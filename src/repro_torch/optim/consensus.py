@@ -7,7 +7,7 @@ data (f_i = its local loss). A consensus round then
 
   1. packs the replicas into one flat ``[J, total]`` buffer and encodes it
      with the wire codec (native, int8 or fp8, ``repro_torch.wire``),
-  2. exchanges it: one roll of the node axis per graph offset,
+  2. exchanges it: one circulant shift of the node axis per graph offset,
   3. probes f_i(theta_j) on a held-out batch (eq. 7 kappas),
   4. runs ONE fused kernel call (``kernels.ops.consensus_round``): dequant,
      both neighbor means, the prox pull, the dual update and the eq. 5
@@ -15,9 +15,18 @@ data (f_i = its local loss). A consensus round then
   5. updates the per-edge penalties with the paper's schemes
      (``repro_torch.core.penalty``).
 
-All J node rows live on one device, so the exchange is a roll of dim 0 of
-the wire buffer. The graph must be circulant (ring, complete, expander):
-its edges are the offsets of node 0 applied to every node.
+The graph must be circulant (ring, complete, expander): its edges are the
+offsets of node 0 applied to every node. The nodes run on R ranks
+(``distributed.RankGrid``, one process each under ``torch.distributed``),
+each holding a contiguous block of J / R node rows of the parameters, the
+moments, the duals and the neighbour means; R = 1 (no process group) holds
+all J on one device. The exchange is ``distributed.circulant_into`` per
+graph offset: local row copies, and point-to-point transfers for rows of
+other ranks. The penalties, the topology state, the step and the obs rings
+stay replicated ``[J, ...]`` on every rank and are updated identically,
+from per-node values all-gathered in node order (the probes, the
+residuals' per-row partials, the local losses and grad norms), so that
+every rank computes them from the same bits as one process would.
 
 Dynamic topology (``ConsensusConfig.dyn_topology``, ``repro_torch.topology``):
 the round exchanges over the runtime's offset superset (graph offsets plus
@@ -60,6 +69,8 @@ from repro_torch.core.graph import Graph, build_graph
 from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
                                       effective_eta, freeze_penalty,
                                       init_penalty_state, update_penalty)
+from repro_torch.distributed import (HostStaging, RankGrid, circulant_into,
+                                     gather_nodes, trivial_grid)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.obs import node_ring as obs_node_ring
@@ -100,10 +111,12 @@ class ConsensusConfig:
 
 
 class TrainState(NamedTuple):
-    params: Any                    # tree of [J, ...] per-node replicas
-    opt: adamw_lib.AdamWState      # moments [J, ...] f32, one shared step
-    lam: torch.Tensor              # [J, total] f32 flat duals
-    theta_bar_prev: torch.Tensor   # [J, total] f32 neighbor means (eq. 5)
+    # per-rank rows: this rank's J / R nodes (all J at one rank)
+    params: Any                    # tree of [J/R, ...] per-node replicas
+    opt: adamw_lib.AdamWState      # moments [J/R, ...] f32, one shared step
+    lam: torch.Tensor              # [J/R, total] f32 flat duals
+    theta_bar_prev: torch.Tensor   # [J/R, total] f32 neighbor means (eq. 5)
+    # replicated on every rank
     penalty: PenaltyState          # [J, J]
     step: torch.Tensor             # [] int32
     topo: TopologyState            # [J, J] dynamic-topology state
@@ -112,27 +125,35 @@ class TrainState(NamedTuple):
     node_ring: Any = None          # obs.NodeRing [cap, J, n_node_cols]
 
 
-def _roll_into(dst: torch.Tensor, src: torch.Tensor, off: int) -> None:
-    """dst[:] = torch.roll(src, -off, 0), written straight into ``dst``:
-    row i receives node (i + off) % J's message."""
-    j = src.shape[0]
-    off %= j
-    dst[:j - off].copy_(src[off:])
-    dst[j - off:].copy_(src[:off])
-
-
 class ConsensusTrainer:
-    """Local steps and consensus rounds for a model over J nodes held on
-    one device."""
+    """Local steps and consensus rounds for a model over J nodes, this
+    rank's block of J / R of them held on ``device`` (all J without
+    ``ranks``)."""
 
     def __init__(self, model: Model, *, num_nodes: int,
                  device: torch.device | str,
-                 adamw: adamw_lib.AdamWConfig, consensus: ConsensusConfig):
+                 adamw: adamw_lib.AdamWConfig, consensus: ConsensusConfig,
+                 ranks: RankGrid | None = None):
         self.model = model
         self.device = torch.device(device)
         self.acfg = adamw
         self.ccfg = consensus
         self.num_nodes = int(num_nodes)
+        self.ranks = ranks or trivial_grid(self.num_nodes, self.device)
+        if self.ranks.num_nodes != self.num_nodes:
+            raise ValueError(f"the rank grid holds {self.ranks.num_nodes} "
+                             f"nodes, the trainer {self.num_nodes}")
+        if self.ranks.distributed and self.ranks.device != self.device:
+            raise ValueError(f"rank {self.ranks.rank} runs on "
+                             f"{self.ranks.device}, not {self.device}")
+        if self.ranks.world > 1 and consensus.async_exec is not None:
+            raise ValueError(
+                "the async executor runs on one rank: its pipelined rounds "
+                "across ranks come with pipeline_offsets (ROADMAP Queue 1 "
+                "item 1(c))")
+        # this rank's node rows
+        self.n_local = self.ranks.nodes_per_rank
+        self._staging = HostStaging() if self.ranks.staged else None
         self.graph: Graph = build_graph(consensus.topology, self.num_nodes) \
             if self.num_nodes > 1 else build_graph("complete", 1)
         self._check_circulant()
@@ -190,12 +211,13 @@ class ConsensusTrainer:
 
     # ------------------------------------------------------------ state ----
     def init_state(self, params1: dict) -> TrainState:
-        """State with ``params1`` (one node's parameters) on every node."""
-        j = self.num_nodes
+        """State with ``params1`` (one node's parameters) on every node;
+        the per-node rows are this rank's."""
+        j, rows = self.num_nodes, self.n_local
         params = tree_lib.tree_map(
-            lambda x: x.to(self.device)[None].expand(j, *x.shape).clone(),
+            lambda x: x.to(self.device)[None].expand(rows, *x.shape).clone(),
             params1)
-        flat_shape = (j, self.layout.total)
+        flat_shape = (rows, self.layout.total)
         ledger = None
         if j > 1 and self.async_cfg is not None:
             ledger = init_wire_ledger(self.layout, len(self.offsets), j,
@@ -219,13 +241,15 @@ class ConsensusTrainer:
     # ------------------------------------------------------- local steps ----
     def train_step(self, state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
-        """One local AdamW step on every node (no exchange).
+        """One local AdamW step on every node of this rank (no exchange);
+        ``batch`` holds this rank's [J/R, ...] rows.
 
         Nodes run one after another — forward, backward and update — so the
         peak memory holds one node's gradients. The update is in place.
+        The metrics cover all J nodes (gathered across ranks).
         """
         losses, gnorms = [], []
-        for i in range(self.num_nodes):
+        for i in range(self.n_local):
             p_i = tree_lib.tree_map(lambda x: x[i], state.params)
             paths = [p for p, _ in tree_lib.leaves_with_paths(p_i)]
             leaves = [x.detach().requires_grad_()
@@ -250,8 +274,9 @@ class ConsensusTrainer:
         new = state._replace(
             opt=state.opt._replace(step=state.opt.step + 1),
             step=state.step + 1)
-        return new, {"loss": torch.stack(losses).mean(),
-                     "grad_norm": torch.stack(gnorms)}
+        losses = gather_nodes(torch.stack(losses), self.ranks)
+        gnorms = gather_nodes(torch.stack(gnorms), self.ranks)
+        return new, {"loss": losses.mean(), "grad_norm": gnorms}
 
     def should_sync(self, step: int) -> bool:
         return self.num_nodes > 1 and (step + 1) % self.ccfg.local_steps == 0
@@ -279,11 +304,17 @@ class ConsensusTrainer:
 
     @torch.no_grad()
     def _probe_losses(self, params: dict, batch: dict) -> torch.Tensor:
-        """[J] local objectives f_i at node i's row of ``params``."""
+        """[J/R] local objectives f_i at node i's row of ``params``, for
+        this rank's nodes."""
         return torch.stack([
             self.model.loss(tree_lib.tree_map(lambda x: x[i], params),
                             {k: v[i] for k, v in batch.items()})[0]
-            for i in range(self.num_nodes)])
+            for i in range(self.n_local)])
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a replicated [..., J] tensor (at one
+        rank the tensor itself: the slice is whole and contiguous)."""
+        return t[..., self.ranks.node_lo:self.ranks.node_hi].contiguous()
 
     @torch.no_grad()
     def consensus_step(self, state: TrainState, probe_batch: dict
@@ -322,7 +353,7 @@ class ConsensusTrainer:
                     for off in offsets]
 
         with self._span("consensus/probe"):
-            f_self = self._probe_losses(state.params, probe_batch)  # [J]
+            f_self = self._probe_losses(state.params, probe_batch)  # [J/R]
 
         # pack in the params' float dtype (bf16 params -> bf16 wire)
         with self._span("consensus/pack"):
@@ -330,23 +361,41 @@ class ConsensusTrainer:
             with self._span("wire/encode"):
                 wire = self.codec.encode(theta_flat)
 
-        # exchange: rolled[d] = torch.roll(wire, -off_d, 0). These are
-        # COPIES, never views of theta_flat: the kernel updates theta_flat
-        # in place on the card. A dead offset moves nothing: its row is a
-        # zero payload with unit scales.
+        # exchange: rolled[d] = torch.roll(wire of all J, -off_d, 0), this
+        # rank's rows. These are COPIES, never views of theta_flat: the
+        # kernel updates theta_flat in place on the card, and every row
+        # this rank sends has left it when circulant_into returns. A dead
+        # offset moves nothing (on every rank: ``live`` is read from the
+        # replicated state): its row is a zero payload with unit scales.
         rolled = torch.empty((deg,) + tuple(wire.shape), dtype=wire.dtype,
                              device=dev)
         for d, off in enumerate(offsets):
             if live[d]:
                 with self._span(f"consensus/exchange/off{off}"):
-                    _roll_into(rolled[d], wire, off)
+                    circulant_into(rolled[d], wire, off, self.ranks,
+                                   self._staging)
             else:
                 rolled[d].zero_()
         del wire
         with self._span("wire/decode"):
             payloads, dec_scales = self.codec.decode(rolled)
-        wires = payloads.contiguous()                 # [deg, J, total]
+        wires = payloads.contiguous()                 # [deg, J/R, total]
         del rolled, payloads
+
+        # the probes of this rank's nodes, then every node's, gathered
+        f_live = []
+        for d in range(deg):
+            if live[d]:
+                with self._span("consensus/probe"):
+                    f_live.append(self._probe_losses(self.codec.unpack(
+                        wires[d],
+                        None if dec_scales is None else dec_scales[d]),
+                        probe_batch))
+        f_all = gather_nodes(torch.stack([f_self] + f_live, dim=1),
+                             self.ranks)                      # [J, 1 + live]
+        f_self = f_all[:, 0].contiguous()
+        f_live = iter([f_all[:, 1 + n].contiguous()
+                       for n in range(len(f_live))])
 
         eta = state.penalty.eta
         sym_sum = torch.zeros((j,), dtype=f32, device=dev)
@@ -360,14 +409,8 @@ class ConsensusTrainer:
                 if self.node_ring_on else None
         for d, off in enumerate(offsets):
             jidx = (idx + off) % j
-            if live[d]:
-                with self._span("consensus/probe"):
-                    f_off = self._probe_losses(self.codec.unpack(
-                        wires[d],
-                        None if dec_scales is None else dec_scales[d]),
-                        probe_batch)
-            else:                  # a dead offset probes f_self (no forward)
-                f_off = f_self
+            # a dead offset probes f_self (no forward)
+            f_off = next(f_live) if live[d] else f_self
             e_sym = 0.5 * (eta[idx, jidx] + eta[jidx, idx])             # [J]
             if dynamic:
                 # the gate flows into the edge weights: a gated edge costs
@@ -389,7 +432,8 @@ class ConsensusTrainer:
             e_rows.append(e_sym)
         e_stack = torch.stack(e_rows)                                  # [deg, J]
         scales = dec_scales.contiguous() if dec_scales is not None \
-            else torch.ones((deg, j, self.dequant_spec.scale_width),
+            else torch.ones((deg, self.n_local,
+                             self.dequant_spec.scale_width),
                             dtype=f32, device=dev)
         for d in range(deg):
             if not live[d]:
@@ -407,13 +451,22 @@ class ConsensusTrainer:
                 gated["kick_w"] = torch.stack(kick_rows)
         else:
             eta_node = sym_sum / deg
+        # the kernel runs on this rank's rows
         with self._span("consensus/fused_round"):
             theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
                 theta_flat, state.lam, state.theta_bar_prev, wires, scales,
-                e_stack, alpha, sym_sum, eta_node,
+                self._local(e_stack), self._local(alpha),
+                self._local(sym_sum), self._local(eta_node),
                 block_leaf=self.block_leaf, block_size=lay.block_size,
-                scales_per_block=self.dequant_spec.per_block, **gated)
+                scales_per_block=self.dequant_spec.per_block,
+                partials=True,
+                **{k: self._local(v) for k, v in gated.items()})
         del wires
+        # every node's per-row partials, summed as one process sums its
+        # own: the same bits however the rows are split
+        rs = gather_nodes(torch.stack([r_sq, s_sq], dim=1), self.ranks)
+        r_sq = rs[:, 0].contiguous().sum(dim=1)
+        s_sq = rs[:, 1].contiguous().sum(dim=1)
 
         # theta_new -> the parameter replicas, in place
         for dst, src in zip(tree_lib.leaves(state.params),

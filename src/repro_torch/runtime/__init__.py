@@ -3,9 +3,10 @@ from repro_torch.runtime.fault_tolerance import (ElasticController,
                                                  ElasticEvent, RetryPolicy,
                                                  StragglerMonitor,
                                                  aged_out_nodes,
+                                                 node_durations,
                                                  shrink_penalty_state,
                                                  with_retries)
 
 __all__ = ["ElasticController", "ElasticEvent", "RetryPolicy",
-           "StragglerMonitor", "aged_out_nodes", "shrink_penalty_state",
-           "with_retries"]
+           "StragglerMonitor", "aged_out_nodes", "node_durations",
+           "shrink_penalty_state", "with_retries"]

@@ -17,7 +17,9 @@ that:
     restart into the smaller problem.
 
 Wall-clock monitoring takes its durations as arguments, so the straggler
-logic is testable without slow hosts.
+logic is testable without slow hosts. Across ranks each node's duration is
+its rank's step time, all-gathered (``node_durations``), so that every
+rank flags the same nodes.
 """
 from __future__ import annotations
 
@@ -89,6 +91,13 @@ class StragglerMonitor:
         self.strikes = np.where(slow, self.strikes + 1, 0)
         return [int(i) for i in np.nonzero(
             self.strikes >= self.patience)[0]]
+
+
+def node_durations(rank_seconds, nodes_per_rank: int) -> np.ndarray:
+    """Per-node durations [J] from each rank's step seconds [R]: a rank's
+    nodes run in its process one after another, so each takes its rank's
+    time (one rank: the one step time for every node)."""
+    return np.repeat(np.asarray(rank_seconds, dtype=float), nodes_per_rank)
 
 
 def aged_out_nodes(topo_state, *, max_staleness: int,

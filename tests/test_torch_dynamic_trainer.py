@@ -22,9 +22,6 @@ steps); masks and liveness exactly; the kicks' support exactly and their
 values (symmetrized penalties) to rtol 1e-3 like eta.
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -40,8 +37,8 @@ from repro_torch.models.params import from_jax
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.topology import TopologyConfig, from_numpy
+from torch_round_cases import run_script
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 5
 DROP_AFTER = 2          # (b): node 2 is dropped after this round
 CASES = {"a": dict(scheduler="round_robin", churn=True),
@@ -106,16 +103,16 @@ np.savez(out_path, **out)
 """
 
 
+def reference_path(tmp_path_factory) -> str:
+    """The reference run's npz, computed once per test run (shared with
+    ``test_torch_ranks.py``)."""
+    return run_script("dynamic", _REFERENCE, [ROUNDS, DROP_AFTER],
+                      tmp_path_factory, timeout=900)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    path = tmp_path_factory.mktemp("ref") / "dynamic.npz"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _REFERENCE, str(path),
-                           str(ROUNDS), str(DROP_AFTER)], env=env,
-                          capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(path) as z:
+    with np.load(reference_path(tmp_path_factory)) as z:
         return {k: z[k] for k in z.files}
 
 

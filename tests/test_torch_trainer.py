@@ -14,9 +14,6 @@ every parameter, and the penalties that follow from the probes) to rtol
 1e-3.
 """
 import dataclasses
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -29,8 +26,8 @@ from repro_torch.models import build_model
 from repro_torch.models.params import from_jax
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
+from torch_round_cases import run_script
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 6
 
 _REFERENCE = r"""
@@ -89,16 +86,16 @@ np.savez(out_path, **out)
 """
 
 
+def reference_path(tmp_path_factory) -> str:
+    """The reference run's npz, computed once per test run (shared with
+    ``test_torch_ranks.py``)."""
+    return run_script("trainer", _REFERENCE, [STEPS], tmp_path_factory,
+                      timeout=600)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    path = tmp_path_factory.mktemp("ref") / "trainer.npz"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _REFERENCE, str(path),
-                           str(STEPS)], env=env, capture_output=True,
-                          text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(path) as z:
+    with np.load(reference_path(tmp_path_factory)) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -193,6 +190,13 @@ def test_launcher_rejects_unported_flags():
     # the fp8 wires are ported: the launcher takes both formats
     for name in ("fp8_e4m3", "fp8_e5m2"):
         assert parse_args(["--wire-codec", name]).wire_codec == name
+    # the ranks come from torchrun: the backend flag parses, an unknown
+    # backend does not
+    for name in ("nccl", "gloo"):
+        assert parse_args(["--dist-backend", name]).dist_backend == name
+    assert parse_args([]).dist_backend == ""
+    with pytest.raises(SystemExit):
+        parse_args(["--dist-backend", "mpi"])
 
 
 def test_trainer_rejects_non_circulant_topology():

@@ -200,3 +200,28 @@ def run_reference(module: str, tmp_path_factory,
             os.replace(tmp, path)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def run_script(name: str, script: str, argv, tmp_path_factory,
+               timeout: float = 900) -> str:
+    """Run a reference ``script`` (``python -c``, with the npz path it
+    writes as ``sys.argv[1]`` and then ``argv``) once per test run; returns
+    that path. The xdist workers and the test modules that ask for the
+    same ``name`` share the one result under a file lock, as
+    ``run_reference`` does."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent                  # the run's, shared by workers
+    path = os.path.join(str(base), f"script.{name}.npz")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.npz"
+            env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+            proc = subprocess.run([sys.executable, "-c", script, tmp]
+                                  + [str(a) for a in argv], env=env,
+                                  capture_output=True, text=True,
+                                  timeout=timeout)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            os.replace(tmp, path)
+    return path
