@@ -228,10 +228,10 @@ seconds):
               moonshot-v1-16b-a3b, kimi-k2-1t-a32b (1 layer of 61: the
               whole model does not fit one card), musicgen-large and
               llava-next-mistral-7b (the frontend stubs serve random
-              embeddings) at batch 4, prompt 512, and hymba-1.5b at prompt
-              1280 (past its window of 1024, so the prefill's window binds
-              and the decode's ring wraps), 8 generated tokens, one after
-              the other. Counters from
+              embeddings) at batch 4, prompt 512, and hymba-1.5b at 8 of
+              its 32 layers (for time) and prompt 1280 (past its window of
+              1024, so the prefill's window binds and the decode's ring
+              wraps), 8 generated tokens, one after the other. Counters from
               0: the prefill launches the flash kernel once per layer, on
               the route ``kernels.flash_attention.route`` gives its head
               dim, which is the tensor-core kernel for every zoo arch
@@ -287,6 +287,27 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               gathers and the exchange's local copies on the NCCL path;
               state and per-round metrics equal to phase 4's run bit for
               bit.
+ 26. sharded — the consensus state sharded in-pod
+              (``--shard-consensus``): stablelm-3b at full width, 4
+              layers, 2 nodes on a ring, nap, eta0 0.1, 4 x 512 tokens a
+              node, lr 3e-4, 4 steps with a round every 2, on the native
+              and then the fp8_e4m3 wire: first each as one process
+              computing the 2-way sharded run whole (on
+              ``trivial_grid(2, shards=2)``), then
+              both in one torchrun call as J 2 x S 2 gloo ranks sharing
+              the card, rank r holding node r // 2 whole and slab r % 2 of
+              its flat rows (lam and theta_bar_prev ``[1, total / 2]``).
+              Every node's parameters, its lam and theta_bar_prev rows
+              (the slabs' digests joined), eta, the mask and every round
+              metric equal the one process's bit for bit; the two
+              replicas of a node's parameters are equal after every step;
+              each rank launches the round kernel on its slab once a round
+              (ungated; per-block on fp8). Prints each rank's peak memory
+              beside the peak reckoned from the code
+              (``reckon_sharded_peak``), its slab kernel's ms beside the
+              slab's byte bound, and the exchange's and the in-pod
+              gathers' seconds a round. The pod's NCCL path (a card a
+              rank) does not run on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -362,13 +383,15 @@ ZOO = ("glm4-9b", "qwen2-7b", "stablelm-3b", "moonshot-v1-16b-a3b",
 # at 2048)
 ZOO_SERVE = {arch: (None, 512) for arch in ZOO}
 ZOO_SERVE["kimi-k2-1t-a32b"] = (1, 512)
-ZOO_SERVE["hymba-1.5b"] = (None, 1280)
+# hymba is cut to 8 of its 32 layers for time (its eager SSM loop and
+# prompt replay took 105-308 s at full depth), to pay for phase 26
+ZOO_SERVE["hymba-1.5b"] = (8, 1280)
 ZOO_GEN = 8                         # generated tokens per served arch
 # billions of parameters at those depths, reckoned from the configs
 # before the port counted them (printed beside Model.param_count)
 ZOO_PARAMS_B = {"glm4-9b": 9.40, "qwen2-7b": 7.61, "stablelm-3b": 2.80,
                 "moonshot-v1-16b-a3b": 28.05, "kimi-k2-1t-a32b": 19.38,
-                "musicgen-large": 3.23, "hymba-1.5b": 1.39,
+                "musicgen-large": 3.23, "hymba-1.5b": 0.43,  # 8 layers
                 "llava-next-mistral-7b": 7.24}
 # phase 22: layers at full width, so that two replicas with f32 AdamW
 # moments and the f32 dual and neighbour-mean rows fit in 80 GB (about 23
@@ -2381,13 +2404,24 @@ RANKS_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
 RANKS_LAYERS = 1
 RANKS_PROCS = 3
 RANKS_TIMEOUT_S = 480           # one torchrun call, start to end
+# phase 26: the sharded consensus state, J 2 x S 2 gloo ranks on the card
+SHARD_ARCH = "stablelm-3b"
+SHARD_LAYERS = 4
+SHARD_NODES, SHARD_S = 2, 2
+SHARD_CODECS = ("native", "fp8_e4m3")
+SHARD_ARGS = ["--arch", SHARD_ARCH, "--nodes", str(SHARD_NODES), "--scheme",
+              "nap", "--topology", "ring", "--eta0", "0.1", "--local-steps",
+              "2", "--steps", "4", "--batch-per-node", "4", "--seq", "512",
+              "--lr", "3e-4", "--shard-consensus", "--device", DEV]
 
 
-def digest(t, chunk=1 << 24) -> str:
-    """A digest of a tensor's bytes, computed on its device: the element
-    count, the sum of its bytes read as integers of its element size, and
-    a position-weighted sum, wrapping in int64 (integer sums do not depend
-    on the order of their terms). Not cryptographic."""
+def digest_parts(t, offset=0, chunk=1 << 24) -> tuple[int, int, int]:
+    """The digest of a tensor's bytes as sums, computed on its device: the
+    element count, the sum of its bytes read as integers of its element
+    size, and a position-weighted sum (positions from ``offset``), wrapping
+    in int64. Integer sums do not depend on the order of their terms, so
+    the parts of a row's slabs, each at its offset, add up to the row's
+    (``join_digest``). Not cryptographic."""
     import torch
     flat = t.reshape(-1)
     ints = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -2395,11 +2429,23 @@ def digest(t, chunk=1 << 24) -> str:
     s1 = s2 = 0
     for c0 in range(0, ints.numel(), chunk):
         x = ints[c0:c0 + chunk].to(torch.int64)
-        w = torch.arange(c0, c0 + x.numel(), dtype=torch.int64,
-                         device=x.device) % 65521 + 1
+        w = torch.arange(offset + c0, offset + c0 + x.numel(),
+                         dtype=torch.int64, device=x.device) % 65521 + 1
         s1 += int(x.sum())
         s2 = (s2 + int((x * w).sum())) % (1 << 64)
-    return f"{ints.numel()}:{s1}:{s2}"
+    return ints.numel(), s1, s2
+
+
+def join_digest(parts) -> str:
+    """The digest string of a row from the ``digest_parts`` of its slabs."""
+    parts = list(parts)
+    return (f"{sum(p[0] for p in parts)}:{sum(p[1] for p in parts)}:"
+            f"{sum(p[2] for p in parts) % (1 << 64)}")
+
+
+def digest(t, chunk=1 << 24) -> str:
+    """A digest of a tensor's bytes (``digest_parts``, as a string)."""
+    return join_digest([digest_parts(t, chunk=chunk)])
 
 
 def state_digests(state, node_lo):
@@ -2417,25 +2463,55 @@ def state_digests(state, node_lo):
                    "alive": state.topo.node_alive.tolist()}
 
 
-def traced_train(cfg, args):
+def traced_train(cfg, args, grid=None, extra=None):
     """``launch.train.run`` with hooks: the last round's state, each round
     kernel's device ms (CUDA events) and host interval (``time.time``,
     synchronized, comparable across processes), and each round's seconds
-    in ``circulant_into`` (synchronized). Counters from 0. Returns (record,
-    state, kernel ms, intervals, exchange seconds per round)."""
+    in ``circulant_into`` (synchronized). Counters from 0. ``grid``: a
+    caller's ``RankGrid`` for the run. ``extra`` (a dict), if given,
+    receives each round's seconds in the in-pod gathers (``gather_s``) and
+    the digests of the parameter leaves after every local step and every
+    round (``params``). Returns (record, state, kernel ms, intervals,
+    exchange seconds per round)."""
     import torch
+    from repro_torch import tree as tree_lib
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
     from repro_torch.optim import consensus as cons_lib
     orig_step = cons_lib.ConsensusTrainer.consensus_step
+    orig_train = cons_lib.ConsensusTrainer.train_step
     orig_launch = ops._cu.launch
     orig_exchange = cons_lib.circulant_into
+    orig_gather = cons_lib.gather_pod
     last, ms, spans, ex = [], [], [], []
+    if extra is not None:
+        extra.update(gather_s=[], params=[])
+
+    def params_digests(state):
+        if extra is not None:
+            extra["params"].append([digest(x)
+                                    for x in tree_lib.leaves(state.params)])
 
     def step(self, *a, **kw):
         ex.append(0.0)
+        if extra is not None:
+            extra["gather_s"].append(0.0)
         out = orig_step(self, *a, **kw)
         last[:] = [out[0]]
+        params_digests(out[0])
+        return out
+
+    def train(self, *a, **kw):
+        out = orig_train(self, *a, **kw)
+        params_digests(out[0])
+        return out
+
+    def gather(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_gather(*a, **kw)
+        torch.cuda.synchronize()
+        extra["gather_s"][-1] += time.perf_counter() - t0
         return out
 
     def launch(*a, **kw):
@@ -2463,12 +2539,17 @@ def traced_train(cfg, args):
     cons_lib.ConsensusTrainer.consensus_step = step
     ops._cu.launch = launch
     cons_lib.circulant_into = exchange
+    if extra is not None:
+        cons_lib.ConsensusTrainer.train_step = train
+        cons_lib.gather_pod = gather
     try:
-        record = train_lib.run(cfg, args)
+        record = train_lib.run(cfg, args, grid)
     finally:
         cons_lib.ConsensusTrainer.consensus_step = orig_step
+        cons_lib.ConsensusTrainer.train_step = orig_train
         ops._cu.launch = orig_launch
         cons_lib.circulant_into = orig_exchange
+        cons_lib.gather_pod = orig_gather
     torch.cuda.synchronize()
     record["counts"] = {c: getattr(ops.consensus_round, c) for c in COUNTS}
     return record, last[0], ms, spans, ex
@@ -2484,8 +2565,10 @@ def ranks_worker(spec_path) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
-    cfg = dataclasses.replace(get_config("qwen3-4b"),
+    cfg = dataclasses.replace(get_config(spec.get("arch", "qwen3-4b")),
                               n_layers=spec["layers"])
+    if "runs" in spec:
+        return sharded_worker(spec, cfg, rank, os.path.dirname(spec_path))
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -2505,17 +2588,18 @@ def ranks_worker(spec_path) -> int:
     return 0
 
 
-def launch_ranks(tag, nproc, args_list, layers):
+def launch_ranks(tag, nproc, args_list, layers, **more):
     """``chip_smoke.py --ranks-worker`` under ``torchrun --standalone
     --nproc-per-node nproc`` (its own process group, killed whole at the
-    time limit); fails unless every rank ends with 0. Returns the ranks'
-    records and the call's seconds."""
+    time limit); fails unless every rank ends with 0. ``more`` goes into
+    the workers' spec beside the arguments and the depth. Returns the
+    ranks' records and the call's seconds."""
     import signal
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         spec = os.path.join(tmp, "spec.json")
         with open(spec, "w") as f:
-            json.dump({"args": args_list, "layers": layers}, f)
+            json.dump({"args": args_list, "layers": layers, **more}, f)
         env = dict(os.environ)
         # one host: the ranks' sockets stay on the loopback interface
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -2658,6 +2742,224 @@ def ranks_slice(full, card_line):
                 exchange_s=float(np.median([t for r in ranks
                                             for t in r["exchange_s"]])),
                 overlap_rounds=overlap, seconds=one_s + call_s)
+
+
+def sharded_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of phase 26's torchrun call: one sharded grid
+    (``init_ranks(..., shard_consensus=True)``, gloo on the card) for every
+    run of ``spec["runs"]``, each traced (``traced_train``); this rank's
+    digests (the parameters whole after every step, the lam and
+    theta_bar_prev slabs as parts at their offsets) and numbers into
+    ``rank<r>.json``."""
+    import torch
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch import tree as tree_lib
+    first = train_lib.parse_args(spec["runs"][0])
+    grid = init_ranks(first.nodes, first.device, backend="gloo",
+                      shard_consensus=True)
+    runs = []
+    try:
+        for args_list in spec["runs"]:
+            args = train_lib.parse_args(args_list)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            extra = {}
+            record, state, ms, spans, ex = traced_train(cfg, args, grid,
+                                                        extra)
+            lay = record["layout"]
+            st = state.lam.shape[1]
+            off = grid.shard * st
+            runs.append(dict(
+                rank=rank, pod=grid.pod, shard=grid.shard,
+                params=[digest(x) for x in tree_lib.leaves(state.params)],
+                step_params=extra["params"],
+                lam=digest_parts(state.lam[0], off),
+                bar=digest_parts(state.theta_bar_prev[0], off),
+                lam_shape=list(state.lam.shape),
+                replicated=state_digests(state, grid.pod)[1],
+                rounds=record["rounds"], step_seconds=record["step_seconds"],
+                kernel_ms=ms, spans=spans, exchange_s=ex,
+                gather_s=extra["gather_s"], counts=record["counts"],
+                wire_bytes=record["wire_bytes"], total=lay.total,
+                block_size=lay.block_size, device=str(state.lam.device),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9))
+            del state
+    finally:
+        grid.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "runs": runs}, f)
+    return 0
+
+
+def reckon_sharded_peak(cfg, params, total, deg, codec) -> dict:
+    """Phase 26's peak device bytes a rank, reckoned from the code before
+    the run: resident, the bf16 parameters and the f32 AdamW moments (10 B
+    a parameter) and the f32 lam and theta_bar_prev slabs (8 B an element
+    of [1, total / S]); on top, the larger of the local step's transients
+    (bf16 gradients, 2 B a parameter, and the activations: three f32
+    [B, T, vocab] logit-sized tensors and about 10 d + 3 ffn bf16 values a
+    token a layer) and the round's (the packed row, 2 B an element; the
+    received slabs; the probe's gathered payload, 2 B an element native or
+    1 B fp8, whose dequantized leaves take 2 B a parameter more; or the
+    gathered new parameters, 2 B an element)."""
+    st = total // SHARD_S
+    tokens = 4 * 512
+    resident = 10 * params + 8 * st
+    act = 3 * tokens * cfg.vocab * 4 \
+        + cfg.n_layers * tokens * (10 * cfg.d_model + 3 * cfg.d_ff) * 2
+    local = 2 * params + act
+    wire_b = 2 if codec == "native" else 1
+    probe = wire_b * total + (0 if codec == "native" else 2 * params)
+    rnd = 2 * total + deg * wire_b * st + max(probe, 2 * total)
+    return dict(resident=resident, local=local, round=rnd,
+                peak=resident + max(local, rnd))
+
+
+def sharded_slice(card_line):
+    """Phase 26: ``SHARD_ARGS`` on each of ``SHARD_CODECS``, as one process
+    computing the S-way sharded run whole (``trivial_grid(J, shards=S)``)
+    and then, in one
+    torchrun call, as J x S gloo ranks sharing the card, each holding its
+    node's parameters whole and one slab of its flat rows; bit for bit."""
+    import torch
+    from repro_torch import resolve_device
+    from repro_torch.distributed import trivial_grid
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    cfg = zoo_config(SHARD_ARCH, SHARD_LAYERS)
+    params = build_model(cfg).param_count()
+    procs = SHARD_NODES * SHARD_S
+    runs, ones = [], []
+    for codec in SHARD_CODECS:
+        args_list = SHARD_ARGS + ["--wire-codec", codec]
+        args = train_lib.parse_args(args_list)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        record, state, ms1, _, _ = traced_train(
+            cfg, args, trivial_grid(SHARD_NODES, resolve_device(DEV),
+                                    shards=SHARD_S))
+        nodes, rep = state_digests(state, 0)
+        ones.append(dict(record=record, nodes=nodes, rep=rep, ms=ms1,
+                         seconds=time.perf_counter() - t0,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        del state
+        runs.append(args_list + ["--dist-backend", "gloo"])
+    torch.cuda.empty_cache()
+    lay = ones[0]["record"]["layout"]
+    total, deg = lay.total, len(ones[0]["record"]["offsets"])
+    st = total // SHARD_S
+    reckoned = {c: reckon_sharded_peak(cfg, params, total, deg, c)
+                for c in SHARD_CODECS}
+    print(f"sharded: {SHARD_ARCH} x{SHARD_LAYERS} layers at full width, "
+          f"{params} parameters a node, {total} elements a node row, "
+          f"{st} a slab; reckoned peak a rank "
+          + ", ".join(f"{c} {r['peak'] / 1e9:.2f} GB (resident "
+                      f"{r['resident'] / 1e9:.2f}, local step "
+                      f"{r['local'] / 1e9:.2f}, round {r['round'] / 1e9:.2f})"
+                      for c, r in reckoned.items()), flush=True)
+    ranks, call_s = launch_ranks("sharded", procs, None, SHARD_LAYERS,
+                                 arch=SHARD_ARCH, runs=runs)
+    out = {}
+    for n, codec in enumerate(SHARD_CODECS):
+        one = ones[n]
+        rec = one["record"]
+        mine = [r["runs"][n] for r in ranks]
+        n_rounds = len(rec["rounds"])
+        per_block = codec != "native"
+        want_counts = {"launches": n_rounds, "masked_launches": 0,
+                       "per_block_launches": n_rounds if per_block else 0}
+        check(rec["counts"] == want_counts,
+              f"sharded {codec} one process: launches {rec['counts']}")
+        tag = f"sharded {codec}"
+        got_nodes = {}
+        for r in mine:
+            check(r["pod"] == r["rank"] // SHARD_S
+                  and r["shard"] == r["rank"] % SHARD_S,
+                  f"{tag}: rank {r['rank']} holds pod {r['pod']} slab "
+                  f"{r['shard']}")
+            check(r["lam_shape"] == [1, st],
+                  f"{tag}: rank {r['rank']}'s lam {r['lam_shape']}, want "
+                  f"[1, {st}]")
+            check(r["counts"] == want_counts
+                  and len(r["kernel_ms"]) == n_rounds,
+                  f"{tag}: rank {r['rank']} launches {r['counts']}")
+            check(r["wire_bytes"] == rec["wire_bytes"]
+                  and r["total"] == total,
+                  f"{tag}: rank {r['rank']} wire bytes {r['wire_bytes']}, "
+                  f"total {r['total']}")
+            check(r["replicated"] == one["rep"],
+                  f"{tag}: rank {r['rank']}'s replicated state")
+            check(len(r["rounds"]) == n_rounds and all(
+                a[k] == b[k] for a, b in zip(r["rounds"], rec["rounds"])
+                for k in b if k not in ("seconds",) + COUNTS),
+                f"{tag}: rank {r['rank']}'s rounds differ")
+            node = got_nodes.setdefault(str(r["pod"]), {"lam": [], "bar": []})
+            node["params"] = r["params"]
+            node["lam"].append(r["lam"])
+            node["bar"].append(r["bar"])
+        for p in range(SHARD_NODES):
+            pod = [r for r in mine if r["pod"] == p]
+            check(all(r["step_params"] == pod[0]["step_params"]
+                      and r["params"] == pod[0]["params"] for r in pod)
+                  and len(pod[0]["step_params"]) == len(
+                      rec["step_seconds"]) + n_rounds,
+                  f"{tag}: the replicas of node {p} differ after a step")
+        joined = {k: {"params": v["params"], "lam": join_digest(v["lam"]),
+                      "bar": join_digest(v["bar"])}
+                  for k, v in got_nodes.items()}
+        check(joined == one["nodes"], f"{tag}: node rows differ: "
+              + str([k for k in one["nodes"]
+                     if joined.get(k) != one["nodes"][k]]))
+        # the slab's bytes: theta and theta' bf16, lam, lam', bar_prev and
+        # bar f32, the wires (2 B native, 1 B fp8 with 4 B a block)
+        wire_b = 2 * deg if codec == "native" else deg
+        slab_bytes = st * (2 + 2 + 4 + 4 + 4 + 4 + wire_b) + (
+            4 * deg * st // lay.block_size if per_block else 0)
+        bound = slab_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"{tag}: J {SHARD_NODES} x S {SHARD_S} gloo ranks sharing "
+              f"the card; rows, eta, mask, rounds and each node's replicas "
+              f"equal the one-process run bit for bit; {rec['wire_bytes']} "
+              f"wire bytes per node per offset; one process "
+              f"{one['seconds']:.1f} s (peak {one['peak_gb']:.2f} GB, kernel "
+              "ms " + " ".join(f"{t:.3f}" for t in one["ms"])
+              + f", step median {np.median(rec['step_seconds']):.3f}) "
+              f"[{card_line}]", flush=True)
+        for r in mine:
+            print(f"{tag} rank {r['rank']} (pod {r['pod']}, slab "
+                  f"{r['shard']}, {r['device']}): peak {r['peak_gb']:.2f} GB "
+                  f"({r['reserved_gb']:.2f} reserved; reckoned "
+                  f"{reckoned[codec]['peak'] / 1e9:.2f}); slab kernel ms "
+                  + " ".join(f"{t:.3f}" for t in r["kernel_ms"])
+                  + f" (bound {bound:.3f} at [1, {st}]); exchange s a round "
+                  + " ".join(f"{t:.3f}" for t in r["exchange_s"])
+                  + "; in-pod gathers s a round "
+                  + " ".join(f"{t:.3f}" for t in r["gather_s"])
+                  + f"; step median {np.median(r['step_seconds']):.3f}, "
+                  f"round median "
+                  f"{np.median([x['seconds'] for x in r['rounds']]):.3f} "
+                  f"[{card_line}]", flush=True)
+        # a rank's first launch loads the kernel's module (lazy loading),
+        # so the median leaves out each process's first launch
+        timed = [t for r in mine
+                 for t in r["kernel_ms"][1 if n == 0 else 0:]]
+        out[codec] = dict(
+            launches=sum(r["counts"]["launches"] for r in mine),
+            kernel_ms=float(np.median(timed)),
+            first_launch_ms=(float(np.median([r["kernel_ms"][0]
+                                              for r in mine]))
+                             if n == 0 else None),
+            bound_ms=bound,
+            exchange_s=float(np.median([t for r in mine
+                                        for t in r["exchange_s"]])),
+            gather_s=float(np.median([t for r in mine
+                                      for t in r["gather_s"]])),
+            peak_gb=max(r["peak_gb"] for r in mine),
+            reckoned_gb=reckoned[codec]["peak"] / 1e9)
+    out["seconds"] = call_s + sum(o["seconds"] for o in ones)
+    return out
 
 
 def nccl1_slice(static, card_line):
@@ -3647,8 +3949,11 @@ def main() -> int:
     ranks = ranks_slice(full, card_line)
     t1 = time.perf_counter()
     nccl1 = nccl1_slice(static, card_line)
-    print(f"ranks slice: phase 24 {t1 - t0:.1f} s, 25 "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t2 = time.perf_counter()
+    # -- 26. the sharded consensus state: J 2 x S 2 gloo ranks --------------
+    sharded = sharded_slice(card_line)
+    print(f"ranks slice: phase 24 {t1 - t0:.1f} s, 25 {t2 - t1:.1f} s, 26 "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
 
     # -- (e) the flat update: one f32 row at the slice's size, and an N that
     # is not a block multiple
@@ -3698,9 +4003,11 @@ def main() -> int:
         kernel_entry("consensus_round", src + "consensus_round.cu",
                      f"{ref_file}:141",
                      static["launches"] + nccl1["launches"] + sum(
-                         z["launches"] for z in ztrain.values()),
+                         z["launches"] for z in ztrain.values())
+                     + sharded["native"]["launches"],
                      full_numbers, in_round_ms=static["in_round_ms"],
                      nccl1_launches=nccl1["launches"],
+                     sharded=sharded["native"],
                      zoo_launches={a: z["launches"]
                                    for a, z in ztrain.items()},
                      zoo_in_round_ms={a: z["in_round_ms"]
@@ -3724,8 +4031,10 @@ def main() -> int:
                      async_round_plain_ms=afull["plain_ms"],
                      async_round_bound_ms=afull["bound_ms"]),
         kernel_entry("consensus_round_per_block", src + "consensus_round.cu",
-                     f"{ref_file}:147", fp8["per_block"], fp8_full,
-                     in_round_ms=fp8["in_round_ms"]),
+                     f"{ref_file}:147",
+                     fp8["per_block"] + sharded["fp8_e4m3"]["launches"],
+                     fp8_full, in_round_ms=fp8["in_round_ms"],
+                     sharded=sharded["fp8_e4m3"]),
         kernel_entry("consensus_update", src + "consensus_update.cu",
                      f"{ref_file}:74", flat["launches"], flat),
         kernel_entry("flash_attention", src + "flash_attention_tc.cu",

@@ -13,6 +13,13 @@ at most two ranks, one contiguous segment each.
 Every rank makes the same sequence of calls: an offset that moves nothing
 (a dead offset) must be skipped by every rank, from replicated state.
 
+With the consensus state sharded in-pod (``RankGrid.shards`` S > 1) the
+exchange and the node gathers run over the rank's shard group, the J ranks
+that hold the same slab s: at offset ``off`` slab s of node i receives
+slab s of node ``(i + off) % J``. ``gather_pod`` all-gathers a tensor over
+the S ranks of the pod, in slab order (the reference's in-pod all-gather
+of a slab-sharded buffer, and its ``psum`` of the residual partials).
+
 Under gloo on a card (``RankGrid.staged``) the rows go through one pinned
 host buffer pair per rank (``HostStaging``), one offset at a time: the
 rows to send are copied to the host before any send starts, so the round
@@ -44,19 +51,25 @@ def segments(node_lo: int, per: int, off: int, j: int
 
 
 class HostStaging:
-    """One reused pair of pinned host byte buffers, grown on demand, for
-    the rows a rank sends and receives at one offset."""
+    """One reused pair of pinned host byte buffers, each grown on demand,
+    for what a rank sends and receives in one exchange or gather."""
 
     def __init__(self):
         self.send = torch.empty(0, dtype=torch.uint8)
         self.recv = torch.empty(0, dtype=torch.uint8)
 
-    def reserve(self, nbytes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def reserve(self, nbytes: int, recv_nbytes: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """At least ``nbytes`` to send and ``recv_nbytes`` (default
+        ``nbytes``) to receive."""
+        recv_nbytes = nbytes if recv_nbytes is None else recv_nbytes
         if self.send.numel() < nbytes:
-            self.send = self.recv = None            # free before regrowing
+            self.send = None                        # free before regrowing
             self.send = torch.empty(nbytes, dtype=torch.uint8,
                                     pin_memory=True)
-            self.recv = torch.empty(nbytes, dtype=torch.uint8,
+        if self.recv.numel() < recv_nbytes:
+            self.recv = None
+            self.recv = torch.empty(recv_nbytes, dtype=torch.uint8,
                                     pin_memory=True)
         return self.send, self.recv
 
@@ -70,25 +83,25 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
                    staging: HostStaging | None = None) -> None:
     """dst[i] = the wire of node ``(grid.node_lo + i + off) % J``.
 
-    dst and wire are this rank's ``[J / R, W]`` rows, contiguous, on the
-    rank's device. Under gloo on a card ``staging`` holds the host buffers
-    (required there). Returns after every row has landed in ``dst`` and
-    every row of ``wire`` that this rank sends has left it.
+    dst and wire are this rank's ``[J / R, W]`` rows (with shards, its
+    node's slab message), contiguous, on the rank's device. Under gloo on
+    a card ``staging`` holds the host buffers (required there). Returns
+    after every row has landed in ``dst`` and every row of ``wire`` that
+    this rank sends has left it.
     """
     per, j = grid.nodes_per_rank, grid.num_nodes
     off %= j
-    me = grid.rank
-    if grid.world > 1 and not (dst.is_contiguous()
-                               and wire.is_contiguous()):
+    me, ranks, group = grid.node_rank, grid.node_ranks, grid.node_group
+    if ranks > 1 and not (dst.is_contiguous() and wire.is_contiguous()):
         raise ValueError("circulant_into: dst and wire must be contiguous")
     mine = segments(grid.node_lo, per, off, j)
     for src_rank, d0, s0, rows in mine:
         if src_rank == me:
             dst[d0:d0 + rows].copy_(wire[s0:s0 + rows])
-    if grid.world == 1:
+    if ranks == 1:
         return
     # what each other rank takes from this one: at most one segment
-    sends = [(q, s0, rows) for q in range(grid.world) if q != me
+    sends = [(q, s0, rows) for q in range(ranks) if q != me
              for src_rank, _, s0, rows in segments(q * per, per, off, j)
              if src_rank == me]
     recvs = [(src_rank, d0, rows) for src_rank, d0, _, rows in mine
@@ -96,7 +109,7 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
     row_bytes = wire[0].numel() * wire.element_size()
 
     def peer(r):                     # a group rank's global rank
-        return dist.get_global_rank(grid.group, r)
+        return dist.get_global_rank(group, r)
 
     if grid.staged:
         if staging is None:
@@ -107,13 +120,13 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
         for q, s0, rows in sends:
             host = send_buf[at:at + rows * row_bytes]
             host.copy_(_bytes(wire[s0:s0 + rows]))      # synchronous
-            ops.append(dist.P2POp(dist.isend, host, peer(q), grid.group))
+            ops.append(dist.P2POp(dist.isend, host, peer(q), group))
             at += rows * row_bytes
         landed, at = [], 0
         for src_rank, d0, rows in recvs:
             host = recv_buf[at:at + rows * row_bytes]
             ops.append(dist.P2POp(dist.irecv, host, peer(src_rank),
-                                  grid.group))
+                                  group))
             landed.append((d0, rows, host))
             at += rows * row_bytes
         for work in dist.batch_isend_irecv(ops):
@@ -122,27 +135,59 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
             _bytes(dst[d0:d0 + rows]).copy_(host)
         return
     ops = [dist.P2POp(dist.isend, _bytes(wire[s0:s0 + rows]), peer(q),
-                      grid.group) for q, s0, rows in sends]
+                      group) for q, s0, rows in sends]
     ops += [dist.P2POp(dist.irecv, _bytes(dst[d0:d0 + rows]),
-                       peer(src_rank), grid.group)
+                       peer(src_rank), group)
             for src_rank, d0, rows in recvs]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
 
 
+def _all_gather(t: torch.Tensor, n: int, group, grid,
+                staging: HostStaging | None = None) -> torch.Tensor:
+    """``[n, *t.shape]``: ``t`` of each of the ``n`` ranks of ``group``,
+    in group-rank order, on ``t``'s device. NCCL gathers on the card; gloo
+    on a card goes through host memory (``staging``'s pinned buffers when
+    given)."""
+    t = t.contiguous()
+    out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    if grid.backend == "nccl":
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+    # gloo moves bytes, whatever the dtype
+    nbytes = t.numel() * t.element_size()
+    if t.device.type == "cpu":
+        dist.all_gather(list(_bytes(out).view(n, nbytes).unbind(0)),
+                        _bytes(t), group=group)
+        return out
+    if staging is None:                 # small tensors: pageable memory
+        send = _bytes(t.cpu())
+        recv = torch.empty(n * nbytes, dtype=torch.uint8)
+    else:
+        send, recv = staging.reserve(nbytes, n * nbytes)
+        send, recv = send[:nbytes], recv[:n * nbytes]
+        send.copy_(_bytes(t))                           # synchronous
+    dist.all_gather(list(recv.view(n, nbytes).unbind(0)), send, group=group)
+    _bytes(out).copy_(recv)                             # synchronous
+    return out
+
+
 def gather_nodes(t: torch.Tensor, grid) -> torch.Tensor:
     """All-gather a ``[J / R, ...]`` tensor of this rank's nodes into the
-    ``[J, ...]`` tensor of every node, in node order, on ``t``'s device.
-    Without a process group, ``t`` itself."""
+    ``[J, ...]`` tensor of every node, in node order, on ``t``'s device
+    (over the shard group with shards). Without a process group, ``t``
+    itself."""
     if grid.group is None:
         return t
-    t = t.contiguous()
-    if grid.backend == "nccl":
-        out = torch.empty((grid.world * t.shape[0],) + tuple(t.shape[1:]),
-                          dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, t, group=grid.group)
-        return out
-    host = t.cpu()
-    parts = [torch.empty_like(host) for _ in range(grid.world)]
-    dist.all_gather(parts, host, group=grid.group)
-    return torch.cat(parts).to(t.device)
+    out = _all_gather(t, grid.node_ranks, grid.node_group, grid)
+    return out.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def gather_pod(t: torch.Tensor, grid,
+               staging: HostStaging | None = None) -> torch.Tensor:
+    """All-gather ``t`` over the S ranks of this rank's pod: ``[S,
+    *t.shape]`` in slab order, on ``t``'s device. Under gloo on a card
+    ``staging`` holds the host buffers."""
+    if not grid.holds_slab:
+        raise ValueError("gather_pod: this rank holds no slab")
+    return _all_gather(t, grid.shards, grid.inpod_group, grid, staging)

@@ -1,6 +1,13 @@
-"""Which ranks hold which ADMM nodes: rank r of R holds the contiguous
-block of nodes ``[r * J / R, (r + 1) * J / R)`` (``launch.mesh.init_ranks``
-builds the grid of a run)."""
+"""Which ranks hold which ADMM nodes (``launch.mesh.init_ranks`` builds the
+grid of a run).
+
+Without sharding, rank r of R holds the contiguous block of nodes
+``[r * J / R, (r + 1) * J / R)``. With the consensus state sharded in-pod
+(``ConsensusConfig.shard_consensus``), a run has R = J * S ranks: rank r
+holds node ``r // S`` (its pod) and slab ``r % S`` of that node's flat
+rows, as the reference's in-pod devices each hold a slab of their pod's
+node.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -17,25 +24,62 @@ class RankGrid:
     ``group`` is None for the trivial grid (one process, no process group):
     then the trainer runs as a single process always has. With a group,
     the rows move by ``repro_torch.distributed``, even at one rank.
+
+    ``shards`` S > 1 shards each node's flat consensus rows in-pod: the S
+    ranks of a pod (``inpod_group``) hold the same node, its parameters and
+    moments whole, and slab ``shard`` of its flat rows each; the J ranks
+    that hold slab s (``shard_group``, in node order) exchange and gather
+    per node. The trivial grid with S > 1 is one process computing an
+    S-way sharded run whole: the sharded layout and wire, every slab.
     """
 
     world: int                      # ranks R
     rank: int                       # this rank, in [0, R)
     local_rank: int                 # this rank's index on its host
-    nodes_per_rank: int             # J / R
+    nodes_per_rank: int             # J / R, or 1 with shards
     node_lo: int                    # first node of this rank
     node_hi: int                    # one past its last node
     device: torch.device
     backend: str = ""               # "" without a group
     group: Any = None               # the process group, or None
+    shards: int = 1                 # S: ranks sharing a node's flat rows
+    shard: int = 0                  # this rank's slab, in [0, S)
+    inpod_group: Any = None         # the S ranks of this rank's node
+    shard_group: Any = None         # the J ranks holding slab ``shard``
+
+    @property
+    def pod(self) -> int:
+        """This rank's node, with shards (its first node without)."""
+        return self.node_lo
+
+    @property
+    def node_ranks(self) -> int:
+        """Ranks that split the nodes among them: R, or R / S with shards
+        (the shard group); 1 for the trivial grid with S > 1."""
+        return max(self.world // self.shards, 1)
+
+    @property
+    def node_rank(self) -> int:
+        """This rank's place among them."""
+        return self.rank // self.shards
+
+    @property
+    def node_group(self):
+        """The group the node exchange and gathers run over."""
+        return self.shard_group if self.shards > 1 else self.group
 
     @property
     def num_nodes(self) -> int:
-        return self.world * self.nodes_per_rank
+        return self.node_ranks * self.nodes_per_rank
 
     @property
     def distributed(self) -> bool:
         return self.group is not None
+
+    @property
+    def holds_slab(self) -> bool:
+        """This rank holds one slab of its node's flat rows (not all)."""
+        return self.shards > 1 and self.inpod_group is not None
 
     @property
     def staged(self) -> bool:
@@ -48,7 +92,10 @@ class RankGrid:
             dist.destroy_process_group()
 
 
-def trivial_grid(num_nodes: int, device: torch.device | str) -> RankGrid:
-    """One process holding every node, no process group."""
+def trivial_grid(num_nodes: int, device: torch.device | str,
+                 shards: int = 1) -> RankGrid:
+    """One process holding every node (and, with ``shards`` S > 1, every
+    slab of the S-way sharded layout), no process group."""
     return RankGrid(world=1, rank=0, local_rank=0, nodes_per_rank=num_nodes,
-                    node_lo=0, node_hi=num_nodes, device=torch.device(device))
+                    node_lo=0, node_hi=num_nodes, device=torch.device(device),
+                    shards=int(shards))

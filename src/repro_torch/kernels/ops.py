@@ -150,12 +150,12 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
         the dual also absorbs ``0.5 * sum_d kick_w[d] * (theta - x_d)``.
       scales_per_block: block b dequantizes with ``scales[..., b]`` (the
         fp8 codecs' granularity) instead of ``scales[..., block_leaf[b]]``.
-      partials: return r_sq and s_sq as ``[J, n]`` per-row partials whose
-        sum over dim 1 gives the ``[J]`` values: the kernel's block
-        partials on a CUDA tensor, one column on the CPU (the plain
-        version sums each row on its own). A caller that holds a block of
-        the nodes gathers these and sums them as the one-process call
-        does, so the bits do not depend on how the rows are split.
+      partials: return r_sq and s_sq as the ``[J, nblocks]`` block
+        partials whose sum over dim 1 gives the ``[J]`` values (the
+        kernel's on a CUDA tensor, the plain version's on the CPU). A
+        caller that holds a block of the nodes, or a slab of the blocks,
+        gathers these and sums them as the one-process call does, so the
+        bits do not depend on how the rows or the blocks are split.
 
     Returns (theta_new [J, total], lam_new [J, total], bar [J, total] f32,
     r_sq [J], s_sq [J]). On a CUDA tensor the kernel writes theta_new, lam_new
@@ -168,9 +168,7 @@ def consensus_round(theta, lam, bar_prev, wires, scales, e_sym,
             theta, lam, bar_prev, wires, scales, e_sym, alpha, eta_sum,
             eta_node, block_leaf=block_leaf, block_size=block_size,
             bar_w=bar_w, inv_deg=inv_deg, kick_w=kick_w,
-            scales_per_block=scales_per_block)
-        if partials:
-            out = out[:3] + (out[3][:, None], out[4][:, None])
+            scales_per_block=scales_per_block, partials=partials)
         return out
     if dev.type != "cuda":
         raise ValueError(f"consensus_round: no kernel for device {dev}")

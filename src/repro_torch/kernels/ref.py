@@ -64,7 +64,8 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
                         alpha, eta_sum, eta_node, *,
                         block_leaf, block_size: int,
                         bar_w=None, inv_deg=None, kick_w=None,
-                        scales_per_block: bool = False):
+                        scales_per_block: bool = False,
+                        partials: bool = False):
     """Whole-round flat-buffer consensus update, ungated or edge-gated.
 
     theta [J, total] (f32 or bf16), lam / bar_prev [J, total] f32, wires
@@ -75,10 +76,13 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
     rows are [deg, J, num_blocks], indexed by the block id with no
     block->leaf lookup. Every wire type upcasts to f32 exactly.
 
-    Reductions run blockwise in the kernel's order (block partials first,
-    then the sum per node) so that the kernel and this version agree to
-    float32 round-off. Returns (theta_new, lam_new, bar f32, r_sq [J],
-    s_sq [J]); the inputs are left untouched.
+    Reductions run blockwise in the kernel's order: per block, ``r`` the
+    sum of ``(theta' - bar)^2`` and ``s`` ``eta_node^2`` times the sum of
+    ``(bar - bar_prev)^2``, then the sum of the blocks per node, so that
+    the kernel and this version agree to float32 round-off. Returns
+    (theta_new, lam_new, bar f32, r_sq [J], s_sq [J]), or with ``partials``
+    the block partials r_sq, s_sq [J, nblocks] that sum to them; the inputs
+    are left untouched.
 
     Edge-gated round (``bar_w`` [deg, J] and ``inv_deg`` [J], together):
     the gates weight the neighbor-mean sum and ``inv_deg`` (1 / active
@@ -134,13 +138,15 @@ def consensus_round_ref(theta, lam, bar_prev, wires, scales, e_sym,
             ksum = ksum + k[d]
         lam_new = lam_new + 0.5 * (ksum[:, None] * theta32 - kick_x)
 
-    def blocksum(v):
-        return v.reshape(j, -1, block_size).sum(dim=-1).sum(dim=-1)
+    def blocks(v):                                  # [J, nblocks]
+        return v.reshape(j, -1, block_size).sum(dim=-1)
 
-    r_sq = blocksum((theta_new - bar) ** 2)
+    r_sq = blocks((theta_new - bar) ** 2)
     dbar = bar - bar_prev.to(f32)
     eta_node = torch.as_tensor(eta_node, dtype=f32, device=dev)
-    s_sq = eta_node ** 2 * blocksum(dbar * dbar)
+    s_sq = (eta_node * eta_node)[:, None] * blocks(dbar * dbar)
+    if not partials:
+        r_sq, s_sq = r_sq.sum(dim=1), s_sq.sum(dim=1)
     return (theta_new.to(theta.dtype), lam_new.to(lam.dtype), bar, r_sq,
             s_sq)
 

@@ -7,6 +7,12 @@ started by ``torchrun`` (``python -m torch.distributed.run``), and gives
 each a contiguous block of ``J / R`` nodes: rank r holds nodes
 ``[r * J / R, (r + 1) * J / R)``.
 
+With ``shard_consensus`` (the reference's ``--shard-consensus``: the flat
+consensus state sharded over the in-pod devices of each node's pod) a run
+has R = J * S ranks: rank r holds node ``r // S`` and slab ``r % S`` of
+its flat rows (``RankGrid.shards``, ``shard``, the in-pod and the shard
+process groups). S = 1 is the grid without sharding.
+
 ``init_ranks`` reads torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), or
 explicit arguments (the tests pass a ``file://`` store). The backend
@@ -51,7 +57,9 @@ def check_backend(backend: str, device_type: str, local_world: int,
 def init_ranks(num_nodes: int, device: str | torch.device, *,
                backend: str | None = None, init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
-               local_rank: int | None = None) -> RankGrid:
+               local_rank: int | None = None, shard_consensus: bool = False,
+               async_exec: bool = False, pipeline_offsets: int = 1
+               ) -> RankGrid:
     """This process's ``RankGrid`` for ``num_nodes`` ADMM nodes.
 
     The world size, rank and local rank come from the arguments or else
@@ -61,15 +69,34 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     None follows the device (``nccl`` for ``cuda``, ``gloo`` for ``cpu``).
     Under NCCL the rank's device is ``cuda:{local_rank}``; under gloo on a
     card, ``cuda:{local_rank % cards}``.
+
+    ``shard_consensus`` with R > 1 ranks needs R a multiple of J and gives
+    each node S = R / J ranks. Shards refuse ``async_exec`` and
+    ``pipeline_offsets > 1``: the sharded wire ledger and the pipelined
+    rounds come with ROADMAP Queue 1 item 1(c). (One process computes an
+    S-way sharded run whole on ``trivial_grid(J, device, shards=S)``.)
     """
     env = os.environ
     world = int(world_size if world_size is not None
                 else env.get("WORLD_SIZE", "1"))
     if world < 1:
         raise ValueError(f"world size {world}")
-    if num_nodes % world:
+    n_shards = 1
+    if shard_consensus and world > 1:
+        if world % num_nodes:
+            raise ValueError(
+                f"--shard-consensus: the world size {world} is not a "
+                f"multiple of --nodes {num_nodes}: each node's S = R / J "
+                "ranks hold a slab of its flat rows each")
+        n_shards = world // num_nodes
+    elif num_nodes % world:
         raise ValueError(f"--nodes {num_nodes} is not a multiple of the "
                          f"world size {world}: every rank holds J / R nodes")
+    if n_shards > 1 and (async_exec or pipeline_offsets > 1):
+        raise ValueError(
+            "--shard-consensus runs the synchronous round: the async "
+            "executor and pipeline_offsets with shards come with the "
+            "sharded wire ledger (ROADMAP Queue 1 item 1(c))")
     dev = torch.device(device)
     if world == 1 and backend is None:
         return trivial_grid(num_nodes, resolve_device(dev))
@@ -88,6 +115,19 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
         dev = resolve_device(dev)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world, rank=rank)
+    if n_shards > 1:
+        # every rank makes every group, in the same order
+        pods = [dist.new_group([p * n_shards + k for k in range(n_shards)])
+                for p in range(num_nodes)]
+        slabs = [dist.new_group([p * n_shards + s
+                                 for p in range(num_nodes)])
+                 for s in range(n_shards)]
+        pod, shard = divmod(rank, n_shards)
+        return RankGrid(world=world, rank=rank, local_rank=local_rank,
+                        nodes_per_rank=1, node_lo=pod, node_hi=pod + 1,
+                        device=dev, backend=backend, group=dist.group.WORLD,
+                        shards=n_shards, shard=shard,
+                        inpod_group=pods[pod], shard_group=slabs[shard])
     per = num_nodes // world
     return RankGrid(world=world, rank=rank, local_rank=local_rank,
                     nodes_per_rank=per, node_lo=rank * per,

@@ -8,7 +8,10 @@ J / R node rows on its device (``--device``, CUDA unless ``cpu`` is asked
 for; ``launch.mesh.init_ranks``). Started plainly, one process holds all
 J. The backend follows the device (NCCL on cards, gloo on the CPU);
 ``--dist-backend gloo`` on ``cuda`` runs ranks that share one card, their
-rows staged through host memory. Only rank 0 prints and writes the
+rows staged through host memory. With ``--shard-consensus`` under
+torchrun, R = J * S ranks: the S ranks of each node hold its parameters
+whole and one slab each of its flat consensus rows (S = R / J). Only rank
+0 prints and writes the
 ``--obs-dir`` artifacts: the rings are replicated, so its drain is the
 run's.
 Every arch of the reference trains: the audio and vision archs on the
@@ -36,6 +39,10 @@ Examples:
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 3 -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --nodes 3 --steps 8 --local-steps 2 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --nodes 2 --shard-consensus --steps 4 --local-steps 2 \\
+      --device cpu
 
 With ``--obs-dir`` the rounds append to the device metrics rings, the
 launcher drains them every ``--obs-drain-every`` rounds into the
@@ -45,10 +52,10 @@ repro_torch.obs.dashboard DIR`` renders), and ``--profile-rounds N`` writes
 a torch.profiler Chrome trace of the first N rounds under
 ``<obs-dir>/profile/``.
 
-The ranks come from torchrun, not from a ``--mesh`` flag. The checkpoint,
-sharded-consensus and pipeline flags come with their slices; until then
-argparse rejects them. ``--async`` runs on one rank (its rounds across
-ranks come with ``pipeline_offsets``).
+The ranks come from torchrun, not from a ``--mesh`` flag. The checkpoint
+and pipeline flags come with their slices; until then argparse rejects
+them. ``--async`` runs on one rank (its rounds across ranks come with
+``pipeline_offsets``), and not with ``--shard-consensus``.
 """
 from __future__ import annotations
 
@@ -97,6 +104,11 @@ def parse_args(argv=None):
                          "no group for one process. gloo on cuda runs ranks "
                          "that share a card (rows staged through host "
                          "memory); nccl needs a card a rank")
+    ap.add_argument("--shard-consensus", action="store_true",
+                    help="shard the flat consensus state (lam, "
+                         "theta_bar_prev, the wire) over the S = R / J ranks "
+                         "of each node under torchrun; the local step stays "
+                         "whole on each of them")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
     ap.add_argument("--topo-scheduler", choices=SCHEDULERS,
@@ -168,7 +180,7 @@ def parse_args(argv=None):
     return args
 
 
-def run(cfg: ArchConfig, args) -> dict:
+def run(cfg: ArchConfig, args, grid=None) -> dict:
     """Train ``cfg`` as ``args`` say; returns the run's record: per-step
     losses and seconds, per-round metrics (with ``active_edges``, the
     round's node liveness, its seconds between two synchronizations, and
@@ -185,9 +197,15 @@ def run(cfg: ArchConfig, args) -> dict:
     Under torchrun each rank runs this with its block of the nodes and
     returns the same record (its own launch counts); only rank 0 prints,
     writes ``--obs-dir`` and profiles. The process group lives for the
-    call."""
+    call, unless the caller passes its own ``grid`` (``init_ranks`` for
+    ``args``, or ``trivial_grid(J, device, shards=S)``: one process
+    computing an S-way sharded run whole) and closes it itself."""
+    if grid is not None:
+        return _run(cfg, args, grid)
     grid = init_ranks(args.nodes, args.device,
-                      backend=args.dist_backend or None)
+                      backend=args.dist_backend or None,
+                      shard_consensus=args.shard_consensus,
+                      async_exec=args.async_mode)
     try:
         return _run(cfg, args, grid)
     finally:
@@ -221,7 +239,8 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
             obs=(ObsConfig(ring_capacity=args.obs_ring_cap,
                            drain_every=args.obs_drain_every,
                            with_node_ring=not args.no_node_ring)
-                 if args.obs_dir else None)))
+                 if args.obs_dir else None),
+            shard_consensus=args.shard_consensus))
     # every rank draws the same one-node parameters from the seed
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))

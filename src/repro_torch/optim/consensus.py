@@ -28,6 +28,18 @@ from per-node values all-gathered in node order (the probes, the
 residuals' per-row partials, the local losses and grad norms), so that
 every rank computes them from the same bits as one process would.
 
+Sharded consensus state (``ConsensusConfig.shard_consensus``, a grid of
+R = J * S ranks, ``RankGrid.shards``): the S ranks of a node's pod hold its
+parameters and moments whole and step them alike, and each holds slab s
+of the node's flat rows (``flatten.ShardedLayout``): ``lam`` and
+``theta_bar_prev`` are ``[1, shard_total]``. A round packs the whole row,
+encodes and exchanges slab s's message over the J ranks holding slab s,
+all-gathers each live offset's received slabs in-pod into the whole
+payload for the probe, runs the kernel on the slab with its block->leaf
+table, and all-gathers in-pod the kernel's block partials (then summed as
+one process sums them) and the new parameters' slabs. The residuals and
+every replicated state then carry one process's bits.
+
 Dynamic topology (``ConsensusConfig.dyn_topology``, ``repro_torch.topology``):
 the round exchanges over the runtime's offset superset (graph offsets plus
 churn spares), gates every edge by the state's mask — a gated edge gets
@@ -70,7 +82,7 @@ from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
                                       effective_eta, freeze_penalty,
                                       init_penalty_state, update_penalty)
 from repro_torch.distributed import (HostStaging, RankGrid, circulant_into,
-                                     gather_nodes, trivial_grid)
+                                     gather_nodes, gather_pod, trivial_grid)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.obs import node_ring as obs_node_ring
@@ -87,8 +99,8 @@ from repro_torch.topology import (TopologyConfig, TopologyRuntime,
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusConfig:
-    """The fields of the reference's ``ConsensusConfig`` that the
-    unsharded single-device paths read (same names and defaults). The round
+    """The fields of the reference's ``ConsensusConfig`` that the port
+    reads (same names and defaults). The round
     always goes through ``kops.consensus_round``, whose tensors' device picks
     the kernel or the plain version, and the flat layout's block size is
     always the reference's automatic one."""
@@ -108,13 +120,18 @@ class ConsensusConfig:
     # observability: the device metrics rings and the round's spans. None
     # (or ObsConfig(enabled=False)) leaves the round as it is without them
     obs: ObsConfig | None = None
+    # shard the flat consensus state (lam, theta_bar_prev, the wire) over
+    # the S in-pod ranks of each node (RankGrid.shards); off, or S = 1,
+    # keeps the unsharded round
+    shard_consensus: bool = False
 
 
 class TrainState(NamedTuple):
     # per-rank rows: this rank's J / R nodes (all J at one rank)
     params: Any                    # tree of [J/R, ...] per-node replicas
     opt: adamw_lib.AdamWState      # moments [J/R, ...] f32, one shared step
-    lam: torch.Tensor              # [J/R, total] f32 flat duals
+    lam: torch.Tensor              # [J/R, total] f32 flat duals (a slab
+    #                                rank's [1, shard_total])
     theta_bar_prev: torch.Tensor   # [J/R, total] f32 neighbor means (eq. 5)
     # replicated on every rank
     penalty: PenaltyState          # [J, J]
@@ -151,6 +168,17 @@ class ConsensusTrainer:
                 "the async executor runs on one rank: its pipelined rounds "
                 "across ranks come with pipeline_offsets (ROADMAP Queue 1 "
                 "item 1(c))")
+        n_shards = self.ranks.shards
+        if n_shards > 1 and not consensus.shard_consensus:
+            raise ValueError(f"the rank grid shards each node over "
+                             f"{n_shards} ranks; set ConsensusConfig."
+                             "shard_consensus")
+        self.sharded = (consensus.shard_consensus and self.num_nodes > 1
+                        and n_shards > 1)
+        if self.sharded and consensus.async_exec is not None:
+            raise ValueError(
+                "shard_consensus runs the synchronous round: the sharded "
+                "wire ledger comes with ROADMAP Queue 1 item 1(c)")
         # this rank's node rows
         self.n_local = self.ranks.nodes_per_rank
         self._staging = HostStaging() if self.ranks.staged else None
@@ -166,16 +194,28 @@ class ConsensusTrainer:
         self.dynamic = self.topo_cfg.is_dynamic and self.num_nodes > 1
         self.offsets = self.topo_rt.offsets if self.num_nodes > 1 else []
         defs = model.param_defs()
+        self.n_shards = n_shards if self.sharded else 1
         self.layout = flatten.FlatLayout.for_tree(
-            defs, block_size=flatten.auto_block_size(defs), node_axis=False)
+            defs, block_size=flatten.auto_block_size(defs), node_axis=False,
+            shards=self.n_shards)
+        self.slayout = self.layout.shard(self.n_shards) if self.sharded \
+            else None
         self.codec_name = wire_lib.resolve_codec_name(
             consensus.wire_codec or consensus.compression)
-        self.codec = wire_lib.get_codec(self.codec_name, self.layout)
+        self.codec = wire_lib.get_codec(self.codec_name, self.layout,
+                                        self.slayout)
         # per-leaf scales (native, int8) or per-block ones (fp8)
         self.dequant_spec = self.codec.kernel_dequant_spec()
+        # the columns of the flat rows this rank holds: one slab, or all
+        self.slab = self.sharded and self.ranks.holds_slab
+        if self.slab:
+            self.cols = self.slayout.columns(self.ranks.shard)
+            table = self.slayout.block_leaf_shards[self.ranks.shard]
+        else:
+            self.cols = slice(0, self.layout.total)
+            table = self.layout.block_leaf
         # the kernel indexes per-leaf scale rows by these ids unchecked, so
         # the table is checked here, once, against the layout's leaves
-        table = self.layout.block_leaf
         if table.size and not (0 <= table.min()
                                and table.max() < self.layout.num_leaves):
             raise ValueError(f"block->leaf ids span [{table.min()}, "
@@ -217,7 +257,7 @@ class ConsensusTrainer:
         params = tree_lib.tree_map(
             lambda x: x.to(self.device)[None].expand(rows, *x.shape).clone(),
             params1)
-        flat_shape = (rows, self.layout.total)
+        flat_shape = (rows, self.cols.stop - self.cols.start)
         ledger = None
         if j > 1 and self.async_cfg is not None:
             ledger = init_wire_ledger(self.layout, len(self.offsets), j,
@@ -311,6 +351,12 @@ class ConsensusTrainer:
                             {k: v[i] for k, v in batch.items()})[0]
             for i in range(self.n_local)])
 
+    def _gather_slabs(self, t: torch.Tensor) -> torch.Tensor:
+        """The S slabs of a slab rank's pod, joined along the last dim:
+        ``[..., n]`` -> ``[..., S * n]`` in slab order."""
+        out = gather_pod(t, self.ranks, self._staging)     # [S, ..., n]
+        return out.movedim(0, -2).reshape(tuple(t.shape[:-1]) + (-1,))
+
     def _local(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's columns of a replicated [..., J] tensor (at one
         rank the tensor itself: the slice is whole and contiguous)."""
@@ -355,11 +401,13 @@ class ConsensusTrainer:
         with self._span("consensus/probe"):
             f_self = self._probe_losses(state.params, probe_batch)  # [J/R]
 
-        # pack in the params' float dtype (bf16 params -> bf16 wire)
+        # pack in the params' float dtype (bf16 params -> bf16 wire); a
+        # slab rank packs the whole row and encodes its slab's message
         with self._span("consensus/pack"):
             theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
             with self._span("wire/encode"):
-                wire = self.codec.encode(theta_flat)
+                wire = (self.codec.encode_slab(theta_flat, self.ranks.shard)
+                        if self.slab else self.codec.encode(theta_flat))
 
         # exchange: rolled[d] = torch.roll(wire of all J, -off_d, 0), this
         # rank's rows. These are COPIES, never views of theta_flat: the
@@ -378,19 +426,32 @@ class ConsensusTrainer:
                 rolled[d].zero_()
         del wire
         with self._span("wire/decode"):
-            payloads, dec_scales = self.codec.decode(rolled)
-        wires = payloads.contiguous()                 # [deg, J/R, total]
-        del rolled, payloads
+            payloads, dec_scales = (
+                self.codec.decode_slab(rolled, self.ranks.shard) if self.slab
+                else self.codec.decode(rolled))
+        wires = payloads.contiguous()           # [deg, J/R, total or slab]
+        del payloads
+        if not self.slab:
+            del rolled
 
-        # the probes of this rank's nodes, then every node's, gathered
+        # the probes of this rank's nodes, then every node's, gathered. A
+        # slab rank probes the whole payload, its pod's slabs gathered
         f_live = []
         for d in range(deg):
             if live[d]:
+                if self.slab:
+                    with self._span("consensus/gather"):
+                        payload, sc = self.codec.decode(
+                            self._gather_slabs(rolled[d]))
+                else:
+                    payload = wires[d]
+                    sc = None if dec_scales is None else dec_scales[d]
                 with self._span("consensus/probe"):
-                    f_live.append(self._probe_losses(self.codec.unpack(
-                        wires[d],
-                        None if dec_scales is None else dec_scales[d]),
-                        probe_batch))
+                    f_live.append(self._probe_losses(
+                        self.codec.unpack(payload, sc), probe_batch))
+                del payload, sc
+        if self.slab:
+            del rolled
         f_all = gather_nodes(torch.stack([f_self] + f_live, dim=1),
                              self.ranks)                      # [J, 1 + live]
         f_self = f_all[:, 0].contiguous()
@@ -451,10 +512,12 @@ class ConsensusTrainer:
                 gated["kick_w"] = torch.stack(kick_rows)
         else:
             eta_node = sym_sum / deg
-        # the kernel runs on this rank's rows
+        # the kernel runs on this rank's rows (a slab rank's slab: a
+        # contiguous view of its one packed row)
         with self._span("consensus/fused_round"):
             theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-                theta_flat, state.lam, state.theta_bar_prev, wires, scales,
+                theta_flat[:, self.cols], state.lam, state.theta_bar_prev,
+                wires, scales,
                 self._local(e_stack), self._local(alpha),
                 self._local(sym_sum), self._local(eta_node),
                 block_leaf=self.block_leaf, block_size=lay.block_size,
@@ -462,9 +525,14 @@ class ConsensusTrainer:
                 partials=True,
                 **{k: self._local(v) for k, v in gated.items()})
         del wires
-        # every node's per-row partials, summed as one process sums its
-        # own: the same bits however the rows are split
-        rs = gather_nodes(torch.stack([r_sq, s_sq], dim=1), self.ranks)
+        # every node's block partials, summed as one process sums its own:
+        # the same bits however the rows and the slabs are split
+        rs = torch.stack([r_sq, s_sq], dim=1)          # [J/R, 2, blocks]
+        if self.slab:
+            with self._span("consensus/gather"):
+                rs = self._gather_slabs(rs)
+                theta_new = self._gather_slabs(theta_new)
+        rs = gather_nodes(rs, self.ranks)
         r_sq = rs[:, 0].contiguous().sum(dim=1)
         s_sq = rs[:, 1].contiguous().sum(dim=1)
 

@@ -1,7 +1,8 @@
 """Wire codecs for the consensus exchange (port of ``repro/wire``).
 
-``get_codec(name, layout)`` builds the codec every producer and consumer
-shares. ``resolve_codec_name`` also accepts the legacy ``compression``
+``get_codec(name, layout, slayout=None)`` builds the codec every producer
+and consumer shares (with a ``ShardedLayout``, the sharded message).
+``resolve_codec_name`` also accepts the legacy ``compression``
 spellings (``"none"``/``""`` -> native).
 """
 from __future__ import annotations
@@ -26,14 +27,16 @@ def resolve_codec_name(spec: str) -> str:
     return name
 
 
-def get_codec(name: str, layout) -> WireCodec:
-    """Build the codec for a ``FlatLayout`` (a stateless view)."""
+def get_codec(name: str, layout, slayout=None) -> WireCodec:
+    """Build the codec for a ``FlatLayout`` and, optionally, its
+    ``ShardedLayout`` (a stateless view)."""
     name = resolve_codec_name(name)
     if name == "native":
-        return NativeCodec(layout)
+        return NativeCodec(layout, slayout)
     if name == "int8":
-        return Int8Codec(layout)
-    return Fp8Codec(layout, name=name, qdtype=torch_dtype(_FP8_DTYPES[name]))
+        return Int8Codec(layout, slayout)
+    return Fp8Codec(layout, slayout, name=name,
+                    qdtype=torch_dtype(_FP8_DTYPES[name]))
 
 
 __all__ = ["WIRE_CODECS", "DequantSpec", "Fp8Codec", "Int8Codec",

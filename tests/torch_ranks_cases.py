@@ -1,7 +1,8 @@
-"""Workers of ``tests/test_torch_ranks.py``: the consensus trainer and the
-circulant exchange run as R gloo ranks in spawned processes, each joined
-through a ``file://`` store (no TCP port), each on one torch thread. This
-module imports no JAX."""
+"""Workers of ``tests/test_torch_ranks.py`` and
+``tests/test_torch_sharded.py``: the consensus trainer and the circulant
+exchange run as R gloo ranks in spawned processes, each joined through a
+``file://`` store (no TCP port), each on one torch thread. This module
+imports no JAX."""
 import dataclasses
 import json
 import os
@@ -40,11 +41,12 @@ def spawn(fn, world: int, tmp_dir, *args, timeout: float = 240.0) -> None:
                                f"finish in {timeout} s")
 
 
-def _grid(rank, world, store, j):
+def _grid(rank, world, store, j, shard_consensus=False):
     from repro_torch.launch.mesh import init_ranks
     torch.set_num_threads(1)
     return init_ranks(j, "cpu", backend="gloo", init_method=f"file://{store}",
-                      world_size=world, rank=rank)
+                      world_size=world, rank=rank,
+                      shard_consensus=shard_consensus)
 
 
 # ------------------------------------------------------------- exchange ----
@@ -119,13 +121,17 @@ def _params(spec, model):
 
 def run_trainer(spec: dict, grid=None) -> dict:
     """The reduced float32 qwen3-4b trainer on ``spec``'s schedule, on the
-    rank ``grid`` (None: one process holding every node). Returns this
-    rank's rows of the per-node state, the replicated state, and every
+    rank ``grid`` (None: one process holding every node, and with
+    ``spec["shards"]`` S every slab of the S-way sharded layout). Returns
+    this rank's rows of the per-node state, the replicated state, and every
     step's and round's metrics (each rank's are over all J nodes)."""
+    from repro_torch.distributed import trivial_grid
     cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
                               dtype="float32")
     model = build_model(cfg)
     j = spec["j"]
+    if grid is None and spec.get("shards"):
+        grid = trivial_grid(j, "cpu", shards=spec["shards"])
     dyn = TopologyConfig(**spec["dyn"]) if spec.get("dyn") else \
         TopologyConfig()
     tr = ConsensusTrainer(
@@ -135,7 +141,8 @@ def run_trainer(spec: dict, grid=None) -> dict:
             penalty=PenaltyConfig(scheme="nap", eta0=0.1),
             topology=spec["topology"], local_steps=spec["local_steps"],
             wire_codec=spec.get("codec", ""), dyn_topology=dyn,
-            obs=ObsConfig(ring_capacity=8) if spec.get("obs") else None))
+            obs=ObsConfig(ring_capacity=8) if spec.get("obs") else None,
+            shard_consensus=bool(spec.get("shards"))))
     nodes = None if grid is None else (grid.node_lo, grid.node_hi)
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=32, batch_per_node=spec["batch"],
@@ -166,6 +173,7 @@ def run_trainer(spec: dict, grid=None) -> dict:
                    "m": tree_lib.leaves(state.opt.m),
                    "v": tree_lib.leaves(state.opt.v),
                    "lam": state.lam, "bar": state.theta_bar_prev}
+    out["wire_bytes"] = tr.codec.wire_bytes()
     out["replicated"] = {
         "penalty": list(state.penalty), "topo": list(state.topo),
         "step": state.step, "opt_step": state.opt.step,
@@ -182,3 +190,18 @@ def trainer_worker(rank, world, store, out_dir, spec):
     finally:
         grid.close()
     torch.save(out, os.path.join(out_dir, f"trainer{rank}.pt"))
+
+
+def sharded_worker(rank, world, store, out_dir, specs):
+    """Every spec of ``specs`` (name -> spec, one J for all) on one grid of
+    ``world`` = J * S ranks with the consensus state sharded in-pod; this
+    rank's output of each into ``<name>.<rank>.pt``."""
+    j = next(iter(specs.values()))["j"]
+    grid = _grid(rank, world, store, j, shard_consensus=True)
+    try:
+        for name, spec in specs.items():
+            out = run_trainer(spec, grid)
+            out["grid"] = (grid.pod, grid.shard, grid.shards)
+            torch.save(out, os.path.join(out_dir, f"{name}.{rank}.pt"))
+    finally:
+        grid.close()
