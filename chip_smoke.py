@@ -308,6 +308,29 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               slab's byte bound, and the exchange's and the in-pod
               gathers' seconds a round. The pod's NCCL path (a card a
               rank) does not run on one card.
+ 26b. sharded async — a third run in phase 26's torchrun call: fp8_e4m3,
+              ``--async``, ``max_staleness`` 1, node 0 4x slow, a round
+              after each of 4 steps; each slab rank holds its slab of its
+              node's wire ledger rows. Bit for bit against one process,
+              the ledger slabs (joined) and w_prev included; every round
+              launches the gated per-block kernel on each slab.
+ 27. pipe   — the round pipeline and the async executor across ranks:
+              stablelm-3b at full width, 4 layers, 3 nodes on a ring
+              (offsets 1, 2), nap, eta0 0.1, 4 x 512 tokens a node, lr
+              3e-4; (a) synchronous static native rounds, 4 steps with a
+              round every 2; (b) ``--async``, ``max_staleness`` 1, node 0
+              4x slow, fp8_e4m3, a round after each of 6 steps. Each first
+              as one process at ``pipeline_offsets`` 1, then both in one
+              torchrun call as three gloo ranks sharing the card at
+              ``pipeline_offsets`` 2 (two offsets' exchanges in flight
+              ahead of the probes): every node's rows, eta, the mask, the
+              ledger's rows and w_prev and every round metric equal bit
+              for bit. Prints each rank's peak beside the reckoned one
+              (``reckon_pipe_peak``), its pinned staging bytes, each
+              round's exchange issue seconds, exposed wait (host time
+              blocked in ``Pending.wait``) and probe seconds, and the
+              kernel's ms beside the row's byte bound. NCCL's pipelined
+              path across cards does not run on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -315,6 +338,7 @@ is the run's verdict.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2408,11 +2432,29 @@ RANKS_TIMEOUT_S = 480           # one torchrun call, start to end
 SHARD_ARCH = "stablelm-3b"
 SHARD_LAYERS = 4
 SHARD_NODES, SHARD_S = 2, 2
-SHARD_CODECS = ("native", "fp8_e4m3")
 SHARD_ARGS = ["--arch", SHARD_ARCH, "--nodes", str(SHARD_NODES), "--scheme",
               "nap", "--topology", "ring", "--eta0", "0.1", "--local-steps",
               "2", "--steps", "4", "--batch-per-node", "4", "--seq", "512",
               "--lr", "3e-4", "--shard-consensus", "--device", DEV]
+# phase 26's runs (tag: codec, extra arguments); 26b is the async one
+ASYNC_EXTRA = ["--async", "--max-staleness", "1", "--slow-node", "0:4.0",
+               "--local-steps", "1"]
+SHARD_RUNS = {"native": ("native", []), "fp8_e4m3": ("fp8_e4m3", []),
+              "async fp8_e4m3": ("fp8_e4m3", ASYNC_EXTRA)}
+# phase 27: the round pipeline and the async executor across ranks, J 3 on
+# a ring (offsets 1, 2), three gloo ranks sharing the card, a node a rank
+PIPE_ARCH = "stablelm-3b"
+PIPE_LAYERS = 4
+PIPE_NODES = 3
+PIPE_DEPTH = 2
+PIPE_ARGS = ["--arch", PIPE_ARCH, "--nodes", str(PIPE_NODES), "--scheme",
+             "nap", "--topology", "ring", "--eta0", "0.1",
+             "--batch-per-node", "4", "--seq", "512", "--lr", "3e-4",
+             "--device", DEV]
+PIPE_RUNS = {"sync native": ["--wire-codec", "native", "--local-steps", "2",
+                             "--steps", "4"],
+             "async fp8_e4m3": ["--wire-codec", "fp8_e4m3", "--steps", "6"]
+             + ASYNC_EXTRA}
 
 
 def digest_parts(t, offset=0, chunk=1 << 24) -> tuple[int, int, int]:
@@ -2450,55 +2492,114 @@ def digest(t, chunk=1 << 24) -> str:
 
 def state_digests(state, node_lo):
     """({node id: digests of its parameter rows, lam and theta_bar_prev
-    rows}, the replicated eta, mask and liveness) of a trainer state
-    holding nodes ``node_lo``... ."""
+    rows and, with a wire ledger, its ledger rows}, the replicated eta,
+    mask and liveness, and the ledger's w_prev and round) of a trainer
+    state holding nodes ``node_lo``... ."""
     from repro_torch import tree as tree_lib
     leaves = tree_lib.leaves(state.params)
     nodes = {str(node_lo + i): {
         "params": [digest(x[i]) for x in leaves],
         "lam": digest(state.lam[i]), "bar": digest(state.theta_bar_prev[i])}
         for i in range(state.lam.shape[0])}
-    return nodes, {"eta": digest(state.penalty.eta),
-                   "mask": digest(state.topo.mask),
-                   "alive": state.topo.node_alive.tolist()}
+    rep = {"eta": digest(state.penalty.eta), "mask": digest(state.topo.mask),
+           "alive": state.topo.node_alive.tolist()}
+    if state.ledger is not None:
+        for i in range(state.lam.shape[0]):
+            nodes[str(node_lo + i)]["ledger"] = digest(
+                state.ledger.wires[:, i].contiguous())
+        rep.update(w_prev=digest(state.ledger.w_prev),
+                   ledger_round=int(state.ledger.round))
+    return nodes, rep
+
+
+def ledger_slab_parts(ledger, shard):
+    """A slab rank's ledger rows ``[deg, 1, w]`` as ``digest_parts`` at
+    their places in its node's whole ledger rows ``[deg, S * w]``, so that
+    the S slabs' parts join into the whole rows' digest."""
+    deg, _, w = ledger.wires.shape
+    return [digest_parts(ledger.wires[d, 0], d * SHARD_S * w + shard * w)
+            for d in range(deg)]
 
 
 def traced_train(cfg, args, grid=None, extra=None):
     """``launch.train.run`` with hooks: the last round's state, each round
     kernel's device ms (CUDA events) and host interval (``time.time``,
     synchronized, comparable across processes), and each round's seconds
-    in ``circulant_into`` (synchronized). Counters from 0. ``grid``: a
-    caller's ``RankGrid`` for the run. ``extra`` (a dict), if given,
-    receives each round's seconds in the in-pod gathers (``gather_s``) and
-    the digests of the parameter leaves after every local step and every
-    round (``params``). Returns (record, state, kernel ms, intervals,
-    exchange seconds per round)."""
+    in the exchange (``circulant_start``'s issue and the host time blocked
+    in ``Pending.wait``, neither synchronized: what the round exposes).
+    Counters from 0. ``grid``: a caller's ``RankGrid`` for the run.
+    ``extra`` (a dict), if given, receives each round's seconds in the
+    in-pod gathers (``gather_s``), in the exchange's issue (``issue_s``)
+    and exposed wait (``wait_s``), in the neighbour probes (``probe_s``,
+    synchronized at each probe's end), the trainer's pinned staging bytes
+    (``staging_bytes``), and the digests of the parameter leaves after
+    every local step and every round (``params``). Returns (record, state,
+    kernel ms, intervals, exchange seconds per round)."""
     import torch
     from repro_torch import tree as tree_lib
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
     from repro_torch.optim import consensus as cons_lib
-    orig_step = cons_lib.ConsensusTrainer.consensus_step
-    orig_train = cons_lib.ConsensusTrainer.train_step
+    Trainer = cons_lib.ConsensusTrainer
+    orig_steps = {n: getattr(Trainer, n)
+                  for n in ("consensus_step", "consensus_step_async")}
+    orig_train = Trainer.train_step
+    orig_probe = Trainer._probe_row
     orig_launch = ops._cu.launch
-    orig_exchange = cons_lib.circulant_into
+    orig_start = cons_lib.circulant_start
     orig_gather = cons_lib.gather_pod
-    last, ms, spans, ex = [], [], [], []
+    last, ms, spans, ex, issue, wait_s, probe_s = [], [], [], [], [], [], []
+    depth = [0]
     if extra is not None:
-        extra.update(gather_s=[], params=[])
+        extra.update(gather_s=[], params=[], issue_s=issue, wait_s=wait_s,
+                     probe_s=probe_s, staging_bytes=0)
 
     def params_digests(state):
         if extra is not None:
             extra["params"].append([digest(x)
                                     for x in tree_lib.leaves(state.params)])
 
-    def step(self, *a, **kw):
-        ex.append(0.0)
-        if extra is not None:
-            extra["gather_s"].append(0.0)
-        out = orig_step(self, *a, **kw)
-        last[:] = [out[0]]
-        params_digests(out[0])
+    def hooked(name):
+        orig = orig_steps[name]
+
+        def step(self, *a, **kw):
+            depth[0] += 1
+            if depth[0] == 1:      # an async round at bound 0 is the sync one
+                for xs in (ex, issue, wait_s, probe_s):
+                    xs.append(0.0)
+                if extra is not None:
+                    extra["gather_s"].append(0.0)
+            try:
+                out = orig(self, *a, **kw)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                ex[-1] = issue[-1] + wait_s[-1]
+                last[:] = [out[0]]
+                params_digests(out[0])
+                if extra is not None:
+                    extra["staging_bytes"] = self.staging_bytes()
+            return out
+        return step
+
+    def start(*a, **kw):
+        t0 = time.perf_counter()
+        pend = orig_start(*a, **kw)
+        issue[-1] += time.perf_counter() - t0
+        orig_wait = pend.wait
+
+        def wait():
+            t1 = time.perf_counter()
+            orig_wait()
+            wait_s[-1] += time.perf_counter() - t1
+        pend.wait = wait
+        return pend
+
+    def probe(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig_probe(self, *a, **kw)
+        torch.cuda.synchronize()
+        probe_s[-1] += time.perf_counter() - t0
         return out
 
     def train(self, *a, **kw):
@@ -2527,28 +2628,25 @@ def traced_train(cfg, args, grid=None, extra=None):
         ms.append(ev0.elapsed_time(ev1))
         return out
 
-    def exchange(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        orig_exchange(*a, **kw)
-        torch.cuda.synchronize()
-        ex[-1] += time.perf_counter() - t0
-
     for c in COUNTS:
         setattr(ops.consensus_round, c, 0)
-    cons_lib.ConsensusTrainer.consensus_step = step
+    for name in orig_steps:
+        setattr(Trainer, name, hooked(name))
     ops._cu.launch = launch
-    cons_lib.circulant_into = exchange
+    cons_lib.circulant_start = start
+    Trainer._probe_row = probe
     if extra is not None:
-        cons_lib.ConsensusTrainer.train_step = train
+        Trainer.train_step = train
         cons_lib.gather_pod = gather
     try:
         record = train_lib.run(cfg, args, grid)
     finally:
-        cons_lib.ConsensusTrainer.consensus_step = orig_step
-        cons_lib.ConsensusTrainer.train_step = orig_train
+        for name, fn in orig_steps.items():
+            setattr(Trainer, name, fn)
+        Trainer.train_step = orig_train
+        Trainer._probe_row = orig_probe
         ops._cu.launch = orig_launch
-        cons_lib.circulant_into = orig_exchange
+        cons_lib.circulant_start = orig_start
         cons_lib.gather_pod = orig_gather
     torch.cuda.synchronize()
     record["counts"] = {c: getattr(ops.consensus_round, c) for c in COUNTS}
@@ -2568,7 +2666,7 @@ def ranks_worker(spec_path) -> int:
     cfg = dataclasses.replace(get_config(spec.get("arch", "qwen3-4b")),
                               n_layers=spec["layers"])
     if "runs" in spec:
-        return sharded_worker(spec, cfg, rank, os.path.dirname(spec_path))
+        return runs_worker(spec, cfg, rank, os.path.dirname(spec_path))
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -2744,20 +2842,22 @@ def ranks_slice(full, card_line):
                 overlap_rounds=overlap, seconds=one_s + call_s)
 
 
-def sharded_worker(spec, cfg, rank, out_dir) -> int:
-    """One rank of phase 26's torchrun call: one sharded grid
-    (``init_ranks(..., shard_consensus=True)``, gloo on the card) for every
-    run of ``spec["runs"]``, each traced (``traced_train``); this rank's
-    digests (the parameters whole after every step, the lam and
-    theta_bar_prev slabs as parts at their offsets) and numbers into
-    ``rank<r>.json``."""
+def runs_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of a torchrun call of several runs (phases 26, 26b and 27):
+    one grid (``init_ranks``, gloo on the card; sharded in-pod with
+    ``spec["shard"]``) for every run of ``spec["runs"]``, each traced
+    (``traced_train``); this rank's digests and numbers into
+    ``rank<r>.json``. A slab rank's digests: its node's parameters whole
+    after every step, its lam, theta_bar_prev and ledger slabs as parts at
+    their offsets; a rank of nodes': ``state_digests``."""
     import torch
     from repro_torch.launch import train as train_lib
     from repro_torch.launch.mesh import init_ranks
     from repro_torch import tree as tree_lib
     first = train_lib.parse_args(spec["runs"][0])
+    sharded = bool(spec.get("shard"))
     grid = init_ranks(first.nodes, first.device, backend="gloo",
-                      shard_consensus=True)
+                      shard_consensus=sharded)
     runs = []
     try:
         for args_list in spec["runs"]:
@@ -2768,24 +2868,38 @@ def sharded_worker(spec, cfg, rank, out_dir) -> int:
             record, state, ms, spans, ex = traced_train(cfg, args, grid,
                                                         extra)
             lay = record["layout"]
-            st = state.lam.shape[1]
-            off = grid.shard * st
-            runs.append(dict(
-                rank=rank, pod=grid.pod, shard=grid.shard,
-                params=[digest(x) for x in tree_lib.leaves(state.params)],
-                step_params=extra["params"],
-                lam=digest_parts(state.lam[0], off),
-                bar=digest_parts(state.theta_bar_prev[0], off),
-                lam_shape=list(state.lam.shape),
-                replicated=state_digests(state, grid.pod)[1],
+            run = dict(
+                rank=rank, replicated=state_digests(state, grid.pod)[1],
                 rounds=record["rounds"], step_seconds=record["step_seconds"],
                 kernel_ms=ms, spans=spans, exchange_s=ex,
+                issue_s=extra["issue_s"], wait_s=extra["wait_s"],
+                probe_s=extra["probe_s"],
+                staging_bytes=extra["staging_bytes"],
                 gather_s=extra["gather_s"], counts=record["counts"],
                 wire_bytes=record["wire_bytes"], total=lay.total,
                 block_size=lay.block_size, device=str(state.lam.device),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                reserved_gb=torch.cuda.max_memory_reserved() / 1e9))
-            del state
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                state_gb=torch.cuda.memory_allocated() / 1e9)
+            if sharded:
+                off = grid.shard * state.lam.shape[1]
+                run.update(
+                    pod=grid.pod, shard=grid.shard,
+                    params=[digest(x) for x in tree_lib.leaves(state.params)],
+                    step_params=extra["params"],
+                    lam=digest_parts(state.lam[0], off),
+                    bar=digest_parts(state.theta_bar_prev[0], off),
+                    lam_shape=list(state.lam.shape),
+                    ledger=(None if state.ledger is None else
+                            ledger_slab_parts(state.ledger, grid.shard)),
+                    ledger_shape=(None if state.ledger is None
+                                  else list(state.ledger.wires.shape)))
+            else:
+                run["nodes"] = state_digests(state, grid.node_lo)[0]
+            runs.append(run)
+            del state, record, extra
+            gc.collect()
+            run["left_gb"] = torch.cuda.memory_allocated() / 1e9
     finally:
         grid.close()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -2793,7 +2907,8 @@ def sharded_worker(spec, cfg, rank, out_dir) -> int:
     return 0
 
 
-def reckon_sharded_peak(cfg, params, total, deg, codec) -> dict:
+def reckon_sharded_peak(cfg, params, total, deg, codec,
+                        ledger=False) -> dict:
     """Phase 26's peak device bytes a rank, reckoned from the code before
     the run: resident, the bf16 parameters and the f32 AdamW moments (10 B
     a parameter) and the f32 lam and theta_bar_prev slabs (8 B an element
@@ -2803,56 +2918,134 @@ def reckon_sharded_peak(cfg, params, total, deg, codec) -> dict:
     token a layer) and the round's (the packed row, 2 B an element; the
     received slabs; the probe's gathered payload, 2 B an element native or
     1 B fp8, whose dequantized leaves take 2 B a parameter more; or the
-    gathered new parameters, 2 B an element)."""
+    gathered new parameters, 2 B an element). With the async ``ledger``,
+    its slab rows are resident and the received slabs land in them."""
     st = total // SHARD_S
-    tokens = 4 * 512
     resident = 10 * params + 8 * st
-    act = 3 * tokens * cfg.vocab * 4 \
-        + cfg.n_layers * tokens * (10 * cfg.d_model + 3 * cfg.d_ff) * 2
-    local = 2 * params + act
+    local = 2 * params + activation_bytes(cfg)
     wire_b = 2 if codec == "native" else 1
     probe = wire_b * total + (0 if codec == "native" else 2 * params)
-    rnd = 2 * total + deg * wire_b * st + max(probe, 2 * total)
+    received = deg * wire_b * st
+    if ledger:
+        resident += received
+    rnd = 2 * total + (0 if ledger else received) + max(probe, 2 * total)
     return dict(resident=resident, local=local, round=rnd,
                 peak=resident + max(local, rnd))
 
 
-def sharded_slice(card_line):
-    """Phase 26: ``SHARD_ARGS`` on each of ``SHARD_CODECS``, as one process
-    computing the S-way sharded run whole (``trivial_grid(J, shards=S)``)
-    and then, in one
-    torchrun call, as J x S gloo ranks sharing the card, each holding its
-    node's parameters whole and one slab of its flat rows; bit for bit."""
+def activation_bytes(cfg, tokens=4 * 512) -> int:
+    """A local step's activations, reckoned: three f32 [B, T, vocab]
+    logit-sized tensors and about 10 d + 3 ffn bf16 values a token a
+    layer."""
+    return 3 * tokens * cfg.vocab * 4 \
+        + cfg.n_layers * tokens * (10 * cfg.d_model + 3 * cfg.d_ff) * 2
+
+
+def reckon_pipe_peak(cfg, params, total, deg, codec, ledger) -> dict:
+    """Phase 27's peak device bytes a rank (one node's whole rows),
+    reckoned from the code: resident, the bf16 parameters and f32 moments
+    (10 B a parameter), the f32 lam and theta_bar_prev rows (8 B an
+    element) and, async, the ledger's deg rows (2 B an element native, 1 B
+    fp8); on top, the larger of the local step's transients
+    (``reckon_sharded_peak``) and the round's, which holds the packed row
+    (2 B an element) and the received rows (sync: deg x the wire; async
+    they land in the ledger, through host memory), and then at its
+    largest either the probes' (the fp8 wire, 1 B, and one probe's
+    dequantized leaves, 2 B a parameter; native payloads are views) or the
+    kernel's inputs (fp8: the stacked decode's contiguous payloads, deg x
+    1 B; async: the held copies of a frozen node's lam and theta_bar_prev
+    rows, 8 B). The staged pool is pinned host memory, not the card's."""
+    wire_b = 2 if codec == "native" else 1
+    fp8 = codec != "native"
+    resident = 10 * params + 8 * total + (deg * wire_b * total if ledger
+                                          else 0)
+    local = 2 * params + activation_bytes(cfg)
+    base = 2 * total + (0 if ledger else deg * wire_b * total)
+    probes = (total + 2 * params) if fp8 else 0
+    kernel = (deg * total if fp8 else 0) + (8 * total if ledger else 0)
+    rnd = base + max(probes, kernel)
+    return dict(resident=resident, local=local, round=rnd,
+                peak=resident + max(local, rnd))
+
+
+def one_process_runs(cfg, runs, grid_of):
+    """Each run's arguments (tag -> list) traced in this process on the
+    grid ``grid_of()``; per tag its record, digests, kernel ms, seconds
+    and peak. The state is freed after each."""
     import torch
-    from repro_torch import resolve_device
-    from repro_torch.distributed import trivial_grid
     from repro_torch.launch import train as train_lib
-    from repro_torch.models import build_model
-    cfg = zoo_config(SHARD_ARCH, SHARD_LAYERS)
-    params = build_model(cfg).param_count()
-    procs = SHARD_NODES * SHARD_S
-    runs, ones = [], []
-    for codec in SHARD_CODECS:
-        args_list = SHARD_ARGS + ["--wire-codec", codec]
+    ones = {}
+    for tag, args_list in runs.items():
         args = train_lib.parse_args(args_list)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        record, state, ms1, _, _ = traced_train(
-            cfg, args, trivial_grid(SHARD_NODES, resolve_device(DEV),
-                                    shards=SHARD_S))
+        record, state, ms1, _, _ = traced_train(cfg, args, grid_of())
         nodes, rep = state_digests(state, 0)
-        ones.append(dict(record=record, nodes=nodes, rep=rep, ms=ms1,
+        ones[tag] = dict(record=record, nodes=nodes, rep=rep, ms=ms1,
                          seconds=time.perf_counter() - t0,
-                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         del state
-        runs.append(args_list + ["--dist-backend", "gloo"])
+    gc.collect()
     torch.cuda.empty_cache()
-    lay = ones[0]["record"]["layout"]
-    total, deg = lay.total, len(ones[0]["record"]["offsets"])
+    free, card = torch.cuda.mem_get_info()
+    print(f"{', '.join(runs)}: one process done; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated, "
+          f"{free / 1e9:.2f} of {card / 1e9:.2f} GB free", flush=True)
+    return ones
+
+
+def want_counts(n_rounds, codec, async_) -> dict:
+    """The round wrapper's launch counts of a run: one ungated launch a
+    round (synchronous) or one gated one (async), per-block with fp8."""
+    return {"launches": 0 if async_ else n_rounds,
+            "masked_launches": n_rounds if async_ else 0,
+            "per_block_launches": 0 if codec == "native" else n_rounds}
+
+
+def row_bound_ms(row, deg, codec, block_size) -> float:
+    """The round kernel's least time on a rank's row of ``row`` elements:
+    theta and theta' bf16, lam, lam', bar_prev and bar f32, the wires (2 B
+    native, 1 B fp8 with 4 B a block) read once, over the HBM rate."""
+    wire_b = 2 * deg if codec == "native" else deg
+    nbytes = row * (2 + 2 + 4 + 4 + 4 + 4 + wire_b) + (
+        0 if codec == "native" else 4 * deg * row // block_size)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def same_rounds(tag, r, rec):
+    """A rank's rounds' metrics equal the one-process run's, bit for
+    bit."""
+    check(len(r["rounds"]) == len(rec["rounds"]) and all(
+        a[k] == b[k] for a, b in zip(r["rounds"], rec["rounds"])
+        for k in b if k not in ("seconds",) + COUNTS),
+        f"{tag}: rank {r['rank']}'s rounds differ")
+
+
+def sharded_slice(card_line):
+    """Phases 26 and 26b: ``SHARD_ARGS`` on each run of ``SHARD_RUNS``
+    (native and fp8_e4m3 synchronous rounds; fp8_e4m3 async rounds with
+    node 0 4x slow, the sharded wire ledger), as one process computing the
+    S-way sharded run whole (``trivial_grid(J, shards=S)``) and then, in
+    one torchrun call, as J x S gloo ranks sharing the card, each holding
+    its node's parameters whole and one slab of its flat rows (and of its
+    ledger rows); bit for bit."""
+    from repro_torch import resolve_device
+    from repro_torch.distributed import trivial_grid
+    from repro_torch.models import build_model
+    cfg = zoo_config(SHARD_ARCH, SHARD_LAYERS)
+    params = build_model(cfg).param_count()
+    procs = SHARD_NODES * SHARD_S
+    runs = {tag: SHARD_ARGS + ["--wire-codec", codec] + extra
+            for tag, (codec, extra) in SHARD_RUNS.items()}
+    ones = one_process_runs(cfg, runs, lambda: trivial_grid(
+        SHARD_NODES, resolve_device(DEV), shards=SHARD_S))
+    lay = ones["native"]["record"]["layout"]
+    total, deg = lay.total, len(ones["native"]["record"]["offsets"])
     st = total // SHARD_S
-    reckoned = {c: reckon_sharded_peak(cfg, params, total, deg, c)
-                for c in SHARD_CODECS}
+    reckoned = {tag: reckon_sharded_peak(cfg, params, total, deg, codec,
+                                         ledger=bool(extra))
+                for tag, (codec, extra) in SHARD_RUNS.items()}
     print(f"sharded: {SHARD_ARCH} x{SHARD_LAYERS} layers at full width, "
           f"{params} parameters a node, {total} elements a node row, "
           f"{st} a slab; reckoned peak a rank "
@@ -2860,20 +3053,20 @@ def sharded_slice(card_line):
                       f"{r['resident'] / 1e9:.2f}, local step "
                       f"{r['local'] / 1e9:.2f}, round {r['round'] / 1e9:.2f})"
                       for c, r in reckoned.items()), flush=True)
-    ranks, call_s = launch_ranks("sharded", procs, None, SHARD_LAYERS,
-                                 arch=SHARD_ARCH, runs=runs)
+    ranks, call_s = launch_ranks(
+        "sharded", procs, None, SHARD_LAYERS, arch=SHARD_ARCH, shard=True,
+        runs=[a + ["--dist-backend", "gloo"] for a in runs.values()])
     out = {}
-    for n, codec in enumerate(SHARD_CODECS):
-        one = ones[n]
+    for n, (tag_, (codec, extra)) in enumerate(SHARD_RUNS.items()):
+        one = ones[tag_]
         rec = one["record"]
         mine = [r["runs"][n] for r in ranks]
         n_rounds = len(rec["rounds"])
-        per_block = codec != "native"
-        want_counts = {"launches": n_rounds, "masked_launches": 0,
-                       "per_block_launches": n_rounds if per_block else 0}
-        check(rec["counts"] == want_counts,
-              f"sharded {codec} one process: launches {rec['counts']}")
-        tag = f"sharded {codec}"
+        async_ = bool(extra)
+        want = want_counts(n_rounds, codec, async_)
+        check(rec["counts"] == want,
+              f"sharded {tag_} one process: launches {rec['counts']}")
+        tag = f"sharded {tag_}"
         got_nodes = {}
         for r in mine:
             check(r["pod"] == r["rank"] // SHARD_S
@@ -2883,8 +3076,7 @@ def sharded_slice(card_line):
             check(r["lam_shape"] == [1, st],
                   f"{tag}: rank {r['rank']}'s lam {r['lam_shape']}, want "
                   f"[1, {st}]")
-            check(r["counts"] == want_counts
-                  and len(r["kernel_ms"]) == n_rounds,
+            check(r["counts"] == want and len(r["kernel_ms"]) == n_rounds,
                   f"{tag}: rank {r['rank']} launches {r['counts']}")
             check(r["wire_bytes"] == rec["wire_bytes"]
                   and r["total"] == total,
@@ -2892,14 +3084,17 @@ def sharded_slice(card_line):
                   f"total {r['total']}")
             check(r["replicated"] == one["rep"],
                   f"{tag}: rank {r['rank']}'s replicated state")
-            check(len(r["rounds"]) == n_rounds and all(
-                a[k] == b[k] for a, b in zip(r["rounds"], rec["rounds"])
-                for k in b if k not in ("seconds",) + COUNTS),
-                f"{tag}: rank {r['rank']}'s rounds differ")
-            node = got_nodes.setdefault(str(r["pod"]), {"lam": [], "bar": []})
+            same_rounds(tag, r, rec)
+            node = got_nodes.setdefault(str(r["pod"]), {
+                "lam": [], "bar": [], "ledger": []})
             node["params"] = r["params"]
-            node["lam"].append(r["lam"])
-            node["bar"].append(r["bar"])
+            for k in ("lam", "bar"):
+                node[k].append(r[k])
+            if async_:
+                check(r["ledger_shape"][1] == 1,
+                      f"{tag}: rank {r['rank']}'s ledger "
+                      f"{r['ledger_shape']}")
+                node["ledger"] += r["ledger"]
         for p in range(SHARD_NODES):
             pod = [r for r in mine if r["pod"] == p]
             check(all(r["step_params"] == pod[0]["step_params"]
@@ -2908,35 +3103,40 @@ def sharded_slice(card_line):
                       rec["step_seconds"]) + n_rounds,
                   f"{tag}: the replicas of node {p} differ after a step")
         joined = {k: {"params": v["params"], "lam": join_digest(v["lam"]),
-                      "bar": join_digest(v["bar"])}
+                      "bar": join_digest(v["bar"]),
+                      **({"ledger": join_digest(v["ledger"])} if async_
+                         else {})}
                   for k, v in got_nodes.items()}
         check(joined == one["nodes"], f"{tag}: node rows differ: "
               + str([k for k in one["nodes"]
                      if joined.get(k) != one["nodes"][k]]))
-        # the slab's bytes: theta and theta' bf16, lam, lam', bar_prev and
-        # bar f32, the wires (2 B native, 1 B fp8 with 4 B a block)
-        wire_b = 2 * deg if codec == "native" else deg
-        slab_bytes = st * (2 + 2 + 4 + 4 + 4 + 4 + wire_b) + (
-            4 * deg * st // lay.block_size if per_block else 0)
-        bound = slab_bytes / HBM_BYTES_PER_S * 1e3
+        bound = row_bound_ms(st, deg, codec, lay.block_size)
         print(f"{tag}: J {SHARD_NODES} x S {SHARD_S} gloo ranks sharing "
               f"the card; rows, eta, mask, rounds and each node's replicas "
-              f"equal the one-process run bit for bit; {rec['wire_bytes']} "
+              + ("and ledger slabs, w_prev " if async_ else "")
+              + f"equal the one-process run bit for bit; {rec['wire_bytes']} "
               f"wire bytes per node per offset; one process "
               f"{one['seconds']:.1f} s (peak {one['peak_gb']:.2f} GB, kernel "
               "ms " + " ".join(f"{t:.3f}" for t in one["ms"])
               + f", step median {np.median(rec['step_seconds']):.3f}) "
               f"[{card_line}]", flush=True)
+        if async_:
+            print(f"{tag}: staleness (stale_edges, age_max) "
+                  + str([(x["stale_edges"], x["age_max"])
+                         for x in rec["rounds"]]), flush=True)
         for r in mine:
             print(f"{tag} rank {r['rank']} (pod {r['pod']}, slab "
                   f"{r['shard']}, {r['device']}): peak {r['peak_gb']:.2f} GB "
                   f"({r['reserved_gb']:.2f} reserved; reckoned "
-                  f"{reckoned[codec]['peak'] / 1e9:.2f}); slab kernel ms "
+                  f"{reckoned[tag_]['peak'] / 1e9:.2f}); slab kernel ms "
                   + " ".join(f"{t:.3f}" for t in r["kernel_ms"])
                   + f" (bound {bound:.3f} at [1, {st}]); exchange s a round "
                   + " ".join(f"{t:.3f}" for t in r["exchange_s"])
-                  + "; in-pod gathers s a round "
+                  + " (exposed wait "
+                  + " ".join(f"{t:.3f}" for t in r["wait_s"])
+                  + "); in-pod gathers s a round "
                   + " ".join(f"{t:.3f}" for t in r["gather_s"])
+                  + f"; pinned staging {r['staging_bytes'] / 1e9:.3f} GB"
                   + f"; step median {np.median(r['step_seconds']):.3f}, "
                   f"round median "
                   f"{np.median([x['seconds'] for x in r['rounds']]):.3f} "
@@ -2945,8 +3145,9 @@ def sharded_slice(card_line):
         # so the median leaves out each process's first launch
         timed = [t for r in mine
                  for t in r["kernel_ms"][1 if n == 0 else 0:]]
-        out[codec] = dict(
-            launches=sum(r["counts"]["launches"] for r in mine),
+        out[tag_] = dict(
+            launches=sum(r["counts"]["masked_launches" if async_
+                                     else "launches"] for r in mine),
             kernel_ms=float(np.median(timed)),
             first_launch_ms=(float(np.median([r["kernel_ms"][0]
                                               for r in mine]))
@@ -2954,11 +3155,148 @@ def sharded_slice(card_line):
             bound_ms=bound,
             exchange_s=float(np.median([t for r in mine
                                         for t in r["exchange_s"]])),
+            wait_s=float(np.median([t for r in mine for t in r["wait_s"]])),
             gather_s=float(np.median([t for r in mine
                                       for t in r["gather_s"]])),
             peak_gb=max(r["peak_gb"] for r in mine),
-            reckoned_gb=reckoned[codec]["peak"] / 1e9)
-    out["seconds"] = call_s + sum(o["seconds"] for o in ones)
+            reckoned_gb=reckoned[tag_]["peak"] / 1e9)
+    out["seconds"] = call_s + sum(o["seconds"] for o in ones.values())
+    return out
+
+
+def pipe_slice(card_line):
+    """Phase 27: ``PIPE_ARGS`` on each run of ``PIPE_RUNS`` (synchronous
+    static native rounds; async fp8_e4m3 rounds with node 0 4x slow), at
+    ``pipeline_offsets`` 1 in this process (J 3 on the card), then at
+    ``PIPE_DEPTH`` in one torchrun call of three gloo ranks sharing the
+    card, a node a rank, which also runs the synchronous run again at
+    depth 1: every node's rows, eta, the mask, the ledger's rows and
+    w_prev and every round's metrics equal bit for bit. Prints each
+    rank's peak beside the reckoned one, its pinned staging bytes, each
+    round's exchange issue seconds, exposed wait and probe seconds, and
+    the kernel's ms beside the row's byte bound; and the synchronous
+    run's exposed wait and round seconds at both depths on the same
+    ranks."""
+    from repro_torch import resolve_device
+    from repro_torch.distributed import trivial_grid
+    from repro_torch.models import build_model
+    cfg = zoo_config(PIPE_ARCH, PIPE_LAYERS)
+    params = build_model(cfg).param_count()
+    runs = {tag: PIPE_ARGS + extra for tag, extra in PIPE_RUNS.items()}
+    t0 = time.perf_counter()
+    ones = one_process_runs(
+        cfg, {t: a + ["--pipeline-offsets", "1"] for t, a in runs.items()},
+        lambda: trivial_grid(PIPE_NODES, resolve_device(DEV)))
+    one_s = time.perf_counter() - t0
+    lay = ones["sync native"]["record"]["layout"]
+    total, deg = lay.total, len(ones["sync native"]["record"]["offsets"])
+    check(deg == 2, "phase 27: offsets "
+          f"{ones['sync native']['record']['offsets']}")
+    reckoned = {tag: reckon_pipe_peak(cfg, params, total, deg,
+                                      a[a.index("--wire-codec") + 1],
+                                      "--async" in a)
+                for tag, a in PIPE_RUNS.items()}
+    print(f"pipe: {PIPE_ARCH} x{PIPE_LAYERS} layers at full width, "
+          f"{params} parameters a node, {total} elements a node row, J "
+          f"{PIPE_NODES} ring (deg {deg}); one process at depth 1 "
+          f"{one_s:.1f} s; reckoned peak a rank "
+          + ", ".join(f"{t} {r['peak'] / 1e9:.2f} GB (resident "
+                      f"{r['resident'] / 1e9:.2f}, local step "
+                      f"{r['local'] / 1e9:.2f}, round {r['round'] / 1e9:.2f})"
+                      for t, r in reckoned.items()), flush=True)
+    # each run at PIPE_DEPTH, then the synchronous one at depth 1 on the
+    # same ranks: what the depth changes in its exposed wait
+    rank_runs = [(tag, a, PIPE_DEPTH) for tag, a in runs.items()] + [
+        ("sync native", runs["sync native"], 1)]
+    ranks, call_s = launch_ranks(
+        "pipe", PIPE_NODES, None, PIPE_LAYERS, arch=PIPE_ARCH,
+        runs=[a + ["--pipeline-offsets", str(dep), "--dist-backend", "gloo"]
+              for _, a, dep in rank_runs])
+    out = {"seconds": one_s + call_s}
+    for n, (tag, args_list, dep) in enumerate(rank_runs):
+        one = ones[tag]
+        rec = one["record"]
+        mine = [r["runs"][n] for r in ranks]
+        n_rounds = len(rec["rounds"])
+        codec = args_list[args_list.index("--wire-codec") + 1]
+        async_ = "--async" in args_list
+        want = want_counts(n_rounds, codec, async_)
+        check(rec["counts"] == want,
+              f"pipe {tag} one process: launches {rec['counts']}")
+        got = {}
+        for r in mine:
+            got.update(r["nodes"])
+            check(r["counts"] == want and len(r["kernel_ms"]) == n_rounds,
+                  f"pipe {tag}: rank {r['rank']} launches {r['counts']}")
+            check(r["replicated"] == one["rep"],
+                  f"pipe {tag}: rank {r['rank']}'s replicated state "
+                  f"{r['replicated']} != {one['rep']}")
+            check(r["wire_bytes"] == rec["wire_bytes"],
+                  f"pipe {tag}: wire bytes {r['wire_bytes']}")
+            same_rounds(f"pipe {tag}", r, rec)
+        check(got == one["nodes"], f"pipe {tag}: node rows differ: "
+              + str([k for k in one["nodes"]
+                     if got.get(k) != one["nodes"][k]]))
+        if async_:
+            stale = [x["stale_edges"] for x in rec["rounds"]]
+            check(max(stale) > 0 and min(stale) == 0,
+                  f"pipe {tag}: staleness {stale}")
+        bound = row_bound_ms(total, deg, codec, lay.block_size)
+        print(f"pipe {tag}: {PIPE_NODES} gloo ranks sharing the card at "
+              f"pipeline_offsets {dep}; rows, eta, mask"
+              + (", ledger rows, w_prev" if async_ else "")
+              + " and rounds equal the one-process run at depth 1 bit for "
+              f"bit; {rec['wire_bytes']} wire bytes per node per offset; one "
+              f"process {one['seconds']:.1f} s (peak {one['peak_gb']:.2f} "
+              "GB, kernel ms " + " ".join(f"{t:.3f}" for t in one["ms"])
+              + f"); launches a rank {want} [{card_line}]", flush=True)
+        for r in mine:
+            print(f"pipe {tag} depth {dep} rank {r['rank']} "
+                  f"({r['device']}): peak "
+                  f"{r['peak_gb']:.2f} GB ({r['reserved_gb']:.2f} reserved; "
+                  f"reckoned {reckoned[tag]['peak'] / 1e9:.2f}; the state "
+                  f"{r['state_gb']:.2f} at the end, {r['left_gb']:.2f} left "
+                  "after it); pinned "
+                  f"staging {r['staging_bytes'] / 1e9:.3f} GB; exchange "
+                  "issue s a round "
+                  + " ".join(f"{t:.3f}" for t in r["issue_s"])
+                  + "; exposed wait s " + " ".join(f"{t:.3f}"
+                                                   for t in r["wait_s"])
+                  + "; probes s " + " ".join(f"{t:.3f}"
+                                             for t in r["probe_s"])
+                  + "; kernel ms " + " ".join(f"{t:.3f}"
+                                              for t in r["kernel_ms"])
+                  + f" (bound {bound:.3f} a row); step median "
+                  f"{np.median(r['step_seconds']):.3f}, round median "
+                  f"{np.median([x['seconds'] for x in r['rounds']]):.3f} "
+                  f"[{card_line}]", flush=True)
+        out[tag if dep == PIPE_DEPTH else f"{tag} depth {dep}"] = dict(
+            depth=dep,
+            launches=sum(r["counts"]["masked_launches" if async_
+                                     else "launches"] for r in mine),
+            per_block=sum(r["counts"]["per_block_launches"] for r in mine),
+            # each process's first launch loads the module (run (a))
+            kernel_ms=float(np.median([t for r in mine for t in
+                                       r["kernel_ms"][1 if n == 0 else 0:]])),
+            bound_ms=bound,
+            issue_s=float(np.median([t for r in mine for t in r["issue_s"]])),
+            wait_s=float(np.median([t for r in mine for t in r["wait_s"]])),
+            probe_s=float(np.median([t for r in mine for t in r["probe_s"]])),
+            # each rank's last round: the first grows the pinned pool
+            last_wait_s=[r["wait_s"][-1] for r in mine],
+            last_round_s=[r["rounds"][-1]["seconds"] for r in mine],
+            staging_gb=max(r["staging_bytes"] for r in mine) / 1e9,
+            peak_gb=max(r["peak_gb"] for r in mine),
+            reckoned_gb=reckoned[tag]["peak"] / 1e9)
+    d2, d1 = out["sync native"], out["sync native depth 1"]
+    print(f"pipe sync native: depth {PIPE_DEPTH} against depth 1 on the "
+          "same ranks (each rank's last round; the depth-1 run came last): "
+          "exposed wait s " + " ".join(f"{t:.3f}" for t in d2["last_wait_s"])
+          + " against " + " ".join(f"{t:.3f}" for t in d1["last_wait_s"])
+          + "; round s " + " ".join(f"{t:.3f}" for t in d2["last_round_s"])
+          + " against " + " ".join(f"{t:.3f}" for t in d1["last_round_s"])
+          + f"; pinned staging {d2['staging_gb']:.3f} against "
+          f"{d1['staging_gb']:.3f} GB a rank [{card_line}]", flush=True)
     return out
 
 
@@ -3950,10 +4288,15 @@ def main() -> int:
     t1 = time.perf_counter()
     nccl1 = nccl1_slice(static, card_line)
     t2 = time.perf_counter()
-    # -- 26. the sharded consensus state: J 2 x S 2 gloo ranks --------------
+    # -- 26, 26b. the sharded consensus state: J 2 x S 2 gloo ranks, sync
+    # and async rounds ------------------------------------------------------
     sharded = sharded_slice(card_line)
+    t3 = time.perf_counter()
+    # -- 27. the round pipeline and the async executor across three ranks --
+    pipe = pipe_slice(card_line)
     print(f"ranks slice: phase 24 {t1 - t0:.1f} s, 25 {t2 - t1:.1f} s, 26 "
-          f"{time.perf_counter() - t2:.1f} s", flush=True)
+          f"and 26b {t3 - t2:.1f} s, 27 {time.perf_counter() - t3:.1f} s",
+          flush=True)
 
     # -- (e) the flat update: one f32 row at the slice's size, and an N that
     # is not a block multiple
@@ -4004,10 +4347,14 @@ def main() -> int:
                      f"{ref_file}:141",
                      static["launches"] + nccl1["launches"] + sum(
                          z["launches"] for z in ztrain.values())
-                     + sharded["native"]["launches"],
+                     + sharded["native"]["launches"]
+                     + pipe["sync native"]["launches"]
+                     + pipe["sync native depth 1"]["launches"],
                      full_numbers, in_round_ms=static["in_round_ms"],
                      nccl1_launches=nccl1["launches"],
                      sharded=sharded["native"],
+                     pipelined_ranks=pipe["sync native"],
+                     sequential_ranks=pipe["sync native depth 1"],
                      zoo_launches={a: z["launches"]
                                    for a, z in ztrain.items()},
                      zoo_in_round_ms={a: z["in_round_ms"]
@@ -4017,8 +4364,12 @@ def main() -> int:
         kernel_entry("consensus_round_masked", src + "consensus_round.cu",
                      f"{ref_file}:221",
                      dyn["launches"] + asy["launches"] + obs_dyn + obs_async
-                     + ranks["launches"],
+                     + ranks["launches"]
+                     + sharded["async fp8_e4m3"]["launches"]
+                     + pipe["async fp8_e4m3"]["launches"],
                      dyn_full, in_round_ms=dyn["in_round_ms"],
+                     sharded_async=sharded["async fp8_e4m3"],
+                     async_ranks=pipe["async fp8_e4m3"],
                      ranks_launches=ranks["launches"],
                      ranks_in_round_ms=ranks["kernel_ms"],
                      ranks_bound_ms=ranks["bound_ms"],
@@ -4032,9 +4383,15 @@ def main() -> int:
                      async_round_bound_ms=afull["bound_ms"]),
         kernel_entry("consensus_round_per_block", src + "consensus_round.cu",
                      f"{ref_file}:147",
-                     fp8["per_block"] + sharded["fp8_e4m3"]["launches"],
+                     fp8["per_block"] + sharded["fp8_e4m3"]["launches"]
+                     + sharded["async fp8_e4m3"]["launches"]
+                     + pipe["async fp8_e4m3"]["per_block"],
                      fp8_full, in_round_ms=fp8["in_round_ms"],
-                     sharded=sharded["fp8_e4m3"]),
+                     sharded=sharded["fp8_e4m3"],
+                     sharded_async_launches=sharded["async fp8_e4m3"][
+                         "launches"],
+                     async_ranks_launches=pipe["async fp8_e4m3"][
+                         "per_block"]),
         kernel_entry("consensus_update", src + "consensus_update.cu",
                      f"{ref_file}:74", flat["launches"], flat),
         kernel_entry("flash_attention", src + "flash_attention_tc.cu",

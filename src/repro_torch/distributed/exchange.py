@@ -20,12 +20,23 @@ slab s of node ``(i + off) % J``. ``gather_pod`` all-gathers a tensor over
 the S ranks of the pod, in slab order (the reference's in-pod all-gather
 of a slab-sharded buffer, and its ``psum`` of the residual partials).
 
-Under gloo on a card (``RankGrid.staged``) the rows go through one pinned
-host buffer pair per rank (``HostStaging``), one offset at a time: the
-rows to send are copied to the host before any send starts, so the round
-kernel may overwrite the wire (a native wire is the packed parameters)
-right after the exchange returns. Under NCCL the returned handles are
-waited on, which orders the card's stream after the transfers.
+An exchange can be in flight (the reference's ``pipeline_offsets``, which
+issues up to ``depth`` offsets' permutes ahead of their consumers):
+``circulant_start`` copies the local rows, posts the offset's sends and
+receives and returns a ``Pending``; ``Pending.wait()`` completes them.
+``circulant_into`` is the two back to back. Each offset's ops carry a tag
+(the caller's ``tag``, the offset's index in the round), so that two
+batches in flight between the same pair of ranks are never matched across
+offsets. Under NCCL the works run on c10d's own stream and overlap with
+what the card's current stream does until ``wait()``, which orders the
+current stream after them; under gloo on the CPU they run on gloo's
+thread. Under gloo on a card (``RankGrid.staged``) the rows go through a
+pinned host buffer pair (``HostStaging``), one pair per offset in flight:
+``circulant_start`` copies the rows to send to the host before it posts
+anything, and ``wait()`` copies the received rows to the card. Whatever
+the backend, a sent row has left the wire only once its ``Pending`` has
+been waited on: the round kernel, which overwrites a native wire (the
+packed parameters) in place, runs after every wait.
 """
 from __future__ import annotations
 
@@ -79,27 +90,61 @@ def _bytes(rows: torch.Tensor) -> torch.Tensor:
     return rows.reshape(-1).view(torch.uint8)
 
 
-def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
-                   staging: HostStaging | None = None) -> None:
-    """dst[i] = the wire of node ``(grid.node_lo + i + off) % J``.
+class Pending:
+    """One offset's exchange in flight (``circulant_start``)."""
+
+    def __init__(self, works, landed, dst):
+        self._works = works
+        self._landed = landed       # (dst_row, rows, received bytes)
+        self._dst = dst
+        self.done = False
+
+    def wait(self) -> None:
+        """Block until this offset's rows have landed in ``dst`` and this
+        rank's sent rows have left (under NCCL: order the current stream
+        after the transfers)."""
+        if self.done:
+            return
+        for work in self._works:
+            work.wait()
+        for d0, rows, buf in self._landed:              # synchronous
+            _bytes(self._dst[d0:d0 + rows]).copy_(buf)
+        self._works = self._landed = self._dst = None   # the rows' memory
+        self.done = True
+
+
+def circulant_start(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
+                    staging: HostStaging | None = None, tag: int = 0,
+                    keep=None) -> Pending:
+    """Start ``dst[i] = the wire of node (grid.node_lo + i + off) % J``.
 
     dst and wire are this rank's ``[J / R, W]`` rows (with shards, its
-    node's slab message), contiguous, on the rank's device. Under gloo on
-    a card ``staging`` holds the host buffers (required there). Returns
-    after every row has landed in ``dst`` and every row of ``wire`` that
-    this rank sends has left it.
+    node's slab message), contiguous, on the rank's device. The rows whose
+    source is this rank are copied before it returns; the others land at
+    ``wait()``. ``keep`` (a bool per row of dst) marks rows to leave as
+    they are: what reaches them is dropped (every rank still sends and
+    receives the same rows). Under gloo on a card ``staging`` holds the
+    host buffers (required there), and stays in use until ``wait()``.
+    ``tag`` marks this offset's point-to-point ops.
     """
     per, j = grid.nodes_per_rank, grid.num_nodes
     off %= j
     me, ranks, group = grid.node_rank, grid.node_ranks, grid.node_group
     if ranks > 1 and not (dst.is_contiguous() and wire.is_contiguous()):
-        raise ValueError("circulant_into: dst and wire must be contiguous")
+        raise ValueError("circulant_start: dst and wire must be contiguous")
+    kept = [False] * per if keep is None else [bool(k) for k in keep]
     mine = segments(grid.node_lo, per, off, j)
     for src_rank, d0, s0, rows in mine:
-        if src_rank == me:
+        if src_rank != me:
+            continue
+        if any(kept[d0:d0 + rows]):
+            for i in range(rows):
+                if not kept[d0 + i]:
+                    dst[d0 + i].copy_(wire[s0 + i])
+        else:
             dst[d0:d0 + rows].copy_(wire[s0:s0 + rows])
     if ranks == 1:
-        return
+        return Pending([], [], dst)
     # what each other rank takes from this one: at most one segment
     sends = [(q, s0, rows) for q in range(ranks) if q != me
              for src_rank, _, s0, rows in segments(q * per, per, off, j)
@@ -108,39 +153,56 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
              if src_rank != me]
     row_bytes = wire[0].numel() * wire.element_size()
 
-    def peer(r):                     # a group rank's global rank
-        return dist.get_global_rank(group, r)
+    def p2p(op, buf, r):             # r: a group rank
+        return dist.P2POp(op, buf, dist.get_global_rank(group, r), group,
+                          tag)
 
+    def landing(d0, rows, buf):
+        """What ``wait()`` copies from ``buf`` (rows received for dst rows
+        d0...) into dst: the rows not kept."""
+        if not any(kept[d0:d0 + rows]):
+            return [(d0, rows, buf)]
+        return [(d0 + i, 1, buf[i * row_bytes:(i + 1) * row_bytes])
+                for i in range(rows) if not kept[d0 + i]]
+
+    landed, ops = [], []
     if grid.staged:
         if staging is None:
-            raise ValueError("circulant_into: gloo on a card needs a "
+            raise ValueError("circulant_start: gloo on a card needs a "
                              "HostStaging")
         send_buf, recv_buf = staging.reserve(per * row_bytes)
-        ops, at = [], 0
+        at = 0
         for q, s0, rows in sends:
             host = send_buf[at:at + rows * row_bytes]
             host.copy_(_bytes(wire[s0:s0 + rows]))      # synchronous
-            ops.append(dist.P2POp(dist.isend, host, peer(q), group))
+            ops.append(p2p(dist.isend, host, q))
             at += rows * row_bytes
-        landed, at = [], 0
+        at = 0
         for src_rank, d0, rows in recvs:
             host = recv_buf[at:at + rows * row_bytes]
-            ops.append(dist.P2POp(dist.irecv, host, peer(src_rank),
-                                  group))
-            landed.append((d0, rows, host))
+            ops.append(p2p(dist.irecv, host, src_rank))
+            landed += landing(d0, rows, host)
             at += rows * row_bytes
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        for d0, rows, host in landed:                   # synchronous
-            _bytes(dst[d0:d0 + rows]).copy_(host)
-        return
-    ops = [dist.P2POp(dist.isend, _bytes(wire[s0:s0 + rows]), peer(q),
-                      group) for q, s0, rows in sends]
-    ops += [dist.P2POp(dist.irecv, _bytes(dst[d0:d0 + rows]),
-                       peer(src_rank), group)
-            for src_rank, d0, rows in recvs]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
+    else:
+        ops = [p2p(dist.isend, _bytes(wire[s0:s0 + rows]), q)
+               for q, s0, rows in sends]
+        for src_rank, d0, rows in recvs:
+            if any(kept[d0:d0 + rows]):             # land in a scratch row
+                buf = torch.empty(rows * row_bytes, dtype=torch.uint8,
+                                  device=dst.device)
+                landed += landing(d0, rows, buf)
+            else:
+                buf = _bytes(dst[d0:d0 + rows])
+            ops.append(p2p(dist.irecv, buf, src_rank))
+    return Pending(dist.batch_isend_irecv(ops), landed, dst)
+
+
+def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
+                   staging: HostStaging | None = None) -> None:
+    """``circulant_start`` then ``wait()``: returns after every row has
+    landed in ``dst`` and every row of ``wire`` that this rank sends has
+    left it."""
+    circulant_start(dst, wire, off, grid, staging).wait()
 
 
 def _all_gather(t: torch.Tensor, n: int, group, grid,

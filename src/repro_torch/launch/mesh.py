@@ -57,8 +57,7 @@ def check_backend(backend: str, device_type: str, local_world: int,
 def init_ranks(num_nodes: int, device: str | torch.device, *,
                backend: str | None = None, init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
-               local_rank: int | None = None, shard_consensus: bool = False,
-               async_exec: bool = False, pipeline_offsets: int = 1
+               local_rank: int | None = None, shard_consensus: bool = False
                ) -> RankGrid:
     """This process's ``RankGrid`` for ``num_nodes`` ADMM nodes.
 
@@ -71,10 +70,9 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     card, ``cuda:{local_rank % cards}``.
 
     ``shard_consensus`` with R > 1 ranks needs R a multiple of J and gives
-    each node S = R / J ranks. Shards refuse ``async_exec`` and
-    ``pipeline_offsets > 1``: the sharded wire ledger and the pipelined
-    rounds come with ROADMAP Queue 1 item 1(c). (One process computes an
-    S-way sharded run whole on ``trivial_grid(J, device, shards=S)``.)
+    each node S = R / J ranks. (One process computes an S-way sharded run
+    whole on ``trivial_grid(J, device, shards=S)``.) Every round path runs
+    on every grid: sync, dynamic and async rounds, pipelined or not.
     """
     env = os.environ
     world = int(world_size if world_size is not None
@@ -92,11 +90,6 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     elif num_nodes % world:
         raise ValueError(f"--nodes {num_nodes} is not a multiple of the "
                          f"world size {world}: every rank holds J / R nodes")
-    if n_shards > 1 and (async_exec or pipeline_offsets > 1):
-        raise ValueError(
-            "--shard-consensus runs the synchronous round: the async "
-            "executor and pipeline_offsets with shards come with the "
-            "sharded wire ledger (ROADMAP Queue 1 item 1(c))")
     dev = torch.device(device)
     if world == 1 and backend is None:
         return trivial_grid(num_nodes, resolve_device(dev))

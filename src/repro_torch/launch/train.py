@@ -10,10 +10,11 @@ J. The backend follows the device (NCCL on cards, gloo on the CPU);
 ``--dist-backend gloo`` on ``cuda`` runs ranks that share one card, their
 rows staged through host memory. With ``--shard-consensus`` under
 torchrun, R = J * S ranks: the S ranks of each node hold its parameters
-whole and one slab each of its flat consensus rows (S = R / J). Only rank
-0 prints and writes the
-``--obs-dir`` artifacts: the rings are replicated, so its drain is the
-run's.
+whole and one slab each of its flat consensus rows (S = R / J). ``--async``
+and ``--pipeline-offsets`` run on every such grid: every rank builds the
+same deterministic round clock and executor. Only rank 0 prints and
+writes the ``--obs-dir`` artifacts: the rings are replicated, so its drain
+is the run's.
 Every arch of the reference trains: the audio and vision archs on the
 frontend stubs' embeddings (``SyntheticTokens.embeds_batch``), rwkv6 on the
 plain per-step recurrence (the scan kernel has no backward, as in the
@@ -43,6 +44,10 @@ Examples:
       --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --nodes 2 --shard-consensus --steps 4 --local-steps 2 \\
       --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --nodes 4 --async --max-staleness 1 --slow-node 0:3.0 \\
+      --pipeline-offsets 2 --local-steps 1 --steps 8 --device cpu
 
 With ``--obs-dir`` the rounds append to the device metrics rings, the
 launcher drains them every ``--obs-drain-every`` rounds into the
@@ -53,9 +58,9 @@ a torch.profiler Chrome trace of the first N rounds under
 ``<obs-dir>/profile/``.
 
 The ranks come from torchrun, not from a ``--mesh`` flag. The checkpoint
-and pipeline flags come with their slices; until then argparse rejects
-them. ``--async`` runs on one rank (its rounds across ranks come with
-``pipeline_offsets``), and not with ``--shard-consensus``.
+flags come with their slice; until then argparse rejects them. The
+reference's ``--no-async-collectives`` only sets XLA scheduler flags and
+has no counterpart here: argparse rejects it too.
 """
 from __future__ import annotations
 
@@ -136,6 +141,11 @@ def parse_args(argv=None):
     ap.add_argument("--slow-node", default="",
                     help="async drill: NODE:FACTOR — model node NODE taking "
                          "FACTOR x the fleet's round time (e.g. 0:2.0)")
+    ap.add_argument("--pipeline-offsets", type=int, default=1,
+                    help="round pipeline depth: how many graph offsets' "
+                         "exchanges may be in flight ahead of the "
+                         "decode/probe consume point (1 = sequential; the "
+                         "values are the same at every depth)")
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--eta0", type=float, default=0.1)
     ap.add_argument("--lr", type=float, default=1e-2)
@@ -204,8 +214,7 @@ def run(cfg: ArchConfig, args, grid=None) -> dict:
         return _run(cfg, args, grid)
     grid = init_ranks(args.nodes, args.device,
                       backend=args.dist_backend or None,
-                      shard_consensus=args.shard_consensus,
-                      async_exec=args.async_mode)
+                      shard_consensus=args.shard_consensus)
     try:
         return _run(cfg, args, grid)
     finally:
@@ -240,7 +249,8 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
                            drain_every=args.obs_drain_every,
                            with_node_ring=not args.no_node_ring)
                  if args.obs_dir else None),
-            shard_consensus=args.shard_consensus))
+            shard_consensus=args.shard_consensus,
+            pipeline_offsets=args.pipeline_offsets))
     # every rank draws the same one-node parameters from the seed
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))

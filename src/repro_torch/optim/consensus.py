@@ -56,7 +56,16 @@ directed edge consumes the freshest payload that has landed, falling back
 to the wire ledger's held row; an edge older than ``max_staleness`` rounds
 is gated, with its last force absorbed into the dual; the penalties are
 damped by age; nodes still computing keep their rows. The async round
-always runs the edge-gated kernel.
+always runs the edge-gated kernel. Each rank holds the ledger rows of its
+own nodes (or its slab's message of its node) and merges the landed
+payloads into them by the same exchange as the synchronous round.
+
+The round pipeline (``ConsensusConfig.pipeline_offsets``, the depth):
+both rounds issue up to ``depth`` offsets' exchanges
+(``distributed.circulant_start``) ahead of the point where an offset's
+payload is decoded and probed, and issue the next one after each probe.
+Depth 1 is the sequential issue-wait-probe loop. Every value is the same
+at every depth: only the time at which a transfer starts changes.
 
 Observability (``ConsensusConfig.obs``, ``repro_torch.obs``): every round
 path returns through ``_finish_round``, which unifies its metrics to
@@ -81,7 +90,7 @@ from repro_torch.core.graph import Graph, build_graph
 from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
                                       effective_eta, freeze_penalty,
                                       init_penalty_state, update_penalty)
-from repro_torch.distributed import (HostStaging, RankGrid, circulant_into,
+from repro_torch.distributed import (HostStaging, RankGrid, circulant_start,
                                      gather_nodes, gather_pod, trivial_grid)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
@@ -124,6 +133,16 @@ class ConsensusConfig:
     # the S in-pod ranks of each node (RankGrid.shards); off, or S = 1,
     # keeps the unsharded round
     shard_consensus: bool = False
+    # the round pipeline: how many offsets' exchanges may be in flight
+    # ahead of the decode/probe consume point. 1 is the sequential loop;
+    # the values, the ledger's included, are the same at every depth. The
+    # reference's pipelined synchronous round also writes its received
+    # rows, round + 1 and w_prev into a wire ledger, for a bounded-
+    # staleness round interleaved with it. Nothing in the port reads that:
+    # an async trainer takes this round only at max_staleness 0, and then
+    # every round, so the ledger is never decoded. The port builds the
+    # ledger only with async_exec and leaves it untouched here
+    pipeline_offsets: int = 1
 
 
 class TrainState(NamedTuple):
@@ -137,9 +156,43 @@ class TrainState(NamedTuple):
     penalty: PenaltyState          # [J, J]
     step: torch.Tensor             # [] int32
     topo: TopologyState            # [J, J] dynamic-topology state
-    ledger: Any = None             # WireLedger [deg, J, W] — async only
+    ledger: Any = None             # WireLedger [deg, J/R, W] — async
+    #                                only (a slab rank's [deg, 1, shard W])
     ring: Any = None               # obs.MetricsRing [cap, n_metrics]
     node_ring: Any = None          # obs.NodeRing [cap, J, n_node_cols]
+
+
+class _Window:
+    """Exchanges issued in ``order`` (offset indices, ascending), at most
+    ``depth`` in flight ahead of their consumer, which takes them in the
+    same order: ``wait(d)`` completes offset d's, ``fill()`` issues more.
+    The k-th issue gets staging slot ``k % depth``, whose previous user,
+    the issue ``depth`` before, has been waited on by then."""
+
+    def __init__(self, order, depth: int, start):
+        self._order = list(order)
+        self._depth = depth
+        self._start = start                 # (d, slot) -> Pending
+        self._next = 0
+        self._pending = {}
+        self.fill()
+
+    def fill(self) -> None:
+        while (self._next < len(self._order)
+               and len(self._pending) < self._depth):
+            d = self._order[self._next]
+            self._pending[d] = self._start(d, self._next % self._depth)
+            self._next += 1
+        if self._next == len(self._order):
+            self._start = None      # all issued: let go of the wire
+
+    def wait(self, d: int) -> None:
+        self._pending.pop(d).wait()
+
+    @property
+    def in_flight(self) -> int:
+        """Exchanges not yet issued or not yet waited on."""
+        return len(self._order) - self._next + len(self._pending)
 
 
 class ConsensusTrainer:
@@ -163,11 +216,6 @@ class ConsensusTrainer:
         if self.ranks.distributed and self.ranks.device != self.device:
             raise ValueError(f"rank {self.ranks.rank} runs on "
                              f"{self.ranks.device}, not {self.device}")
-        if self.ranks.world > 1 and consensus.async_exec is not None:
-            raise ValueError(
-                "the async executor runs on one rank: its pipelined rounds "
-                "across ranks come with pipeline_offsets (ROADMAP Queue 1 "
-                "item 1(c))")
         n_shards = self.ranks.shards
         if n_shards > 1 and not consensus.shard_consensus:
             raise ValueError(f"the rank grid shards each node over "
@@ -175,13 +223,19 @@ class ConsensusTrainer:
                              "shard_consensus")
         self.sharded = (consensus.shard_consensus and self.num_nodes > 1
                         and n_shards > 1)
-        if self.sharded and consensus.async_exec is not None:
-            raise ValueError(
-                "shard_consensus runs the synchronous round: the sharded "
-                "wire ledger comes with ROADMAP Queue 1 item 1(c)")
         # this rank's node rows
         self.n_local = self.ranks.nodes_per_rank
-        self._staging = HostStaging() if self.ranks.staged else None
+        self.pipeline_depth = max(1, int(consensus.pipeline_offsets))
+        self.pipelined = self.pipeline_depth > 1 and self.num_nodes > 1
+        # gloo on a card: pinned host pairs, one for the in-pod gathers and
+        # one for each exchange in flight (at depth 1 the same pair: the
+        # gathers run between exchanges)
+        staged = self.ranks.staged
+        self._staging = HostStaging() if staged else None
+        self._xstaging = [None] * self.pipeline_depth
+        if staged:
+            self._xstaging = [self._staging] if self.pipeline_depth == 1 \
+                else [HostStaging() for _ in range(self.pipeline_depth)]
         self.graph: Graph = build_graph(consensus.topology, self.num_nodes) \
             if self.num_nodes > 1 else build_graph("complete", 1)
         self._check_circulant()
@@ -261,7 +315,8 @@ class ConsensusTrainer:
         ledger = None
         if j > 1 and self.async_cfg is not None:
             ledger = init_wire_ledger(self.layout, len(self.offsets), j,
-                                      codec=self.codec, device=self.device)
+                                      codec=self.codec, device=self.device,
+                                      rows=rows, slab=self.slab)
         return TrainState(
             params=params, opt=adamw_lib.init(self.acfg, params),
             lam=torch.zeros(flat_shape, dtype=torch.float32,
@@ -362,6 +417,72 @@ class ConsensusTrainer:
         rank the tensor itself: the slice is whole and contiguous)."""
         return t[..., self.ranks.node_lo:self.ranks.node_hi].contiguous()
 
+    def staging_bytes(self) -> int:
+        """Pinned host bytes this rank holds for its staged exchanges and
+        gathers (0 unless gloo on a card)."""
+        pairs = {id(h): h for h in self._xstaging + [self._staging]
+                 if h is not None}
+        return sum(h.send.numel() + h.recv.numel() for h in pairs.values())
+
+    def _window(self, order, dst_of, wire, keep=None) -> _Window:
+        """Start the exchanges of the offsets in ``order`` into
+        ``dst_of(d)`` (leaving the rows ``keep[d]`` marks as they are),
+        ``pipeline_depth`` ahead of their consumer; offset d's P2P ops
+        carry tag d."""
+        def start(d, slot):
+            off = self.offsets[d]
+            with self._span(f"consensus/exchange/off{off}"):
+                return circulant_start(
+                    dst_of(d), wire, off, self.ranks, self._xstaging[slot],
+                    tag=d, keep=None if keep is None else keep[d])
+        return _Window(order, self.pipeline_depth, start)
+
+    def _fused_round(self, window, theta_flat, state, wires, scales,
+                     e_stack, alpha, sym_sum, eta_node, gated):
+        """The round kernel on this rank's rows (a slab rank's slab: a
+        contiguous view of its one packed row), then every node's block
+        partials summed as one process sums its own, the same bits however
+        the rows and the slabs are split. ``window`` holds the round's
+        exchanges, each of which must have been waited on. Returns
+        (theta_new of this rank's whole rows, lam', bar', r_sq [J], s_sq
+        [J])."""
+        if window.in_flight:
+            raise RuntimeError(
+                f"{window.in_flight} exchange(s) still in flight at the round "
+                "kernel, which overwrites a native wire in place")
+        with self._span("consensus/fused_round"):
+            theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
+                theta_flat[:, self.cols], state.lam, state.theta_bar_prev,
+                wires, scales,
+                self._local(e_stack), self._local(alpha),
+                self._local(sym_sum), self._local(eta_node),
+                block_leaf=self.block_leaf,
+                block_size=self.layout.block_size,
+                scales_per_block=self.dequant_spec.per_block,
+                partials=True,
+                **{k: self._local(v) for k, v in gated.items()})
+        rs = torch.stack([r_sq, s_sq], dim=1)          # [J/R, 2, blocks]
+        if self.slab:
+            with self._span("consensus/gather"):
+                rs = self._gather_slabs(rs)
+                theta_new = self._gather_slabs(theta_new)
+        rs = gather_nodes(rs, self.ranks)
+        return (theta_new, lam_new, bar_new, rs[:, 0].contiguous().sum(dim=1),
+                rs[:, 1].contiguous().sum(dim=1))
+
+    def _probe_row(self, row: torch.Tensor, probe_batch: dict
+                   ) -> torch.Tensor:
+        """[J/R] probes of this rank's nodes at one offset's raw wire rows
+        (a slab rank's slab message: its pod's slabs gathered first)."""
+        if self.slab:
+            with self._span("consensus/gather"):
+                row = self._gather_slabs(row)
+        with self._span("wire/decode"):
+            payload, sc = self.codec.decode(row)
+        with self._span("consensus/probe"):
+            return self._probe_losses(self.codec.unpack(payload, sc),
+                                      probe_batch)
+
     @torch.no_grad()
     def consensus_step(self, state: TrainState, probe_batch: dict
                        ) -> tuple[TrainState, dict]:
@@ -411,47 +532,35 @@ class ConsensusTrainer:
 
         # exchange: rolled[d] = torch.roll(wire of all J, -off_d, 0), this
         # rank's rows. These are COPIES, never views of theta_flat: the
-        # kernel updates theta_flat in place on the card, and every row
-        # this rank sends has left it when circulant_into returns. A dead
+        # kernel updates theta_flat in place on the card, and it runs after
+        # every exchange has been waited on. The live offsets' exchanges
+        # are issued ``pipeline_depth`` ahead of their probes; a dead
         # offset moves nothing (on every rank: ``live`` is read from the
         # replicated state): its row is a zero payload with unit scales.
         rolled = torch.empty((deg,) + tuple(wire.shape), dtype=wire.dtype,
                              device=dev)
-        for d, off in enumerate(offsets):
-            if live[d]:
-                with self._span(f"consensus/exchange/off{off}"):
-                    circulant_into(rolled[d], wire, off, self.ranks,
-                                   self._staging)
-            else:
+        for d in range(deg):
+            if not live[d]:
                 rolled[d].zero_()
+        window = self._window([d for d in range(deg) if live[d]],
+                              lambda d: rolled[d], wire)
+        # consume in offset order: wait, then probe this rank's nodes at
+        # the offset's payload (one row decoded: the bytes the stacked
+        # decode below gives the kernel), then issue the next offset
+        f_live = []
+        for d in range(deg):
+            if live[d]:
+                window.wait(d)
+                f_live.append(self._probe_row(rolled[d], probe_batch))
+                window.fill()
         del wire
         with self._span("wire/decode"):
             payloads, dec_scales = (
                 self.codec.decode_slab(rolled, self.ranks.shard) if self.slab
                 else self.codec.decode(rolled))
         wires = payloads.contiguous()           # [deg, J/R, total or slab]
-        del payloads
-        if not self.slab:
-            del rolled
-
-        # the probes of this rank's nodes, then every node's, gathered. A
-        # slab rank probes the whole payload, its pod's slabs gathered
-        f_live = []
-        for d in range(deg):
-            if live[d]:
-                if self.slab:
-                    with self._span("consensus/gather"):
-                        payload, sc = self.codec.decode(
-                            self._gather_slabs(rolled[d]))
-                else:
-                    payload = wires[d]
-                    sc = None if dec_scales is None else dec_scales[d]
-                with self._span("consensus/probe"):
-                    f_live.append(self._probe_losses(
-                        self.codec.unpack(payload, sc), probe_batch))
-                del payload, sc
-        if self.slab:
-            del rolled
+        del payloads, rolled
+        # every node's probes, gathered
         f_all = gather_nodes(torch.stack([f_self] + f_live, dim=1),
                              self.ranks)                      # [J, 1 + live]
         f_self = f_all[:, 0].contiguous()
@@ -512,29 +621,10 @@ class ConsensusTrainer:
                 gated["kick_w"] = torch.stack(kick_rows)
         else:
             eta_node = sym_sum / deg
-        # the kernel runs on this rank's rows (a slab rank's slab: a
-        # contiguous view of its one packed row)
-        with self._span("consensus/fused_round"):
-            theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-                theta_flat[:, self.cols], state.lam, state.theta_bar_prev,
-                wires, scales,
-                self._local(e_stack), self._local(alpha),
-                self._local(sym_sum), self._local(eta_node),
-                block_leaf=self.block_leaf, block_size=lay.block_size,
-                scales_per_block=self.dequant_spec.per_block,
-                partials=True,
-                **{k: self._local(v) for k, v in gated.items()})
+        theta_new, lam_new, bar_new, r_sq, s_sq = self._fused_round(
+            window, theta_flat, state, wires, scales, e_stack, alpha,
+            sym_sum, eta_node, gated)
         del wires
-        # every node's block partials, summed as one process sums its own:
-        # the same bits however the rows and the slabs are split
-        rs = torch.stack([r_sq, s_sq], dim=1)          # [J/R, 2, blocks]
-        if self.slab:
-            with self._span("consensus/gather"):
-                rs = self._gather_slabs(rs)
-                theta_new = self._gather_slabs(theta_new)
-        rs = gather_nodes(rs, self.ranks)
-        r_sq = rs[:, 0].contiguous().sum(dim=1)
-        s_sq = rs[:, 1].contiguous().sum(dim=1)
 
         # theta_new -> the parameter replicas, in place
         for dst, src in zip(tree_lib.leaves(state.params),
@@ -630,8 +720,9 @@ class ConsensusTrainer:
             its clocks tick.
 
         The clock's bits pick on the host which rows to copy and which to
-        keep, and go to the device once. With ``max_staleness=0`` this is
-        ``consensus_step`` itself.
+        keep, and go to the device once. Both are replicated: every rank
+        makes the same exchanges and gathers, and updates its own nodes'
+        rows. With ``max_staleness=0`` this is ``consensus_step`` itself.
         """
         if self.async_cfg is None:
             raise ValueError("consensus_step_async needs ConsensusConfig."
@@ -651,6 +742,7 @@ class ConsensusTrainer:
                              "init_state of an async trainer")
         j = self.num_nodes
         offsets = self.offsets
+        deg = len(offsets)
         lay = self.layout
         adj = self._adj
         idx = torch.arange(j, device=dev)
@@ -700,26 +792,45 @@ class ConsensusTrainer:
                   for off in offsets]
 
         with self._span("consensus/probe"):
-            f_self = self._probe_losses(state.params, probe_batch)  # [J]
+            f_self = self._probe_losses(state.params, probe_batch)  # [J/R]
         with self._span("consensus/pack"):
             theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
             with self._span("wire/encode"):
-                wire = self.codec.encode(theta_flat)
-        # merge: a receiver whose payload landed copies it into its ledger
-        # slot (a COPY: a native wire is theta_flat, which the kernel
-        # overwrites); the others keep their held row. An offset where
-        # nothing landed moves nothing.
-        for d, off in enumerate(offsets):
-            landed = np.nonzero(arr_np[d])[0]
-            if len(landed):
-                with self._span(f"consensus/exchange/off{off}"):
-                    for i in landed:
-                        ledger.wires[d, i].copy_(wire[(i + off) % j])
+                wire = (self.codec.encode_slab(theta_flat, self.ranks.shard)
+                        if self.slab else self.codec.encode(theta_flat))
+        # merge: every rank exchanges each offset where any payload landed
+        # (the replicated arrivals) into its ledger rows, keeping the held
+        # row of each receiver whose payload did not land (a COPY: a native
+        # wire is theta_flat, which the kernel overwrites). An offset where
+        # nothing landed moves nothing. The merges are issued
+        # ``pipeline_depth`` ahead of the probes.
+        lo, hi = self.ranks.node_lo, self.ranks.node_hi
+        merged = [d for d in range(deg) if arr_np[d].any()]
+        window = self._window(merged, lambda d: ledger.wires[d], wire,
+                              keep=~arr_np[:, lo:hi])
+        # consume in offset order: the merge, then this rank's probes of
+        # the payload actually consumed (a held one included; a fully
+        # gated, kick-free offset skips the forward pass)
+        f_probed = []
+        for d in range(deg):
+            if d in merged:
+                window.wait(d)
+            if probed[d]:
+                f_probed.append(self._probe_row(ledger.wires[d],
+                                                probe_batch))
+            window.fill()
         del wire
         with self._span("wire/decode"):
-            payloads, dec_scales = self.codec.decode(ledger.wires)
+            payloads, dec_scales = (
+                self.codec.decode_slab(ledger.wires, self.ranks.shard)
+                if self.slab else self.codec.decode(ledger.wires))
         wires = payloads.contiguous()     # native: the ledger itself
         del payloads
+        f_all = gather_nodes(torch.stack([f_self] + f_probed, dim=1),
+                             self.ranks)                  # [J, 1 + probed]
+        f_self = f_all[:, 0].contiguous()
+        f_probed = iter([f_all[:, 1 + n].contiguous()
+                         for n in range(len(f_probed))])
 
         sym_sum = torch.zeros((j,), dtype=f32, device=dev)
         act = torch.zeros((j,), dtype=f32, device=dev)
@@ -728,16 +839,7 @@ class ConsensusTrainer:
         for d, off in enumerate(offsets):
             jidx = (idx + off) % j
             g_off = gate_f[idx, jidx]
-            # probe the payload actually consumed (a held one included); a
-            # fully gated, kick-free offset skips the forward pass
-            if probed[d]:
-                with self._span("consensus/probe"):
-                    f_off = self._probe_losses(self.codec.unpack(
-                        wires[d],
-                        None if dec_scales is None else dec_scales[d]),
-                        probe_batch)
-            else:
-                f_off = f_self
+            f_off = next(f_probed) if probed[d] else f_self
             e_sym = w_applied[idx, jidx]
             mask = torch.as_tensor(np.roll(np.eye(j), off, axis=1),
                                    dtype=f32, device=dev)
@@ -748,7 +850,8 @@ class ConsensusTrainer:
             w_rows.append(g_off)
             kick_rows.append(kick_m[idx, jidx])
         scales = dec_scales.contiguous() if dec_scales is not None \
-            else torch.ones((len(offsets), j, self.dequant_spec.scale_width),
+            else torch.ones((deg, self.n_local,
+                             self.dequant_spec.scale_width),
                             dtype=f32, device=dev)
         alpha = self.ccfg.prox_step / (1.0 + 2.0 * sym_sum)
         inv_deg = torch.where(act > 0, 1.0 / torch.clamp_min(act, 1.0), 0.0)
@@ -756,28 +859,27 @@ class ConsensusTrainer:
 
         # the kernel writes every row in place, a frozen one too (with all
         # gates 0 it still pulls theta by the dual and zeroes bar): keep a
-        # copy of the frozen rows only
-        frozen = None if adv_np is None or adv_np.all() else \
-            torch.as_tensor(np.nonzero(~adv_np)[0], device=dev)
+        # copy of this rank's frozen rows only
+        adv_mine = None if adv_np is None else adv_np[lo:hi]
+        frozen = None if adv_mine is None or adv_mine.all() else \
+            torch.as_tensor(np.nonzero(~adv_mine)[0], device=dev)
         held = None if frozen is None else (
             state.lam.index_select(0, frozen),
             state.theta_bar_prev.index_select(0, frozen))
-        with self._span("consensus/fused_round"):
-            theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-                theta_flat, state.lam, state.theta_bar_prev, wires, scales,
-                torch.stack(e_rows), alpha, sym_sum, eta_node,
-                block_leaf=self.block_leaf, block_size=lay.block_size,
-                scales_per_block=self.dequant_spec.per_block,
-                bar_w=torch.stack(w_rows), inv_deg=inv_deg,
-                kick_w=torch.stack(kick_rows))
+        theta_new, lam_new, bar_new, r_sq, s_sq = self._fused_round(
+            window, theta_flat, state, wires, scales, torch.stack(e_rows),
+            alpha, sym_sum, eta_node, dict(bar_w=torch.stack(w_rows),
+                                           inv_deg=inv_deg,
+                                           kick_w=torch.stack(kick_rows)))
         del wires, scales
 
-        # theta_new -> the parameter replicas of the advancing nodes
-        adv_rows = range(j) if adv_np is None else np.nonzero(adv_np)[0]
+        # theta_new -> the parameter replicas of this rank's advancing nodes
+        adv_rows = range(self.n_local) if adv_mine is None \
+            else np.nonzero(adv_mine)[0]
         for dst, src in zip(tree_lib.leaves(state.params),
                             tree_lib.leaves(lay.unpack(theta_new)),
                             strict=True):
-            if len(adv_rows) == j:
+            if len(adv_rows) == self.n_local:
                 dst.copy_(src)
             else:
                 for i in adv_rows:
@@ -852,9 +954,10 @@ class ConsensusTrainer:
                      old_penalty: PenaltyState, frozen, held) -> TrainState:
         """Put back the rows of the nodes that did not advance this tick.
 
-        ``frozen`` holds their ids and ``held`` the copies of their dual
-        and neighbour-mean rows taken before the kernel wrote them; their
-        parameter rows were never written. The penalty freezes per edge
+        ``frozen`` holds their rows among this rank's (None: none) and
+        ``held`` the copies of their dual and neighbour-mean rows taken
+        before the kernel wrote them; their parameter rows were never
+        written. The penalty freezes per edge
         (``core.penalty.freeze_penalty``). The clocks, the topology and the
         ledger always advance: they model the network, not the node.
         """

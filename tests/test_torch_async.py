@@ -6,7 +6,9 @@
   ``effective_eta`` with ``age``, ``freeze_penalty`` (per edge) and
   ``aged_out_nodes`` on random inputs; ``AsyncConfig`` validation; the
   wire ledger's shapes and dtypes for the native, int8 and fp8_e4m3 wires
-  on the reduced qwen3-4b layout; ``RoundClock`` tick sequences
+  on the reduced qwen3-4b layout, unsharded and 2-way sharded
+  (``init_wire_ledger(slayout=...)``, ``wire_width``); ``RoundClock`` tick
+  sequences
   (``arrivals``, ``advance``, ``time_s``, ``rounds_done``) for a
   homogeneous fleet and a 2x and a 4x straggler, with ``wire_s`` 0 and 0.25.
 * Trainer trajectories: the reference runs on a (4, 1, 1) mesh of four
@@ -16,7 +18,12 @@
   slow, for 8 ticks: on a ring under the ``stale`` scheduler with the
   native, int8 and fp8_e4m3 wires, and on the complete graph under the
   ``budget`` scheduler with churn (node 3 dropped after round 4), where the
-  scheduler's kicks and the staleness kicks meet. It saves the initial
+  scheduler's kicks and the staleness kicks meet; and sharded, J 2 x S 2
+  on a (2, 2, 1) mesh of the same devices (``shard_consensus``, the
+  fp8_e4m3 wire, the ``stale`` scheduler), which the port replays as one
+  process computing the sharded run whole (``trivial_grid(2, shards=2)``,
+  a ledger row S slab messages). One reference process a case, shared
+  by the xdist workers; each saves the initial
   parameters, topology and ledger; the port replays the run from them
   (``from_jax``, ``topology.from_numpy``, ``async_exec.from_numpy``) with
   its own executor and clock. Tolerances as in
@@ -41,10 +48,12 @@ import torch
 
 from repro_torch import async_exec
 from repro_torch import tree as tree_lib
+from repro_torch import wire as wire_lib
 from repro_torch.configs import get_reduced_config
 from repro_torch.core import graph, penalty
 from repro_torch.core.penalty import PenaltyConfig
 from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.distributed import trivial_grid
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.params import from_jax
@@ -68,6 +77,10 @@ CASES = {
     "budget": dict(topology="complete", codec="native", budget_init=0.1,
                    dyn=dict(scheduler="budget", churn=True, gate_tol=10.0,
                             max_staleness=1)),
+    # J 2 x S 2: the flat state sharded in-pod, a ledger row S slab
+    # messages (the reference on a (2, 2, 1) mesh of the same four devices)
+    "sharded": dict(topology="ring", codec="fp8_e4m3", nodes=2, shards=2,
+                    dyn=dict(scheduler="stale", max_staleness=1)),
 }
 CLOCKS = {f"{name}/{wire}": (factor, wire)
           for name, factor in (("even", 1.0), ("slow2", 2.0), ("slow4", 4.0))
@@ -76,6 +89,7 @@ BAD_ASYNC = (dict(max_staleness=-1), dict(stale_gamma=-0.1))
 CLOCK_OFFSETS = (1, 2, 3)           # complete J=4
 GAMMAS = (0.0, 0.5, 1.7)
 CODECS = ("native", "int8", "fp8_e4m3")
+SHARDS = (1, 2)
 RECORDED = ("loss", "r_max", "s_max", "eta_mean", "active", "stale",
             "age_max", "eta", "kick", "w_prev", "age", "mask", "alive",
             "arrivals", "advance", "round")
@@ -190,17 +204,21 @@ def _reference_outputs():
     out["async/default"] = np.asarray([ja.AsyncConfig().max_staleness,
                                        ja.AsyncConfig().stale_gamma])
 
-    for dtype in ("float32", "bfloat16"):
+    for dtype, shards in ((d, s) for d in ("float32", "bfloat16")
+                          for s in SHARDS):
         cfg_m = dataclasses.replace(jget_reduced("qwen3-4b"), dtype=dtype)
         ap = jbuild_model(cfg_m).abstract_params()
         lay = jflatten.FlatLayout.for_tree(
-            ap, block_size=jflatten.auto_block_size(ap), node_axis=False)
+            ap, block_size=jflatten.auto_block_size(ap), node_axis=False,
+            shards=shards)
+        slay = lay.shard(shards) if shards > 1 else None
         for codec in CODECS:
-            led = ja.init_wire_ledger(lay, 3, 4, compression=codec)
-            k = f"ledger/{dtype}/{codec}"
+            led = ja.init_wire_ledger(lay, 3, 4, compression=codec,
+                                      slayout=slay)
+            k = f"ledger/{dtype}/S{shards}/{codec}"
             out[f"{k}/shape"] = np.asarray(led.wires.shape)
             out[f"{k}/dtype"] = np.asarray(str(led.wires.dtype))
-            out[f"{k}/width"] = np.asarray(ja.wire_width(lay, codec))
+            out[f"{k}/width"] = np.asarray(ja.wire_width(lay, codec, slay))
             out[f"{k}/row_dtype"] = np.asarray(
                 str(np.dtype(ja.wire_row_dtype(lay, codec))))
             out[f"{k}/zero"] = np.asarray([
@@ -232,9 +250,10 @@ def _save_params(out, params):
         out["p/" + "/".join(k.key for k in path)] = np.asarray(leaf[0])
 
 
-def _trainer_reference_outputs():
-    """The reference async trainer in each case of ``CASES`` (runs with JAX
-    on four fake CPU devices)."""
+def _trainer_reference_outputs(name="native"):
+    """The reference async trainer in case ``name`` of ``CASES`` (runs
+    with JAX on four fake CPU devices). One case a process
+    (``_trainer_ref``): a test waits only for its own case's run."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
     from repro.async_exec import (AsyncConfig, AsyncExecutor, RoundClock,
@@ -252,59 +271,60 @@ def _trainer_reference_outputs():
 
     cfg = dataclasses.replace(jget_reduced("qwen3-4b"), dtype="float32")
     model = jbuild_model(cfg)
-    mesh = make_mesh((4, 1, 1), ("pod", "data", "model"))
-    data = JSyntheticTokens(JDataConfig(vocab=cfg.vocab, seq_len=32,
-                                        batch_per_node=2, num_nodes=4))
     out = {}
-    for name, case in CASES.items():
-        tr = JConsensusTrainer(
-            model, mesh, adamw=JAdamWConfig(lr=1e-2),
-            consensus=JConsensusConfig(
-                penalty=JPenaltyConfig(scheme="nap", eta0=0.1,
-                                       budget_init=case.get("budget_init",
-                                                            1.0)),
-                topology=case["topology"], local_steps=1,
-                wire_codec=case["codec"], use_fused_kernel=True,
-                dyn_topology=JTopologyConfig(**case["dyn"]),
-                async_exec=AsyncConfig(max_staleness=1)))
-        state = tr.init_state(jax.random.PRNGKey(0))
-        if name == "native":
-            _save_params(out, state.params)
-        for k, v in state.topo._asdict().items():
-            if k != "key":
-                out[f"{name}/topo0/{k}"] = np.asarray(v)
-        for k, v in state.ledger._asdict().items():
-            out[f"{name}/ledger0/{k}"] = np.asarray(v)
-        ex = AsyncExecutor(tr, RoundClock(
-            compute_s=straggler_compute(4, factor=SLOW), wire_s=0.25,
-            offsets=tuple(tr.offsets)))
-        ticks = []
-        tick = ex.clock.tick
-        ex.clock.tick = lambda: ticks.append(tick()) or ticks[-1]
-        train = jax.jit(tr.train_step)
-        rec = {k: [] for k in RECORDED}
-        for step in range(TICKS):
-            state, m = train(state, data.batch(step))
-            state, cm = ex.consensus_round(state, data.batch(10**6 + step))
-            if name == "budget" and step == DROP_AFTER:
-                state = tr.apply_churn(state, 3)
-            for k, key in (("r_max", "r_max"), ("s_max", "s_max"),
-                           ("eta_mean", "eta_mean"),
-                           ("active", "active_edges"),
-                           ("stale", "stale_edges"), ("age_max", "age_max")):
-                rec[k].append(float(cm[key]))
-            rec["loss"].append(float(m["loss"]))
-            rec["eta"].append(np.asarray(state.penalty.eta))
-            for k in ("kick", "age", "mask"):
-                rec[k].append(np.asarray(getattr(state.topo, k)))
-            rec["alive"].append(np.asarray(state.topo.node_alive))
-            rec["w_prev"].append(np.asarray(state.ledger.w_prev))
-            rec["round"].append(int(state.ledger.round))
-            rec["arrivals"].append(ticks[-1][0])
-            rec["advance"].append(ticks[-1][1])
-        for k, v in rec.items():
-            out[f"{name}/{k}"] = np.asarray(v)
-        out[f"{name}/rounds_done"] = np.asarray(ex.summary()["rounds_done"])
+    case = CASES[name]
+    j, shards = case.get("nodes", 4), case.get("shards", 1)
+    mesh = make_mesh((j, shards, 1), ("pod", "data", "model"))
+    data = JSyntheticTokens(JDataConfig(vocab=cfg.vocab, seq_len=32,
+                                        batch_per_node=2, num_nodes=j))
+    tr = JConsensusTrainer(
+        model, mesh, adamw=JAdamWConfig(lr=1e-2),
+        consensus=JConsensusConfig(
+            penalty=JPenaltyConfig(scheme="nap", eta0=0.1,
+                                   budget_init=case.get("budget_init", 1.0)),
+            topology=case["topology"], local_steps=1,
+            wire_codec=case["codec"], use_fused_kernel=True,
+            shard_consensus=shards > 1,
+            dyn_topology=JTopologyConfig(**case["dyn"]),
+            async_exec=AsyncConfig(max_staleness=1)))
+    assert tr.n_shards == shards
+    state = tr.init_state(jax.random.PRNGKey(0))
+    _save_params(out, state.params)
+    for k, v in state.topo._asdict().items():
+        if k != "key":
+            out[f"{name}/topo0/{k}"] = np.asarray(v)
+    for k, v in state.ledger._asdict().items():
+        out[f"{name}/ledger0/{k}"] = np.asarray(v)
+    ex = AsyncExecutor(tr, RoundClock(
+        compute_s=straggler_compute(j, factor=SLOW), wire_s=0.25,
+        offsets=tuple(tr.offsets)))
+    ticks = []
+    tick = ex.clock.tick
+    ex.clock.tick = lambda: ticks.append(tick()) or ticks[-1]
+    train = jax.jit(tr.train_step)
+    rec = {k: [] for k in RECORDED}
+    for step in range(TICKS):
+        state, m = train(state, data.batch(step))
+        state, cm = ex.consensus_round(state, data.batch(10**6 + step))
+        if name == "budget" and step == DROP_AFTER:
+            state = tr.apply_churn(state, 3)
+        for k, key in (("r_max", "r_max"), ("s_max", "s_max"),
+                       ("eta_mean", "eta_mean"),
+                       ("active", "active_edges"),
+                       ("stale", "stale_edges"), ("age_max", "age_max")):
+            rec[k].append(float(cm[key]))
+        rec["loss"].append(float(m["loss"]))
+        rec["eta"].append(np.asarray(state.penalty.eta))
+        for k in ("kick", "age", "mask"):
+            rec[k].append(np.asarray(getattr(state.topo, k)))
+        rec["alive"].append(np.asarray(state.topo.node_alive))
+        rec["w_prev"].append(np.asarray(state.ledger.w_prev))
+        rec["round"].append(int(state.ledger.round))
+        rec["arrivals"].append(ticks[-1][0])
+        rec["advance"].append(ticks[-1][1])
+    for k, v in rec.items():
+        out[f"{name}/{k}"] = np.asarray(v)
+    out[f"{name}/rounds_done"] = np.asarray(ex.summary()["rounds_done"])
     return out
 
 
@@ -324,10 +344,12 @@ def ref(tmp_path_factory):
     return run_reference("test_torch_async", tmp_path_factory)
 
 
-@pytest.fixture(scope="module")
-def trainer_ref(tmp_path_factory):
+def _trainer_ref(tmp_path_factory, name):
+    """Case ``name``'s reference run, once a test run (the native one is
+    also ``test_torch_ranks.py``'s, read with the default argument)."""
     return run_reference("test_torch_async", tmp_path_factory,
-                         fn="_trainer_reference_outputs")
+                         fn="_trainer_reference_outputs",
+                         arg=None if name == "native" else name)
 
 
 # -------------------------------------------------------------- units ----
@@ -434,23 +456,44 @@ def test_async_config_validates_like_reference(ref):
     assert [d.max_staleness, d.stale_gamma] == ref["async/default"].tolist()
 
 
+@pytest.mark.parametrize("shards", SHARDS)
 @pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ledger_shapes_and_dtypes_match_reference(ref, dtype, codec):
+def test_ledger_shapes_and_dtypes_match_reference(ref, dtype, codec, shards):
     cfg = dataclasses.replace(get_reduced_config("qwen3-4b"), dtype=dtype)
     defs = build_model(cfg).param_defs()
     lay = flatten.FlatLayout.for_tree(
-        defs, block_size=flatten.auto_block_size(defs), node_axis=False)
+        defs, block_size=flatten.auto_block_size(defs), node_axis=False,
+        shards=shards)
+    slay = lay.shard(shards) if shards > 1 else None
     led = async_exec.init_wire_ledger(lay, 3, 4, compression=codec,
-                                      device="cpu")
-    k = f"ledger/{dtype}/{codec}"
+                                      slayout=slay, device="cpu")
+    k = f"ledger/{dtype}/S{shards}/{codec}"
     assert list(led.wires.shape) == ref[f"{k}/shape"].tolist()
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16",
              torch.int8: "int8"}
     assert names[led.wires.dtype] == str(ref[f"{k}/dtype"])
     assert names[async_exec.wire_row_dtype(lay, codec)] \
         == str(ref[f"{k}/row_dtype"])
-    assert async_exec.wire_width(lay, codec) == int(ref[f"{k}/width"])
+    assert async_exec.wire_width(lay, codec, slay) == int(ref[f"{k}/width"])
+    if slay is not None:
+        # a slab rank's rows: its slab's message of each of its nodes, and
+        # the reference's rows cut to that slab
+        codec_ = wire_lib.get_codec(codec, lay, slay)
+        w = codec_.shard_wire_width
+        assert shards * w == led.wires.shape[-1]
+        mine = async_exec.init_wire_ledger(lay, 3, 4, codec=codec_,
+                                           device="cpu", rows=1, slab=True)
+        assert tuple(mine.wires.shape) == (3, 1, w)
+        assert mine.wires.dtype == led.wires.dtype
+        wires = np.arange(np.prod(ref[f"{k}/shape"])).reshape(
+            ref[f"{k}/shape"]).astype(np.int8)
+        cut = async_exec.from_numpy(
+            {"wires": wires, "round": np.int32(0),
+             "w_prev": np.zeros((4, 4), np.float32)}, "cpu", nodes=(2, 3),
+            shard=(1, w))
+        np.testing.assert_array_equal(cut.wires.numpy(),
+                                      wires[:, 2:3, w:2 * w])
     assert [float(led.wires.float().abs().max()), int(led.round),
             float(led.w_prev.abs().max())] + list(led.w_prev.shape) \
         == ref[f"{k}/zero"].tolist()
@@ -515,26 +558,31 @@ def _transplanted(ref):
 
 
 def _trainer(name, max_staleness=1, dtype="float32"):
+    """The port's trainer for case ``name``; a sharded case's is one
+    process computing the S-way sharded run whole."""
     case = CASES[name]
+    j, shards = case.get("nodes", 4), case.get("shards", 1)
     cfg = dataclasses.replace(get_reduced_config("qwen3-4b"), dtype=dtype)
     tr = ConsensusTrainer(
-        build_model(cfg), num_nodes=4, device="cpu",
+        build_model(cfg), num_nodes=j, device="cpu",
         adamw=AdamWConfig(lr=1e-2),
+        ranks=trivial_grid(j, "cpu", shards=shards) if shards > 1 else None,
         consensus=ConsensusConfig(
             penalty=PenaltyConfig(scheme="nap", eta0=0.1,
                                   budget_init=case.get("budget_init", 1.0)),
             topology=case["topology"], local_steps=1,
-            wire_codec=case["codec"],
+            wire_codec=case["codec"], shard_consensus=shards > 1,
             dyn_topology=topo.TopologyConfig(**case["dyn"]),
             async_exec=async_exec.AsyncConfig(max_staleness=max_staleness)))
     data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32,
-                                      batch_per_node=2, num_nodes=4),
+                                      batch_per_node=2, num_nodes=j),
                            device="cpu")
     return tr, data
 
 
 def _run_port(ref, name):
     tr, data = _trainer(name)
+    j = tr.num_nodes
     state = tr.init_state(_transplanted(ref))
     sub = {k[len(f"{name}/topo0/"):]: v for k, v in ref.items()
            if k.startswith(f"{name}/topo0/")}
@@ -543,8 +591,9 @@ def _run_port(ref, name):
     state = state._replace(topo=topo.from_numpy(sub, "cpu"),
                            ledger=async_exec.from_numpy(led, "cpu"))
     assert state.ledger.wires.dtype == tr.codec.wire_dtype
+    assert state.ledger.wires.shape[-1] == tr.codec.wire_width
     ex = async_exec.AsyncExecutor(tr, async_exec.RoundClock(
-        compute_s=async_exec.straggler_compute(4, factor=SLOW), wire_s=0.25,
+        compute_s=async_exec.straggler_compute(j, factor=SLOW), wire_s=0.25,
         offsets=tuple(tr.offsets)))
     ticks = []
     tick = ex.clock.tick
@@ -577,7 +626,8 @@ def _run_port(ref, name):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_async_trajectory_matches_reference(trainer_ref, name):
+def test_async_trajectory_matches_reference(tmp_path_factory, name):
+    trainer_ref = _trainer_ref(tmp_path_factory, name)
     got = _run_port(trainer_ref, name)
     want = {k: trainer_ref[f"{name}/{k}"] for k in got}
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
@@ -601,12 +651,13 @@ def test_async_trajectory_matches_reference(trainer_ref, name):
         assert got["alive"][-1].tolist() == [True, True, True, False]
 
 
-def test_staleness_kick_not_double_absorbed(trainer_ref):
+def test_staleness_kick_not_double_absorbed(tmp_path_factory):
     """An edge that ages out is absorbed in that round, from the ledger: the
     scheduler gating it at the end of the round must park no second kick
     for it (budget case, where both kinds of kick occur). The round parks
     kicks at this round's applied weights, which are zero on an edge past
     the bound, so this holds by construction; the test pins it."""
+    trainer_ref = _trainer_ref(tmp_path_factory, "budget")
     got = _run_port(trainer_ref, "budget")
     want = trainer_ref["budget/kick"]
     newly_seen = 0

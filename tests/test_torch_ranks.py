@@ -4,8 +4,10 @@ the CPU), each holding a block of J / R nodes.
 (a) The circulant exchange alone (``distributed.circulant_into``): for
     every J <= 8 and every R dividing J, every offset, once with all
     offsets live and once with a seeded subset dead on every rank, each
-    rank's rows equal ``torch.roll``'s (a dead offset's stay zero). One
-    spawn of eight ranks runs every case on the group of ranks [0, R).
+    rank's rows equal ``torch.roll``'s (a dead offset's stay zero); then
+    with every offset in flight at once (``circulant_start``, a tag an
+    offset) and seeded rows kept, which hold their values. One spawn of
+    eight ranks runs every case on the group of ranks [0, R).
 (b) The rank trainer against the one-process port trainer, bit for bit:
     reduced qwen3-4b in float32, 6 steps: the static nap ring at J=3 R=3
     and J=4 R=2, the dynamic budget scheduler with churn on the complete
@@ -20,9 +22,18 @@ the CPU), each holding a block of J / R nodes.
 (d) The launcher under ``torchrun`` with two ranks: rank 0 alone prints,
     its consensus lines equal a one-process run's, and its ``--obs-dir``
     artifacts validate.
-(e) The refusals: J not a multiple of the world size, ``--async`` with two
-    ranks, nccl on the CPU, and nccl with two ranks on one card (checked
-    before any NCCL call).
+(e) The refusals: J not a multiple of the world size, nccl on the CPU,
+    and nccl with two ranks on one card (checked before any NCCL call);
+    the async executor on two ranks is accepted.
+(f) The round pipeline and the async executor across ranks: J 4 over two
+    ranks at ``pipeline_offsets`` 2 (exchanges in flight across ranks),
+    each run bit for bit against one process at depth 1, its ledger rows
+    included: the dynamic budget scheduler with churn and kicks (a case
+    of (b)), and the async executor (stale scheduler, ``max_staleness``
+    1, native, node 0 3x slow, 8 ticks), also held against the reference
+    trajectory that ``test_torch_async.py`` records (from its initial
+    parameters, topology and ledger; one reference process a test run,
+    shared) at that test's tolerances.
 
 Every process runs torch on one thread, so that the one-process run and
 the ranks sum in the same order.
@@ -43,6 +54,7 @@ import torch
 import test_torch_dynamic_trainer as dyn_test
 import test_torch_trainer as trainer_test
 import torch_ranks_cases as cases
+from torch_round_cases import run_reference
 from repro_torch.async_exec import AsyncConfig
 from repro_torch.configs import get_reduced_config
 from repro_torch.distributed import RankGrid
@@ -92,6 +104,25 @@ def _same(a, b, where="state"):
 def _ranks(spec, world, tmp_path):
     cases.spawn(cases.trainer_worker, world, tmp_path, str(tmp_path), spec)
     return [torch.load(tmp_path / f"trainer{r}.pt") for r in range(world)]
+
+
+def _hold(got, want):
+    """The ranks' outputs ``got`` (blocks of nodes, in rank order) against
+    the one-process ``want``, bit for bit: the replicated state and the
+    metrics on every rank, the node rows and the ledger rows stacked."""
+    for r, out in enumerate(got):
+        for k in ("loss", "grad_norm", "rounds", "mask", "alive", "kick",
+                  "eta", "w_prev", "replicated"):
+            _same(out[k], want[k], f"rank {r} {k}")
+    stacked = {k: ([torch.cat([g["rows"][k][n] for g in got])
+                    for n in range(len(want["rows"][k]))]
+                   if isinstance(want["rows"][k], list)
+                   else torch.cat([g["rows"][k] for g in got]))
+               for k in want["rows"]}
+    _same(stacked, want["rows"], "rows")
+    if want["ledger"] is not None:
+        _same(torch.cat([g["ledger"] for g in got], dim=1), want["ledger"],
+              "ledger")
 
 
 # ---------------------------------------------------------------- (a) ----
@@ -144,6 +175,9 @@ SPECS = {
                    2),
     "fp8-J4-R2": (dict(j=4, topology="ring", local_steps=2,
                        codec="fp8_e4m3"), 2),
+    # (f): the round pipeline at depth 2, against one process at depth 1
+    "dynamic-R2-pipe2": (dict(j=4, topology="complete", local_steps=1,
+                              dyn=DYN, drop=(2, 2), obs=True, pipe=2), 2),
 }
 
 
@@ -152,22 +186,15 @@ def test_ranks_equal_one_process(tmp_path, name):
     spec, world = SPECS[name]
     spec = dict(spec, steps=6, batch=2)
     with one_thread():
-        want = cases.run_trainer(spec)
+        want = cases.run_trainer(dict(spec, pipe=1))
     got = _ranks(spec, world, tmp_path)
-    for r, out in enumerate(got):
-        for k in ("loss", "grad_norm", "rounds", "mask", "alive", "kick",
-                  "replicated"):
-            _same(out[k], want[k], f"rank {r} {k}")
-    stacked = {k: ([torch.cat([g["rows"][k][n] for g in got])
-                    for n in range(len(want["rows"][k]))]
-                   if isinstance(want["rows"][k], list)
-                   else torch.cat([g["rows"][k] for g in got]))
-               for k in want["rows"]}
-    _same(stacked, want["rows"], "rows")
+    _hold(got, want)
     assert len(want["rounds"]) == 6 // spec["local_steps"]
     if "dyn" in spec:           # edges gated and the drop happened
         assert min(float(m["active_edges"]) for m in want["rounds"]) < 1.0
         assert want["alive"][-1].tolist() == [True, True, False, True]
+    if spec.get("pipe"):        # the scheduler parked kicks
+        assert any(k.any() for k in want["kick"])
 
 
 # ---------------------------------------------------------------- (c) ----
@@ -252,18 +279,23 @@ def test_nodes_must_divide_among_ranks():
         mesh.init_ranks(3, "cpu", world_size=2, rank=0)
 
 
-def test_async_refused_across_ranks():
-    # rank 0 of two: the trainer refuses the async executor before it
-    # touches the group (the launcher builds its trainer the same way)
+def test_async_accepted_across_ranks():
+    # rank 0 of two: the trainer takes the async executor and holds its own
+    # node's ledger rows (the launcher builds its trainer the same way)
     cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
                               dtype="float32")
     grid = RankGrid(world=2, rank=0, local_rank=0, nodes_per_rank=1,
                     node_lo=0, node_hi=1, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match=r"Queue 1 item 1\(c\)"):
-        ConsensusTrainer(build_model(cfg), num_nodes=2, device="cpu",
-                         adamw=AdamWConfig(), ranks=grid,
-                         consensus=ConsensusConfig(
-                             async_exec=AsyncConfig(max_staleness=1)))
+    model = build_model(cfg)
+    tr = ConsensusTrainer(model, num_nodes=2, device="cpu",
+                          adamw=AdamWConfig(), ranks=grid,
+                          consensus=ConsensusConfig(
+                              async_exec=AsyncConfig(max_staleness=1)))
+    state = tr.init_state(model.init(torch.Generator().manual_seed(0),
+                                     "cpu"))
+    assert state.ledger.wires.shape == (1, 1, tr.codec.wire_width)
+    assert state.ledger.w_prev.shape == (2, 2)
+    assert state.lam.shape == (1, tr.layout.total)
 
 
 def test_nccl_refused_on_cpu():
@@ -290,3 +322,48 @@ def test_nccl_refused_for_ranks_sharing_a_card(monkeypatch):
     grid = mesh.init_ranks(4, "cpu")
     assert (grid.group, grid.world, grid.node_lo, grid.node_hi) \
         == (None, 1, 0, 4)
+
+
+# ---------------------------------------------------------------- (f) ----
+ASYNC_SPEC = dict(j=4, topology="ring", local_steps=1, steps=8, batch=2,
+                  dyn=dict(scheduler="stale", max_staleness=1),
+                  async_=dict(max_staleness=1, slow=3.0),
+                  topo0="native/topo0/", ledger0="native/ledger0/")
+
+
+def test_async_ranks_equal_one_process_and_reference(tmp_path,
+                                                     tmp_path_factory):
+    """The async executor on two ranks at depth 2 from the reference
+    trajectory's initial state: bit for bit against one process at depth
+    1, and within ``test_torch_async.py``'s tolerances of the reference."""
+    ref = run_reference("test_torch_async", tmp_path_factory,
+                        fn="_trainer_reference_outputs")
+    npz = tmp_path / "start.npz"
+    np.savez(npz, **{k: v for k, v in ref.items()
+                     if k.startswith(("p/", "native/topo0/",
+                                      "native/ledger0/"))})
+    spec = dict(ASYNC_SPEC, params=str(npz))
+    got = _ranks(dict(spec, pipe=2), 2, tmp_path)
+    with one_thread():
+        want = cases.run_trainer(spec)
+    _hold(got, want)
+    assert got[0]["ledger"].shape[1] == 2          # its block's rows
+    stale = [float(m["stale_edges"]) for m in want["rounds"]]
+    assert max(stale) > 0 and min(stale) == 0
+    for out in got:
+        np.testing.assert_allclose([float(x) for x in out["loss"]],
+                                   ref["native/loss"], rtol=1e-4)
+        for key, k in (("r_max", "r_max"), ("s_max", "s_max"),
+                       ("eta_mean", "eta_mean"), ("stale_edges", "stale")):
+            np.testing.assert_allclose(
+                [float(m[key]) for m in out["rounds"]], ref[f"native/{k}"],
+                rtol=1e-3, err_msg=key)
+        np.testing.assert_array_equal(
+            [int(m["age_max"]) for m in out["rounds"]],
+            ref["native/age_max"])
+        np.testing.assert_allclose(np.stack(out["eta"]), ref["native/eta"],
+                                   rtol=1e-3)
+        np.testing.assert_allclose(np.stack(out["w_prev"]),
+                                   ref["native/w_prev"], rtol=1e-3)
+        np.testing.assert_array_equal(np.stack(out["mask"]),
+                                      ref["native/mask"])

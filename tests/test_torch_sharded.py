@@ -7,11 +7,15 @@ rank r holding node r // S whole and slab r % S of its flat rows.
     reduced qwen3-4b in float32, 6 steps; J 2 x S 2 on the native, int8
     and fp8_e4m3 wires (one spawn of four ranks runs them all), and the
     dynamic budget scheduler with churn at J 3 x S 2, node 2 dropped, obs
-    rings on (one spawn of six ranks). Every rank's replicated state,
+    rings on, and the async executor at J 3 x S 2 (stale scheduler,
+    fp8_e4m3, node 0 3x slow, ``pipeline_offsets`` 2, against depth 1; one
+    spawn of six ranks for both). Every rank's replicated state,
     steps' and rounds' metrics and node-ring rows equal the one
     process's; the S replicas of a node's parameters and moments are equal
     and equal its row there; its slabs of lam and theta_bar_prev, joined,
-    equal its rows there; each rank's lam is ``[1, shard_total]``.
+    equal its rows there, as do its slabs of the wire ledger (each rank's
+    ``[deg, 1, shard_wire_width]``); each rank's lam is
+    ``[1, shard_total]``.
 (b) The same four ranks from the reference's parameters against the
     reference trajectory that ``test_torch_trainer.py`` records (one
     reference process a test run, shared), at its tolerances: losses rtol
@@ -19,10 +23,12 @@ rank r holding node r // S whole and slab r % S of its flat rows.
 (c) The launcher under ``torchrun``, four ranks, ``--shard-consensus``:
     rank 0 alone prints, its consensus lines equal those of one process
     running the launcher on ``trivial_grid(2, "cpu", shards=2)``.
-(d) The refusals: R not a multiple of J, shards with the async executor
-    or with pipelined offsets, NCCL for ranks sharing a card, a sharded
-    grid without ``shard_consensus``, and the async executor on a sharded
-    trainer.
+(d) The refusals: R not a multiple of J, NCCL for ranks sharing a card,
+    a sharded grid without ``shard_consensus``; and what is accepted since
+    the sharded ledger: a slab rank's trainer with the async executor or
+    pipelined offsets, the one-process launcher with ``--async
+    --pipeline-offsets 2`` (its consensus lines equal depth 1's), and the
+    async executor on a sharded trainer.
 
 Every process runs torch on one thread, so that the one-process run and
 the ranks sum in the same order. A spawn serves every test that reads it:
@@ -43,7 +49,7 @@ import torch_ranks_cases as cases
 from test_torch_ranks import DYN, ROUND_LINE, SRC, _same, one_thread
 from repro_torch.async_exec import AsyncConfig
 from repro_torch.configs import get_reduced_config
-from repro_torch.distributed import gather_pod, trivial_grid
+from repro_torch.distributed import RankGrid, gather_pod, trivial_grid
 from repro_torch.launch import mesh
 from repro_torch.models import build_model
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
@@ -54,7 +60,12 @@ STATIC = {codec: dict(j=2, shards=2, topology="ring", local_steps=2,
           for codec in ("native", "int8", "fp8_e4m3")}
 DYNAMIC = {"dynamic": dict(j=3, shards=2, topology="complete",
                            local_steps=1, dyn=DYN, drop=(2, 2), obs=True,
-                           steps=6, batch=2)}
+                           steps=6, batch=2),
+           "async": dict(j=3, shards=2, topology="ring", local_steps=1,
+                         codec="fp8_e4m3",
+                         dyn=dict(scheduler="stale", max_staleness=1),
+                         async_=dict(max_staleness=1, slow=3.0), pipe=2,
+                         steps=4, batch=2)}
 
 
 def _shared_dir(tmp_path_factory, name):
@@ -73,7 +84,7 @@ def _spawned(tmp_path_factory, name, specs, world):
     with open(d / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (d / "done").exists():
-            cases.spawn(cases.sharded_worker, world, d, str(d), specs)
+            cases.spawn(cases.specs_worker, world, d, str(d), specs, True)
             (d / "done").touch()
     return {k: [torch.load(d / f"{k}.{r}.pt") for r in range(world)]
             for k in specs}
@@ -101,7 +112,7 @@ def _hold(got, want, spec):
     for r, out in enumerate(got):
         assert out["grid"] == (r // s, r % s, s)
         for k in ("loss", "grad_norm", "rounds", "mask", "alive", "kick",
-                  "replicated", "wire_bytes"):
+                  "eta", "w_prev", "replicated", "wire_bytes"):
             _same(out[k], want[k], f"rank {r} {k}")
     shard_total = want["rows"]["lam"].shape[1] // s
     for r, out in enumerate(got):
@@ -116,6 +127,11 @@ def _hold(got, want, spec):
             joined = torch.cat([got[node * s + k2]["rows"][k][0]
                                 for k2 in range(s)])
             _same(joined, want["rows"][k][node], f"node {node} {k}")
+        if want["ledger"] is not None:
+            joined = torch.cat([got[node * s + k2]["ledger"]
+                                for k2 in range(s)], dim=-1)
+            _same(joined, want["ledger"][:, node:node + 1],
+                  f"node {node} ledger")
     assert len(want["rounds"]) == spec["steps"] // spec["local_steps"]
 
 
@@ -135,6 +151,18 @@ def test_sharded_dynamic_ranks_equal_one_process(dynamic_ranks):
     assert min(float(m["active_edges"]) for m in want["rounds"]) < 1.0
     assert want["alive"][-1].tolist() == [True, True, False]
     assert want["replicated"]["node_ring"] is not None
+
+
+def test_sharded_async_pipelined_ranks_equal_one_process(dynamic_ranks):
+    spec = DYNAMIC["async"]
+    with one_thread():
+        want = cases.run_trainer(dict(spec, pipe=1))
+    got = dynamic_ranks["async"]
+    _hold(got, want, spec)
+    tr_w = want["ledger"].shape[-1] // spec["shards"]
+    assert all(g["ledger"].shape == (2, 1, tr_w) for g in got)
+    stale = [float(m["stale_edges"]) for m in want["rounds"]]
+    assert max(stale) > 0 and min(stale) == 0
 
 
 def test_sharded_wire_bytes_and_layout():
@@ -209,26 +237,53 @@ def test_sharded_world_must_be_a_multiple_of_nodes():
                             shard_consensus=True)
 
 
-@pytest.mark.parametrize("kw", [dict(async_exec=True),
-                                dict(pipeline_offsets=2)],
-                         ids=["async", "pipelined"])
-def test_shards_refuse_async_and_pipelining(kw):
-    with pytest.raises(ValueError, match=r"Queue 1 item 1\(c\)"):
-        mesh.init_ranks(2, "cpu", world_size=4, rank=0,
-                        shard_consensus=True, **kw)
-    # without shards (R = J) neither is refused here
-    grid = mesh.init_ranks(2, "cpu", shard_consensus=True, **kw)
+@pytest.mark.parametrize("kw", [dict(async_exec=AsyncConfig(
+    max_staleness=1)), dict(pipeline_offsets=2)], ids=["async", "pipelined"])
+def test_shards_accept_async_and_pipelining(kw):
+    """Rank 0 of J 2 x S 2 (slab 0 of node 0; no collective runs here):
+    the trainer takes the async executor or the pipeline, and an async
+    rank's ledger holds its slab's message of its node."""
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              dtype="float32")
+    model = build_model(cfg)
+    grid = RankGrid(world=4, rank=0, local_rank=0, nodes_per_rank=1,
+                    node_lo=0, node_hi=1, device=torch.device("cpu"),
+                    backend="gloo", group=object(), shards=2, shard=0,
+                    inpod_group=object(), shard_group=object())
+    tr = ConsensusTrainer(model, num_nodes=2, device="cpu",
+                          adamw=AdamWConfig(), ranks=grid,
+                          consensus=ConsensusConfig(shard_consensus=True,
+                                                    **kw))
+    state = tr.init_state(model.init(torch.Generator().manual_seed(0),
+                                     "cpu"))
+    assert tr.slab and state.lam.shape == (1, tr.slayout.shard_total)
+    if "async_exec" in kw:
+        assert state.ledger.wires.shape == (1, 1, tr.codec.shard_wire_width)
+    else:
+        assert tr.pipelined and state.ledger is None
+    # the trivial grid makes no group
+    grid = mesh.init_ranks(2, "cpu", shard_consensus=True)
     assert grid.shards == 1 and grid.group is None
 
 
-def test_sharded_launcher_refuses_async(monkeypatch):
-    from repro_torch.launch.train import main
-    for k, v in (("WORLD_SIZE", "4"), ("RANK", "0"), ("LOCAL_RANK", "0"),
-                 ("LOCAL_WORLD_SIZE", "4")):
-        monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match=r"Queue 1 item 1\(c\)"):
-        main(["--reduced", "--nodes", "2", "--shard-consensus", "--async",
-              "--device", "cpu", "--steps", "1"])
+def test_sharded_launcher_runs_async_pipelined(capsys):
+    """One process computing J 2 x S 2 whole with ``--async
+    --pipeline-offsets 2``: its consensus lines equal depth 1's."""
+    from repro_torch.launch import train
+    lines = []
+    for depth in ("2", "1"):
+        args = train.parse_args(
+            ["--reduced", "--nodes", "2", "--shard-consensus", "--async",
+             "--max-staleness", "1", "--slow-node", "0:2.0",
+             "--pipeline-offsets", depth, "--local-steps", "1", "--steps",
+             "4", "--wire-codec", "int8", "--device", "cpu"])
+        with one_thread():
+            train.run(get_reduced_config("qwen3-4b"), args,
+                      grid=trivial_grid(2, "cpu", shards=2))
+        lines.append([ln for ln in capsys.readouterr().out.splitlines()
+                      if " stale=" in ln])
+    cut = [[ln.rsplit(" ", 1)[0] for ln in run] for run in lines]
+    assert cut[0] == cut[1] and len(cut[0]) == 4
 
 
 def test_sharded_nccl_refused_for_ranks_sharing_a_card(monkeypatch):
@@ -253,12 +308,16 @@ def test_trainer_refuses_unsharded_config_on_sharded_grid():
                          adamw=AdamWConfig(),
                          ranks=trivial_grid(2, "cpu", shards=2),
                          consensus=ConsensusConfig())
-    with pytest.raises(ValueError, match=r"Queue 1 item 1\(c\)"):
-        ConsensusTrainer(model, num_nodes=2, device="cpu",
-                         adamw=AdamWConfig(),
-                         ranks=trivial_grid(2, "cpu", shards=2),
-                         consensus=ConsensusConfig(
-                             shard_consensus=True,
-                             async_exec=AsyncConfig(max_staleness=1)))
+    # the async executor on a sharded trainer: the ledger's rows are the
+    # sharded wire, S slab messages side by side
+    tr = ConsensusTrainer(model, num_nodes=2, device="cpu",
+                          adamw=AdamWConfig(),
+                          ranks=trivial_grid(2, "cpu", shards=2),
+                          consensus=ConsensusConfig(
+                              shard_consensus=True,
+                              async_exec=AsyncConfig(max_staleness=1)))
+    state = tr.init_state(model.init(torch.Generator().manual_seed(0),
+                                     "cpu"))
+    assert state.ledger.wires.shape == (1, 2, 2 * tr.codec.shard_wire_width)
     with pytest.raises(ValueError, match="holds no slab"):
         gather_pod(torch.zeros(3), trivial_grid(2, "cpu", shards=2))

@@ -168,9 +168,11 @@ def masked_torch_args(case, device="cpu"):
 
 
 def run_reference(module: str, tmp_path_factory,
-                  fn: str = "_reference_outputs") -> dict:
-    """``<module>.<fn>()`` (``_reference_outputs`` by default) run in a
-    fresh Python process, as a dict of numpy arrays.
+                  fn: str = "_reference_outputs", arg: str | None = None
+                  ) -> dict:
+    """``<module>.<fn>()`` (``_reference_outputs`` by default), or
+    ``<module>.<fn>(arg)``, run in a fresh Python process, as a dict of
+    numpy arrays.
 
     The reference runs on the CPU with a clean ``XLA_FLAGS`` (one device,
     unless ``fn`` sets a device count before it imports JAX), whatever
@@ -183,14 +185,16 @@ def run_reference(module: str, tmp_path_factory,
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent                  # the run's, shared by workers
-    path = os.path.join(str(base), f"{module}.{fn}.npz")
+    call = f"{fn}()" if arg is None else f"{fn}({arg!r})"
+    path = os.path.join(str(base), f"{module}.{fn}"
+                        + ("" if arg is None else f".{arg}") + ".npz")
     with open(path + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.npz"
             code = (f"import sys; sys.path[:0] = [{TESTS!r}, {SRC!r}]\n"
                     f"import numpy as np\nimport {module} as m\n"
-                    f"np.savez({tmp!r}, **m.{fn}())\n")
+                    f"np.savez({tmp!r}, **m.{call})\n")
             env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
             env.pop("XLA_FLAGS", None)
             proc = subprocess.run([sys.executable, "-c", code], env=env,
