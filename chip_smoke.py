@@ -224,14 +224,17 @@ seconds):
               and the tensor-core kernel at hymba's 25 heads of 64 with a
               window of 1024 at S 2048. The build phase prints the
               registers and spills of both kernels' instantiations.
- 21. zserve — ``launch.serve.run`` on glm4-9b, qwen2-7b, stablelm-3b,
-              moonshot-v1-16b-a3b, kimi-k2-1t-a32b (1 layer of 61: the
-              whole model does not fit one card), musicgen-large and
-              llava-next-mistral-7b (the frontend stubs serve random
-              embeddings) at batch 4, prompt 512, and hymba-1.5b at 8 of
-              its 32 layers (for time) and prompt 1280 (past its window of
-              1024, so the prefill's window binds and the decode's ring
-              wraps), 8 generated tokens, one after the other. Counters from
+ 21. zserve — ``launch.serve.run`` on glm4-9b (20 of 40 layers),
+              qwen2-7b (14 of 28), stablelm-3b (16 of 32),
+              moonshot-v1-16b-a3b (12 of 48, phase 28's depth),
+              kimi-k2-1t-a32b (1 layer of 61: the whole model does not fit
+              one card), musicgen-large (16 of 48) and
+              llava-next-mistral-7b (16 of 32; the frontend stubs serve
+              random embeddings; every cut but kimi-k2's is for time) at
+              batch 4, prompt 512, and hymba-1.5b at 8 of its 32 layers
+              (for time) and prompt 1280 (past its window of 1024, so the
+              prefill's window binds and the decode's ring wraps), 8
+              generated tokens, one after the other. Counters from
               0: the prefill launches the flash kernel once per layer, on
               the route ``kernels.flash_attention.route`` gives its head
               dim, which is the tensor-core kernel for every zoo arch
@@ -331,6 +334,31 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               blocked in ``Pending.wait``) and probe seconds, and the
               kernel's ms beside the row's byte bound. NCCL's pipelined
               path across cards does not run on one card.
+ 28. ep     — expert-parallel serving through ``launch.steps.make_serve_fns``:
+              moonshot-v1-16b-a3b at full width (d 2048, 16 heads of 128,
+              64 experts, top 6, expert d_ff 1408, vocab 163,840, bf16),
+              12 of 48 layers, on a data 1 x model 2 mesh (32 experts a
+              model rank), capacity factor 1.25: (a) a prefill of 4 x 512
+              tokens with ``use_kernel`` (the tensor-core flash kernel
+              once a layer), each layer's dropped pairs printed; (b) 16
+              decode steps from an empty state fed the prompt's first 16
+              tokens. First as one process computing both model shards
+              (``local_mesh``), then as two gloo ranks sharing the card
+              under torchrun (all-to-all staged through pinned host
+              buffers), each holding its 32 experts only. Checks: every
+              prefill and decode logit of both ranks equals the one
+              process's bit for bit, and so do the drop counts; layer 0's
+              MoE at capacity factor 2.0 (nothing drops at ep 2) is within
+              4 bf16 ulps of max|y| of ``moe_ref``; the decode logits at
+              positions 0-15 match the prefill's within the serve bound
+              (layers x 2^-8 of max|logit|) on every row none of whose
+              first 16 tokens lost a pair; each rank launches the flash
+              kernel once a layer. Prints each rank's peak beside the
+              reckoned parameter bytes and the one process's, prefill ms,
+              decode ms a token and the all-to-all seconds (host clock,
+              synchronized), and whether gloo takes CUDA tensors for
+              all-to-all. NCCL's all-to-all (a card a rank) does not run
+              on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -410,13 +438,25 @@ ZOO_SERVE["kimi-k2-1t-a32b"] = (1, 512)
 # hymba is cut to 8 of its 32 layers for time (its eager SSM loop and
 # prompt replay took 105-308 s at full depth), to pay for phase 26
 ZOO_SERVE["hymba-1.5b"] = (8, 1280)
+# cut for time, to pay for phase 28: each prompt replay is 512 eager decode
+# steps through every layer (at full depth moonshot's took about 44 s,
+# musicgen's 21-63 s, llava's 24-40 s, glm4's 22-39 s); moonshot serves at
+# phase 28's depth, the others at half theirs or less
+ZOO_SERVE["moonshot-v1-16b-a3b"] = (12, 512)
+ZOO_SERVE["musicgen-large"] = (16, 512)
+ZOO_SERVE["llava-next-mistral-7b"] = (16, 512)
+ZOO_SERVE["glm4-9b"] = (20, 512)
+ZOO_SERVE["qwen2-7b"] = (14, 512)
+ZOO_SERVE["stablelm-3b"] = (16, 512)
 ZOO_GEN = 8                         # generated tokens per served arch
 # billions of parameters at those depths, reckoned from the configs
 # before the port counted them (printed beside Model.param_count)
-ZOO_PARAMS_B = {"glm4-9b": 9.40, "qwen2-7b": 7.61, "stablelm-3b": 2.80,
-                "moonshot-v1-16b-a3b": 28.05, "kimi-k2-1t-a32b": 19.38,
-                "musicgen-large": 3.23, "hymba-1.5b": 0.43,  # 8 layers
-                "llava-next-mistral-7b": 7.24}
+ZOO_PARAMS_B = {"glm4-9b": 5.32, "qwen2-7b": 4.35,  # 20, 14 layers
+                "stablelm-3b": 1.53,                         # 16 layers
+                "moonshot-v1-16b-a3b": 7.52,                 # 12 layers
+                "kimi-k2-1t-a32b": 19.38,
+                "musicgen-large": 1.08, "hymba-1.5b": 0.43,  # 16, 8 layers
+                "llava-next-mistral-7b": 3.75}               # 16 layers
 # phase 22: layers at full width, so that two replicas with f32 AdamW
 # moments and the f32 dual and neighbour-mean rows fit in 80 GB (about 23
 # bytes per parameter per node with the activations, as the static
@@ -2457,6 +2497,21 @@ PIPE_RUNS = {"sync native": ["--wire-codec", "native", "--local-steps", "2",
              + ASYNC_EXTRA}
 
 
+# phase 28: expert-parallel serving of moonshot-v1-16b-a3b, 12 of 48 layers
+# (for time), data 1 x model 2 gloo ranks sharing the card
+EP_ARCH = "moonshot-v1-16b-a3b"
+EP_LAYERS = 12
+EP_MESH = (1, 2)
+EP_BATCH, EP_PROMPT, EP_DECODE = 4, 512, 16
+EP_SEED = 28
+EP_CHECK_CF = 2.0             # capacity factor at which ep 2 drops nothing
+# how much further the EP decode may sit from the served (flash kernel)
+# prefill than the witness without a mesh does: the two take other routes
+# at near-tied gates, so their gaps differ by chance (on an H100 at this
+# seed: max |diff| 3.82 against 4.09, top-1 0.328 against 0.328)
+EP_SERVED_DIFF_RATIO, EP_SERVED_TOP1_MARGIN = 1.25, 0.1
+
+
 def digest_parts(t, offset=0, chunk=1 << 24) -> tuple[int, int, int]:
     """The digest of a tensor's bytes as sums, computed on its device: the
     element count, the sum of its bytes read as integers of its element
@@ -2667,6 +2722,8 @@ def ranks_worker(spec_path) -> int:
                               n_layers=spec["layers"])
     if "runs" in spec:
         return runs_worker(spec, cfg, rank, os.path.dirname(spec_path))
+    if spec.get("ep"):
+        return ep_worker(spec, cfg, rank, os.path.dirname(spec_path))
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -4028,6 +4085,349 @@ def zoo_agree(arch) -> None:
           "(relative)", flush=True)
 
 
+def ep_serve(cfg, mesh, params):
+    """Phase 28's served run on ``mesh`` (the one-process mesh or a rank's):
+    a prefill of the seeded prompts with ``use_kernel`` through
+    ``make_serve_fns`` to warm up; one with ``mesh.stats`` on, for the
+    drops and the all-to-all seconds (each exchange timed between two
+    synchronisations of the device, so this pass is not timed); then,
+    with every counter from 0, the timed prefill and ``EP_DECODE`` decode
+    steps from an empty state fed the prompt's first tokens, on the mesh
+    without stats (nothing synchronises inside). Times by the host clock
+    between synchronisations. The timed prefill's logits must equal the
+    instrumented one's bit for bit."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import make_serve_fns
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    prompts = torch.randint(
+        0, cfg.vocab, (EP_BATCH, EP_PROMPT), device=DEV,
+        generator=torch.Generator(DEV).manual_seed(EP_SEED + 1))
+    cell = ShapeCell("ep", EP_PROMPT, EP_BATCH, "prefill")
+    stats = mesh.stats
+    prefill_fn, decode_fn = make_serve_fns(
+        model, dataclasses.replace(mesh, stats=None), cell)
+    traced_prefill, _ = make_serve_fns(model, mesh, cell)
+    with torch.inference_mode():
+        # a first prefill loads the kernel, makes cuBLAS's handles and (on
+        # a rank) grows the pinned staging
+        prefill_fn(params, {"tokens": prompts}, use_kernel=True)
+        torch.cuda.synchronize()
+        stats.dropped.clear()
+        stats.lost.clear()
+        stats.a2a_seconds, stats.a2a_calls = 0.0, 0
+        traced = digest(traced_prefill(params, {"tokens": prompts},
+                                       use_kernel=True))
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill_fn(params, {"tokens": prompts}, use_kernel=True)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+                  for obj, attr in all_counters()}
+        rows = EP_BATCH // (1 if mesh.local else mesh.data)
+        state = model.init_decode_state(rows, EP_PROMPT, DEV)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(EP_DECODE):
+            lg, state = decode_fn(params, state, {"token": prompts[:, i]})
+            steps.append(lg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / EP_DECODE
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(digest(logits) == traced, "phase 28: the prefill with the "
+          "drops and all-to-all timed differs from the timed prefill")
+    decode = torch.stack(steps)
+    return dict(prompts=prompts, logits=logits, decode=decode,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
+                dropped=[d.tolist() for d in stats.dropped],
+                lost=[t.cpu() for t in stats.lost],
+                a2a_s=stats.a2a_seconds, a2a_calls=stats.a2a_calls,
+                peak_gb=peak_gb)
+
+
+def gloo_cuda_all_to_all(mesh) -> str:
+    """Whether gloo's ``all_to_all_single`` takes CUDA tensors (a probe;
+    the port stages through pinned host buffers either way)."""
+    import torch
+    import torch.distributed as dist
+    n = mesh.model
+    t = torch.arange(n * 4, dtype=torch.float32, device=mesh.device) \
+        + 100 * mesh.coords[1]
+    out = torch.empty_like(t)
+    try:
+        dist.all_to_all_single(out, t, group=mesh.model_group)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        return "raises: " + str(err).strip().splitlines()[0][:160]
+    want = torch.cat([torch.arange(4, device=mesh.device) + 4 * mesh.coords[1]
+                      + 100 * j for j in range(n)]).float()
+    return "takes them" + ("" if torch.equal(out, want) else
+                           ", but the rows came back WRONG")
+
+
+def ep_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of phase 28 (``chip_smoke.py --ranks-worker SPEC`` with
+    ``"ep"`` in the spec): its mesh (``init_mesh``, gloo on the card), its
+    experts only (drawn leaf by leaf from the one process's seed), the
+    served run; its digests and numbers into ``rank<r>.json``."""
+    import torch
+    from repro_torch.distributed import EPStats
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import build_model
+    mesh = init_mesh(*EP_MESH, DEV, backend="gloo", stats=EPStats())
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = build_model(cfg).init(
+            torch.Generator(DEV).manual_seed(EP_SEED), DEV, mesh=mesh)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        params_gb = torch.cuda.memory_allocated() / 1e9
+        probe = gloo_cuda_all_to_all(mesh)
+        run = ep_serve(cfg, mesh, params)
+        out = dict(rank=rank, coords=list(mesh.coords),
+                   device=str(mesh.device), probe=probe,
+                   logits=digest(run["logits"]),
+                   decode=[digest(t) for t in run["decode"]],
+                   dropped=run["dropped"], prefill_ms=run["prefill_ms"],
+                   decode_ms=run["decode_ms"], counts=run["counts"],
+                   a2a_s=run["a2a_s"], a2a_calls=run["a2a_calls"],
+                   peak_gb=run["peak_gb"], init_peak_gb=init_peak,
+                   params_gb=params_gb,
+                   experts=params["blocks"]["moe"]["wg"].shape[1])
+    finally:
+        mesh.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def ep_layer_check(cfg, params, prompts) -> float:
+    """Phase 28 check 2: layer 0's MoE on the prompt's own activations, the
+    all-to-all path on the one-process data 1 x model 2 mesh at capacity
+    factor ``EP_CHECK_CF`` (where nothing drops), against ``moe_ref``,
+    within 4 bf16 ulps of max|y| (``tests/test_torch_moe.py``'s bf16
+    bound: each path rounds another product to bf16)."""
+    import torch
+    from repro_torch.distributed import EPStats, local_mesh, use_mesh
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    from repro_torch.models.transformer import _layer
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CHECK_CF))
+    stats = EPStats()
+    with torch.inference_mode():
+        lp = _layer(params, 0)
+        x = embed_tokens(params, prompts).to(lp["ln1"].dtype)
+        cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
+        x = x + attn_lib.attention(cfg, lp["attn"],
+                                   rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   cos, sin)
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        with use_mesh(local_mesh(*EP_MESH, DEV, stats=stats)):
+            got = moe.moe_apply(c, lp["moe"], h2).float()
+        want = moe.moe_ref(c, lp["moe"], h2).float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    drops = [d.tolist() for d in stats.dropped]
+    check(drops == [[0] * EP_MESH[1]] and err <= 4 * 2.0 ** -8 * scale,
+          f"phase 28: layer 0's MoE at capacity factor {EP_CHECK_CF} "
+          f"(drops {drops}) differs from moe_ref by {err:.4g}, max|y| "
+          f"{scale:.4g}, bound {4 * 2.0 ** -8 * scale:.4g}")
+    return err / scale
+
+
+def ep_decode_check(cfg, params, one) -> dict:
+    """Phase 28 check 3: the replicated decode path against the all-to-all
+    prefill on the one-process mesh, at positions 0 to ``EP_DECODE - 1``.
+
+    The decode steps are held to a prefill with the plain attention
+    (``use_kernel=False``; its own drops recorded), within the serve
+    phases' bound of layers x 2^-8 of max|logit|, on the rows none of whose
+    first ``EP_DECODE`` tokens lost a pair in any layer (a lost pair is
+    another function: the decode path drops nothing; shard 0 holds
+    positions [0, S / 2) of every row). Against the served prefill (the
+    flash kernel's rounding) they are printed, not held: with random
+    weights the router's 64 gates are near ties, and a rounding apart
+    flips a token's top 6 and then its later positions' logits. The same
+    weights without a mesh (``moe_ref``: a prefill with the kernel, then
+    the decode steps) are the witness: the EP decode's distance from the
+    served prefill may be at most ``EP_SERVED_DIFF_RATIO`` times the
+    witness's max |diff|, and its top-1 agreement at most
+    ``EP_SERVED_TOP1_MARGIN`` below the witness's."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed import EPStats, local_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_serve_fns
+    from repro_torch.models import build_model
+    n = cfg.n_layers
+    model = build_model(cfg)
+    cell = ShapeCell("ep", EP_PROMPT, EP_BATCH, "prefill")
+    prompts, dec = one["prompts"], one["decode"].float()
+    stats = EPStats()
+    plain_prefill, _ = make_serve_fns(
+        model, local_mesh(*EP_MESH, DEV, stats=stats), cell)
+    w_prefill, w_decode = make_serve_fns(model, None, cell)
+    before = (ops.flash_attention.launches, ops.flash_attention.tc_launches)
+    with torch.inference_mode():
+        plain = plain_prefill(params, {"tokens": prompts})
+        plain = plain[:, :EP_DECODE].float().transpose(0, 1)   # [16, B, V]
+        w_pre = w_prefill(params, {"tokens": prompts}, use_kernel=True)
+        w_pre = w_pre[:, :EP_DECODE].float().transpose(0, 1)
+        state = model.init_decode_state(EP_BATCH, EP_PROMPT, DEV)
+        w_dec = []
+        for i in range(EP_DECODE):
+            lg, state = w_decode(params, state, {"token": prompts[:, i]})
+            w_dec.append(lg)
+        w_dec = torch.stack(w_dec).float()
+    torch.cuda.synchronize()
+    ops.flash_attention.launches, ops.flash_attention.tc_launches = before
+    s_loc = EP_PROMPT // EP_MESH[1]
+    hit = torch.zeros(EP_BATCH, dtype=torch.bool)
+    for lost in stats.lost:
+        hit |= lost[0].cpu().view(EP_BATCH, s_loc)[:, :EP_DECODE].any(1)
+    rows = [r for r in range(EP_BATCH) if not hit[r]]
+    scale = float(plain.abs().max())
+    bound = n * 2.0 ** -8 * scale
+    diff = float((plain[:, rows] - dec[:, rows]).abs().max()) if rows \
+        else -1.0
+    kern = one["logits"][:, :EP_DECODE].float().transpose(0, 1)
+
+    def apart(a, b):
+        return (float((a - b).abs().max()),
+                float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+    k_diff, k_top1 = apart(kern, dec)
+    w_diff, w_top1 = apart(w_pre, w_dec)
+    print(f"phase 28 decode vs the plain-attention prefill at positions "
+          f"0-{EP_DECODE - 1}: max |diff| {diff:.4g} on rows {rows} (bound "
+          f"{bound:.4g}, {n} x 2^-8 of max|logit| {scale:.4g}); vs the "
+          f"served prefill (flash kernel) {k_diff:.4g}, top-1 agreement "
+          f"{k_top1:.3f}; the witness without a mesh (moe_ref, kernel "
+          f"prefill vs decode) {w_diff:.4g}, top-1 {w_top1:.3f}",
+          flush=True)
+    check(rows and diff <= bound, f"phase 28: decode logits differ from "
+          f"the plain prefill's by {diff:.4g} on rows {rows}, bound "
+          f"{bound:.4g}")
+    check(k_diff <= EP_SERVED_DIFF_RATIO * w_diff
+          and k_top1 >= w_top1 - EP_SERVED_TOP1_MARGIN,
+          f"phase 28: the EP decode is further from the served prefill "
+          f"({k_diff:.4g}, top-1 {k_top1:.3f}) than the witness without a "
+          f"mesh allows ({w_diff:.4g} x {EP_SERVED_DIFF_RATIO}, top-1 "
+          f"{w_top1:.3f} - {EP_SERVED_TOP1_MARGIN})")
+    return dict(decode_vs_plain_prefill=diff, rows=rows,
+                decode_vs_kernel_prefill=k_diff, kernel_top1=k_top1,
+                witness_diff=w_diff, witness_top1=w_top1)
+
+
+def ep_slice(card_line):
+    """Phase 28: expert-parallel serving, one process against two gloo
+    ranks sharing the card. Returns the flash launches of its prefills."""
+    import torch
+    from repro_torch.distributed import EPStats, local_mesh
+    from repro_torch.models import build_model
+    cfg = zoo_config(EP_ARCH, EP_LAYERS)
+    n, e = cfg.n_layers, cfg.moe.num_experts
+    model = build_model(cfg)
+    count = model.param_count()
+    experts = n * 3 * e * cfg.d_model * cfg.moe.expert_d_ff
+    per_rank = count - experts + experts // EP_MESH[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = local_mesh(*EP_MESH, DEV, stats=EPStats())
+    params = model.init(torch.Generator(DEV).manual_seed(EP_SEED), DEV)
+    one = ep_serve(cfg, mesh, params)
+    t1 = time.perf_counter()
+    want = dict.fromkeys(one["counts"], 0)
+    want["flash_attention.launches"] = want["flash_attention.tc_launches"] = n
+    check(one["counts"] == want, f"phase 28: one process's launches "
+          f"{one['counts']}, want {want}")
+    logits, dec = one["logits"], one["decode"]
+    v = cfg.vocab
+    check(tuple(logits.shape) == (EP_BATCH, EP_PROMPT, v)
+          and tuple(dec.shape) == (EP_DECODE, EP_BATCH, v)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(dec).all()),
+          f"phase 28: prefill logits {tuple(logits.shape)}, decode "
+          f"{tuple(dec.shape)}, or not finite")
+    check(len(one["dropped"]) == n, f"phase 28: {len(one['dropped'])} "
+          f"all-to-all layers recorded, want {n}")
+    check3 = ep_decode_check(cfg, params, one)
+    layer_rel = ep_layer_check(cfg, params, one["prompts"])
+    one_digests = (digest(logits), [digest(t) for t in dec])
+    one_peak = one["peak_gb"]
+    del params, logits, dec
+    for key in ("logits", "decode", "prompts"):
+        del one[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ranks, seconds = launch_ranks("phase 28", EP_MESH[0] * EP_MESH[1], [],
+                                  EP_LAYERS, arch=EP_ARCH, ep=True)
+    for r in ranks:
+        m = r["coords"][1]
+        tag = f"phase 28 rank {r['rank']}"
+        check(r["logits"] == one_digests[0] and r["decode"] == one_digests[1],
+              f"{tag}: logits differ from the one process's")
+        check(r["dropped"] == [[layer[m]] for layer in one["dropped"]],
+              f"{tag}: drops {r['dropped']} differ from the one process's "
+              f"shard {m}")
+        check(r["counts"] == want, f"{tag}: launches {r['counts']}, want "
+              f"{want}")
+        check(r["experts"] == e // EP_MESH[1], f"{tag}: holds "
+              f"{r['experts']} experts, want {e // EP_MESH[1]}")
+    s_loc = EP_PROMPT // EP_MESH[1]
+    print(f"phase 28 drops by layer (shard 0, shard 1 of "
+          f"{EP_BATCH * s_loc * cfg.moe.top_k} pairs each): "
+          f"{one['dropped']}", flush=True)
+    print(f"phase 28 one process: {n} layers at full width "
+          f"({count / 1e9:.2f} B parameters, {2 * count / 1e9:.2f} GB in "
+          f"bf16; reckoned 7.5 B, 15 GB), peak {one_peak:.2f} GB; prefill "
+          f"{one['prefill_ms']:.2f} ms, decode {one['decode_ms']:.3f} ms a "
+          f"token, all-to-all (a transpose here) {one['a2a_s']:.4f} s in "
+          f"{one['a2a_calls']} calls; flash launches "
+          f"{one['counts']['flash_attention.launches']}; layer 0's MoE at "
+          f"cf {EP_CHECK_CF} vs moe_ref {layer_rel:.4g} of max|y| "
+          f"[{card_line}]", flush=True)
+    for r in ranks:
+        print(f"phase 28 rank {r['rank']} {tuple(r['coords'])} on "
+              f"{r['device']}: {r['experts']} experts "
+              f"({per_rank / 1e9:.2f} B parameters, "
+              f"{2 * per_rank / 1e9:.2f} GB reckoned; "
+              f"{r['params_gb']:.2f} GB allocated after the draw, peak "
+              f"{r['init_peak_gb']:.2f} GB while drawing); serving peak "
+              f"{r['peak_gb']:.2f} GB against the one process's "
+              f"{one_peak:.2f} GB; prefill {r['prefill_ms']:.2f} ms, decode "
+              f"{r['decode_ms']:.3f} ms a token, all-to-all "
+              f"{r['a2a_s']:.4f} s in {r['a2a_calls']} calls (staged "
+              f"gloo); flash launches "
+              f"{r['counts']['flash_attention.launches']}; gloo "
+              f"all_to_all_single on CUDA tensors: {r['probe']} "
+              f"[{card_line}]", flush=True)
+    print("phase 28: NCCL's all-to-all (a card a rank) has not run: the "
+          "ranks share one card, over gloo", flush=True)
+    print(f"phase 28: one process {t1 - t0:.1f} s, checks "
+          f"{t2 - t1:.1f} s, ranks {seconds:.1f} s", flush=True)
+    return dict(launches=n + sum(r["counts"]["flash_attention.launches"]
+                                 for r in ranks),
+                one_process=dict(prefill_ms=one["prefill_ms"],
+                                 decode_ms=one["decode_ms"],
+                                 peak_gb=one_peak, dropped=one["dropped"],
+                                 **check3),
+                ranks=[{k: r[k] for k in ("prefill_ms", "decode_ms", "a2a_s",
+                                          "peak_gb", "probe")}
+                       for r in ranks])
+
+
 def build_phase():
     """Phase 2: build every source (one nvcc each, all started together),
     print each kernel's registers and spills (nvcc's -Xptxas -v) and its
@@ -4332,6 +4732,12 @@ def main() -> int:
           f"{t3 - t2:.1f} s, 23 {time.perf_counter() - t3:.1f} s",
           flush=True)
 
+    # -- 28. expert-parallel serving: one process, then two gloo ranks -----
+    t0 = time.perf_counter()
+    ep = ep_slice(card_line)
+    print(f"ep slice: phase 28 {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
     t0 = time.perf_counter()
     paper_phases(card_line)
@@ -4397,7 +4803,8 @@ def main() -> int:
         kernel_entry("flash_attention", src + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:26",
                      serve_qwen["launches"] + sum(
-                         z["launches"] for z in zserve.values()), flash,
+                         z["launches"] for z in zserve.values())
+                     + ep["launches"], flash,
                      library_ms=flash["library_ms"],
                      in_prefill_ms=serve_qwen["in_prefill_ms"],
                      cc_kernel_ms=flash["cc_ms"],
@@ -4413,6 +4820,8 @@ def main() -> int:
                      sass=tc_sass, tc_registers=tc_regs,
                      zoo_launches={a: z["launches"]
                                    for a, z in zserve.items()},
+                     ep_launches=ep["launches"],
+                     ep_one_process=ep["one_process"], ep_ranks=ep["ranks"],
                      zoo_tc_launches={a: z["launches"] * (z["route"] == "tc")
                                       for a, z in zserve.items()},
                      zoo_in_prefill_ms={a: z["in_prefill_ms"]

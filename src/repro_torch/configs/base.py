@@ -67,6 +67,16 @@ class ArchConfig:
         return self.n_kv_heads * self.head_dim
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """A workload shape (the reference's): sequence length, global batch,
+    and whether it trains, prefills or decodes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
 ARCH_IDS = (
     "glm4-9b", "stablelm-3b", "qwen2-7b", "qwen3-4b", "moonshot-v1-16b-a3b",
     "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b", "rwkv6-7b",

@@ -20,6 +20,10 @@ slab s of node ``(i + off) % J``. ``gather_pod`` all-gathers a tensor over
 the S ranks of the pod, in slab order (the reference's in-pod all-gather
 of a slab-sharded buffer, and its ``psum`` of the residual partials).
 
+The expert-parallel paths (``models/moe.py``, over a
+``distributed.sharding.Mesh``) use ``all_to_all``, the reference's tiled
+``lax.all_to_all``, and ``all_gather``, each over one axis's group.
+
 An exchange can be in flight (the reference's ``pipeline_offsets``, which
 issues up to ``depth`` offsets' permutes ahead of their consumers):
 ``circulant_start`` copies the local rows, posts the offset's sends and
@@ -205,15 +209,15 @@ def circulant_into(dst: torch.Tensor, wire: torch.Tensor, off: int, grid,
     circulant_start(dst, wire, off, grid, staging).wait()
 
 
-def _all_gather(t: torch.Tensor, n: int, group, grid,
-                staging: HostStaging | None = None) -> torch.Tensor:
+def all_gather(t: torch.Tensor, n: int, group, backend: str,
+               staging: HostStaging | None = None) -> torch.Tensor:
     """``[n, *t.shape]``: ``t`` of each of the ``n`` ranks of ``group``,
     in group-rank order, on ``t``'s device. NCCL gathers on the card; gloo
     on a card goes through host memory (``staging``'s pinned buffers when
     given)."""
     t = t.contiguous()
     out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-    if grid.backend == "nccl":
+    if backend == "nccl":
         dist.all_gather_into_tensor(out, t, group=group)
         return out
     # gloo moves bytes, whatever the dtype
@@ -234,6 +238,33 @@ def _all_gather(t: torch.Tensor, n: int, group, grid,
     return out
 
 
+def all_to_all(t: torch.Tensor, group, backend: str,
+               staging: HostStaging | None = None) -> torch.Tensor:
+    """The tiled all-to-all over the ``n`` ranks of ``group``: ``t`` is
+    ``[n, ...]``, its row j goes to group rank j; returns ``[n, ...]``
+    whose row j came from group rank j, on ``t``'s device. NCCL exchanges
+    on the card (``all_to_all_single``); gloo moves the rows as bytes, on a
+    card through host memory (``staging``'s pinned buffers, required
+    there)."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    if backend == "nccl":
+        dist.all_to_all_single(out, t, group=group)
+        return out
+    if t.device.type == "cpu":
+        dist.all_to_all_single(_bytes(out), _bytes(t), group=group)
+        return out
+    if staging is None:
+        raise ValueError("all_to_all: gloo on a card needs a HostStaging")
+    nbytes = t.numel() * t.element_size()
+    send, recv = staging.reserve(nbytes)
+    send, recv = send[:nbytes], recv[:nbytes]
+    send.copy_(_bytes(t))                               # synchronous
+    dist.all_to_all_single(recv, send, group=group)
+    _bytes(out).copy_(recv)                             # synchronous
+    return out
+
+
 def gather_nodes(t: torch.Tensor, grid) -> torch.Tensor:
     """All-gather a ``[J / R, ...]`` tensor of this rank's nodes into the
     ``[J, ...]`` tensor of every node, in node order, on ``t``'s device
@@ -241,7 +272,8 @@ def gather_nodes(t: torch.Tensor, grid) -> torch.Tensor:
     itself."""
     if grid.group is None:
         return t
-    out = _all_gather(t, grid.node_ranks, grid.node_group, grid)
+    out = all_gather(t, grid.node_ranks, grid.node_group,
+                     grid.backend)
     return out.reshape((-1,) + tuple(t.shape[1:]))
 
 
@@ -252,4 +284,5 @@ def gather_pod(t: torch.Tensor, grid,
     ``staging`` holds the host buffers."""
     if not grid.holds_slab:
         raise ValueError("gather_pod: this rank holds no slab")
-    return _all_gather(t, grid.shards, grid.inpod_group, grid, staging)
+    return all_gather(t, grid.shards, grid.inpod_group, grid.backend,
+                      staging)

@@ -21,6 +21,9 @@ share one card run only when asked for, with ``gloo`` on ``cuda``: the
 exchange then stages its rows through host memory. NCCL does not run two
 ranks on one device, so that combination raises before any NCCL call, and
 nothing picks another backend or device on its own.
+
+``init_mesh`` does the same for the expert-parallel paths' ``data x
+model`` mesh (``distributed.sharding.Mesh``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.exchange import HostStaging
 from repro_torch.distributed.grid import RankGrid, trivial_grid
+from repro_torch.distributed.sharding import Mesh, local_mesh
 
 BACKENDS = ("nccl", "gloo")
 
@@ -54,6 +59,54 @@ def check_backend(backend: str, device_type: str, local_world: int,
         raise ValueError(f"no gloo path for device {device_type!r}")
 
 
+def _world_size(world_size: int | None) -> int:
+    """The world size from the argument or else torchrun's environment."""
+    world = int(world_size if world_size is not None
+                else os.environ.get("WORLD_SIZE", "1"))
+    if world < 1:
+        raise ValueError(f"world size {world}")
+    return world
+
+
+def _join_world(world: int, device: str | torch.device, backend, init_method,
+                world_size, rank, local_rank):
+    """Join the process group of ``world`` ranks (shared by ``init_ranks``
+    and ``init_mesh``): returns this process's ``(rank, local_rank,
+    device, backend)``. The rank and local rank come from the arguments
+    or else torchrun's environment; ``backend`` None follows the device;
+    the backend is checked before any NCCL call; a rank on a card runs on
+    ``cuda:{local_rank % cards}``."""
+    env = os.environ
+    rank = int(rank if rank is not None else env.get("RANK", "0"))
+    local_rank = int(local_rank if local_rank is not None
+                     else env.get("LOCAL_RANK", str(rank)))
+    local_world = world if world_size is not None \
+        else int(env.get("LOCAL_WORLD_SIZE", str(world)))
+    dev = torch.device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    check_backend(backend, dev.type, local_world, cards)
+    if dev.type == "cuda":
+        dev = resolve_device(f"cuda:{local_rank % max(cards, 1)}")
+        torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(dev)
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            world_size=world, rank=rank)
+    return rank, local_rank, dev, backend
+
+
+def _grid_groups(rows: int, cols: int) -> tuple[list, list]:
+    """The process groups of a ``rows x cols`` grid of ranks (rank ``r *
+    cols + c`` at ``(r, c)``): each row's, then each column's. Every rank
+    makes every group, in the same order."""
+    row_groups = [dist.new_group([r * cols + c for c in range(cols)])
+                  for r in range(rows)]
+    col_groups = [dist.new_group([r * cols + c for r in range(rows)])
+                  for c in range(cols)]
+    return row_groups, col_groups
+
+
 def init_ranks(num_nodes: int, device: str | torch.device, *,
                backend: str | None = None, init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
@@ -74,11 +127,7 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     whole on ``trivial_grid(J, device, shards=S)``.) Every round path runs
     on every grid: sync, dynamic and async rounds, pipelined or not.
     """
-    env = os.environ
-    world = int(world_size if world_size is not None
-                else env.get("WORLD_SIZE", "1"))
-    if world < 1:
-        raise ValueError(f"world size {world}")
+    world = _world_size(world_size)
     n_shards = 1
     if shard_consensus and world > 1:
         if world % num_nodes:
@@ -90,31 +139,12 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     elif num_nodes % world:
         raise ValueError(f"--nodes {num_nodes} is not a multiple of the "
                          f"world size {world}: every rank holds J / R nodes")
-    dev = torch.device(device)
     if world == 1 and backend is None:
-        return trivial_grid(num_nodes, resolve_device(dev))
-    rank = int(rank if rank is not None else env.get("RANK", "0"))
-    local_rank = int(local_rank if local_rank is not None
-                     else env.get("LOCAL_RANK", str(rank)))
-    local_world = world if world_size is not None \
-        else int(env.get("LOCAL_WORLD_SIZE", str(world)))
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-    check_backend(backend, dev.type, local_world, cards)
-    if dev.type == "cuda":
-        dev = resolve_device(f"cuda:{local_rank % max(cards, 1)}")
-        torch.cuda.set_device(dev)
-    else:
-        dev = resolve_device(dev)
-    dist.init_process_group(backend, init_method=init_method or "env://",
-                            world_size=world, rank=rank)
+        return trivial_grid(num_nodes, resolve_device(torch.device(device)))
+    rank, local_rank, dev, backend = _join_world(
+        world, device, backend, init_method, world_size, rank, local_rank)
     if n_shards > 1:
-        # every rank makes every group, in the same order
-        pods = [dist.new_group([p * n_shards + k for k in range(n_shards)])
-                for p in range(num_nodes)]
-        slabs = [dist.new_group([p * n_shards + s
-                                 for p in range(num_nodes)])
-                 for s in range(n_shards)]
+        pods, slabs = _grid_groups(num_nodes, n_shards)
         pod, shard = divmod(rank, n_shards)
         return RankGrid(world=world, rank=rank, local_rank=local_rank,
                         nodes_per_rank=1, node_lo=pod, node_hi=pod + 1,
@@ -126,3 +156,40 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
                     nodes_per_rank=per, node_lo=rank * per,
                     node_hi=(rank + 1) * per, device=dev, backend=backend,
                     group=dist.group.WORLD)
+
+
+def init_mesh(data: int, model: int, device: str | torch.device, *,
+              backend: str | None = None, init_method: str | None = None,
+              world_size: int | None = None, rank: int | None = None,
+              local_rank: int | None = None, stats=None) -> Mesh:
+    """This process's ``Mesh`` in a ``data x model`` grid of ranks (the
+    expert-parallel paths' counterpart of ``init_ranks``).
+
+    The world size, rank and local rank come from the arguments or else
+    from torchrun's environment, and the world must hold ``data * model``
+    ranks: rank r sits at ``(r // model, r % model)``. With a world of one
+    and no ``backend`` asked for, no process group is made and the
+    one-process mesh returns (``local_mesh``: every shard computed in
+    this process). ``backend`` None follows the device. Under NCCL the
+    rank's device is ``cuda:{local_rank}``; under gloo on a card,
+    ``cuda:{local_rank % cards}``, with the exchanges staged through
+    pinned host buffers. NCCL with more ranks on this host than cards
+    raises before any NCCL call. ``stats`` (an ``EPStats``) collects what
+    the expert-parallel paths report.
+    """
+    world = _world_size(world_size)
+    if world == 1 and backend is None:
+        return local_mesh(data, model, resolve_device(torch.device(device)),
+                          stats=stats)
+    if world != data * model:
+        raise ValueError(f"a data {data} x model {model} mesh needs "
+                         f"{data * model} ranks, not {world}")
+    rank, local_rank, dev, backend = _join_world(
+        world, device, backend, init_method, world_size, rank, local_rank)
+    model_groups, data_groups = _grid_groups(data, model)
+    d, m = divmod(rank, model)
+    staged = backend == "gloo" and dev.type == "cuda"
+    return Mesh(data=data, model=model, device=dev, coords=(d, m),
+                backend=backend, data_group=data_groups[m],
+                model_group=model_groups[d],
+                staging=HostStaging() if staged else None, stats=stats)

@@ -30,8 +30,11 @@ class Model:
     def param_defs(self) -> dict:
         return tf.stacked_defs(self.cfg, self.dtype)
 
-    def init(self, gen: torch.Generator, device: torch.device | str) -> dict:
-        return plib.materialize(gen, self.param_defs(), device)
+    def init(self, gen: torch.Generator, device: torch.device | str,
+             mesh=None) -> dict:
+        """The parameters drawn from ``gen``; on a rank of ``mesh``, only
+        its experts of each expert leaf (``params.materialize``)."""
+        return plib.materialize(gen, self.param_defs(), device, mesh=mesh)
 
     def param_count(self) -> int:
         return plib.count(self.param_defs())

@@ -1,13 +1,45 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): the routing
-and the reference's single-device path.
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): routing, the
+reference's single-device path and its two expert-parallel (EP) paths.
 
 Routing: softmax gate in f32, top-k, the top-k weights renormalised
-(Moonlight/Kimi convention), cast back to the activations' dtype. On one
-device the reference runs its dense masked reference ``moe_ref``: every
-expert on every token, weighted by the routing mask, with no token
-dropped. Its expert-parallel paths (the fixed-capacity all-to-all
-dispatch and the replicated decode path, ``repro/models/moe.py:80-182``)
-need several devices and are not ported.
+(Moonlight/Kimi convention), cast back to the activations' dtype.
+``moe_apply`` picks the path as the reference does: with no ambient mesh
+(``distributed.sharding.use_mesh``), a ``model`` axis of 1, or a ``model``
+axis that does not divide the experts, the dense masked ``moe_ref``
+(every expert on every token, nothing dropped); otherwise EP over the
+``model`` axis, with model rank m holding experts ``[m E/ep, (m+1) E/ep)``:
+
+  * the all-to-all path (full-sequence blocks: training's forward and the
+    prefill): rank (d, m) takes the batch rows of data index d and
+    sequence slice m (the reference's ``P(batch, "model", None)``), routes
+    its ``t_loc`` tokens and dispatches each (token, expert) pair to the
+    expert's rank with a fixed capacity of ``max(k, int(t_loc * k / ep *
+    capacity_factor))`` slots a destination: pairs ordered by destination
+    (a stable sort), slot = the pair's rank among its destination's pairs,
+    kept while slot < capacity; dropped pairs get weight zero. The rows go
+    out by one all-to-all (with each slot's local expert id), through the
+    grouped FFN, back by another, and are combined on the source rank; the
+    output is all-gathered over the model axis to the whole sequence.
+  * the replicated path (``decode=True``, the decode step): every model
+    rank routes all of its data rows' tokens, computes only the pairs of
+    its own experts, and the partial sums are added over the model axis.
+
+Two of the reference's numbers are mirrored on purpose:
+
+  * its dispatch scatters every pair, dropped ones as zero rows into slot
+    (0, 0) of destination 0, and on its CPU backend the last write wins.
+    So when a shard drops any pair, slot (0, 0) (the first kept pair to
+    destination 0) is sent as a zero row with local expert id 0, and that
+    pair contributes nothing. ``_dispatch_local`` writes the same.
+  * its combine (``segment_sum``) and its ``psum`` have no fixed order on
+    a card. The port sums each token's k pairs in top-k order, in f32, and
+    the model ranks' partials in rank order (all-gathered, then added), so
+    that ranks equal the one-process mesh bit for bit.
+
+The grouped FFN (``_expert_ffn_ragged``, the reference's ``lax.ragged_dot``,
+an XLA op and no Pallas kernel) loops over the local experts' contiguous
+row ranges, one product per expert: reading the group sizes is one host
+synchronisation per call, two a layer on a rank.
 
 ``moe_ref`` computes the reference's function, summed in another order:
 the reference builds every expert's output ``[T, E, D]`` and then combines
@@ -26,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import RULES, Mesh, current_mesh
 from repro_torch.models.params import ParamDef
 
 
@@ -91,10 +124,209 @@ def moe_ref(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype).reshape(b, s, d)
 
 
-def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The reference's entry point. x: [B, S, D]. On one device the
-    reference takes ``moe_ref`` for training, prefill and decode alike
-    (``repro/models/moe.py:196-199``); so does the port, which has no
-    expert-parallel path (the reference's ``decode`` switch picks between
-    two of those)."""
-    return moe_ref(cfg, p, x)
+# ------------------------------------------------------------------ EP ------
+def _expert_ffn_ragged(wg, wu, wd, x_sorted, group_sizes):
+    """``lax.ragged_dot``'s SwiGLU: rows of ``x_sorted`` in contiguous
+    groups, group e through expert e (``wg``/``wu``/``wd`` hold the local
+    experts); rows past the last group are zero. One host sync (the group
+    sizes)."""
+    out = x_sorted.new_zeros((x_sorted.shape[0], wd.shape[-1]))
+    at = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        if n:
+            xe = x_sorted[at:at + n]
+            out[at:at + n] = (F.silu(xe @ wg[e]) * (xe @ wu[e])) @ wd[e]
+        at += n
+    return out
+
+
+def capacity(cfg: ArchConfig, t_loc: int, ep: int) -> int:
+    """Slots a destination rank in the all-to-all path (Python ``int``
+    truncation, as the reference)."""
+    e = cfg.moe
+    return max(e.top_k, int(t_loc * e.top_k / ep * e.capacity_factor))
+
+
+def _dispatch_local(cfg, x_flat, top_i, top_w, ep, e_local, cap):
+    """Slot assignment for the fixed-capacity dispatch: returns the send
+    buffer ``[ep, cap, D]``, each slot's local expert id ``[ep, cap]``
+    (int32) and the plan of the combine: for each pair in destination
+    order its ``dest``, ``slot``, source token ``tok``, weight ``w`` (zero
+    if dropped), ``ok`` (kept) and ``order`` (its index among the
+    token-major pairs)."""
+    t_loc, d = x_flat.shape
+    k = cfg.moe.top_k
+    dev = x_flat.device
+    pair_tok = torch.arange(t_loc, device=dev).repeat_interleave(k)
+    pair_exp = top_i.reshape(-1)
+    pair_w = top_w.reshape(-1)
+    pair_dest = torch.div(pair_exp, e_local, rounding_mode="floor")
+    order = torch.sort(pair_dest, stable=True).indices
+    sdest = pair_dest[order]
+    counts = torch.bincount(pair_dest, minlength=ep)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(sdest.shape[0], device=dev) - starts[sdest]
+    ok = rank < cap
+    slot_d = torch.where(ok, sdest, 0)
+    slot_c = torch.where(ok, rank, 0)
+    src_tok = pair_tok[order]
+    # kept pairs own distinct slots; dropped ones write to a spare row past
+    # the end, then (the reference's last write to slot (0, 0)) zero it
+    flat = torch.where(ok, sdest * cap + rank, ep * cap)
+    buf = x_flat.new_zeros((ep * cap + 1, d))
+    buf[flat] = x_flat[src_tok]
+    meta = torch.zeros(ep * cap + 1, dtype=torch.int32, device=dev)
+    meta[flat] = (pair_exp[order] % e_local).to(torch.int32)
+    buf, meta = buf[:-1].view(ep, cap, d), meta[:-1].view(ep, cap)
+    dropped = ~ok.all()
+    buf[0, 0] = torch.where(dropped, 0, buf[0, 0])
+    meta[0, 0] = torch.where(dropped, 0, meta[0, 0])
+    plan = {"dest": slot_d, "slot": slot_c, "tok": src_tok,
+            "w": torch.where(ok, pair_w[order], 0), "ok": ok,
+            "order": order}
+    return buf, meta, plan
+
+
+def _local_experts(p: dict, mesh: Mesh, m: int, e_local: int):
+    """Model shard m's ``wg``, ``wu``, ``wd``: sliced from the whole tree on
+    the one-process mesh; a rank's tree holds only its own experts
+    (``params.shard_experts``)."""
+    ws = [p[name] for name in ("wg", "wu", "wd")]
+    if mesh.local:
+        return [w[m * e_local:(m + 1) * e_local] for w in ws]
+    if ws[0].shape[0] != e_local:
+        raise ValueError(f"model rank {m} holds {ws[0].shape[0]} experts, "
+                         f"want its {e_local} (params.shard_experts)")
+    return ws
+
+
+def _record(mesh: Mesh, plans: list, t_loc: int) -> None:
+    """Each shard's dropped pairs, and the tokens that lost a pair to the
+    capacity or to the slot-(0, 0) overwrite, into ``mesh.stats``."""
+    dropped, lost = [], []
+    for plan in plans:
+        gone = ~plan["ok"]
+        over = (plan["ok"] & (plan["dest"] == 0) & (plan["slot"] == 0)
+                & gone.any())
+        hit = torch.zeros(t_loc, dtype=torch.int32, device=gone.device)
+        hit.index_add_(0, plan["tok"], (gone | over).to(torch.int32))
+        dropped.append(gone.sum())
+        lost.append(hit > 0)
+    mesh.stats.dropped.append(torch.stack(dropped))
+    mesh.stats.lost.append(torch.stack(lost))
+
+
+def _combine(cfg, y, plan, t_loc):
+    """Each token's kept pairs' outputs, weighted and summed in top-k order
+    in f32: ``[t_loc, D]``."""
+    vals = y[plan["dest"], plan["slot"]].float() \
+        * plan["w"].float()[:, None]
+    out = torch.empty_like(vals)
+    out[plan["order"]] = vals
+    return out.view(t_loc, cfg.moe.top_k, -1).sum(1)
+
+
+def _moe_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh: Mesh,
+             axis: str) -> torch.Tensor:
+    """The all-to-all path on one data index's rows x ``[b, S, D]``
+    (``repro/models/moe.py:_moe_shard_a2a``, each model shard of this
+    process in turn)."""
+    b, s, d = x.shape
+    ep = mesh.shape[axis]
+    if s % ep:
+        raise ValueError(f"moe a2a: sequence {s} does not split over "
+                         f"{ep} model ranks")
+    e_local = cfg.moe.num_experts // ep
+    s_loc = s // ep
+    t_loc = b * s_loc
+    cap = capacity(cfg, t_loc, ep)
+    shards = mesh.shards(axis)
+    bufs, metas, plans = [], [], []
+    for m in shards:
+        xm = x[:, m * s_loc:(m + 1) * s_loc].reshape(t_loc, d)
+        top_i, top_w = _route(cfg, p["router"], xm)
+        buf, meta, plan = _dispatch_local(cfg, xm, top_i, top_w, ep,
+                                          e_local, cap)
+        bufs.append(buf)
+        metas.append(meta)
+        plans.append(plan)
+    if mesh.stats is not None:
+        _record(mesh, plans, t_loc)
+    recvs = mesh.all_to_all(bufs, axis)
+    ids = mesh.all_to_all(metas, axis)
+    ys = []
+    for m, recv, idm in zip(shards, recvs, ids):
+        wg, wu, wd = _local_experts(p, mesh, m, e_local)
+        idm = idm.reshape(-1).long()
+        order = torch.sort(idm, stable=True).indices
+        sizes = torch.bincount(idm, minlength=e_local)
+        y_sorted = _expert_ffn_ragged(wg, wu, wd, recv.reshape(-1, d)[order],
+                                      sizes)
+        y = torch.empty_like(y_sorted)
+        y[order] = y_sorted
+        ys.append(y.view(ep, cap, d))
+    backs = mesh.all_to_all(ys, axis)
+    outs = [_combine(cfg, y, plan, t_loc).to(x.dtype).view(b, s_loc, d)
+            for y, plan in zip(backs, plans)]
+    full = mesh.all_gather(outs, axis)                  # [ep, b, s_loc, D]
+    return full.permute(1, 0, 2, 3).reshape(b, s, d)
+
+
+def _moe_repl(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh: Mesh,
+              axis: str) -> torch.Tensor:
+    """The replicated path on one data index's rows x ``[b, S, D]``
+    (``repro/models/moe.py:_moe_shard_repl``): each model shard computes
+    only its experts' pairs (the reference also runs the others, binned
+    into its last expert, with weight zero), and the f32 partials are
+    added in rank order."""
+    b, s, d = x.shape
+    k = cfg.moe.top_k
+    ep = mesh.shape[axis]
+    e_local = cfg.moe.num_experts // ep
+    x_flat = x.reshape(-1, d)
+    t_loc = x_flat.shape[0]
+    top_i, top_w = _route(cfg, p["router"], x_flat)
+    pair_tok = torch.arange(t_loc, device=x.device).repeat_interleave(k)
+    pair_exp = top_i.reshape(-1)
+    parts = []
+    for m in mesh.shards(axis):
+        wg, wu, wd = _local_experts(p, mesh, m, e_local)
+        mine = torch.div(pair_exp, e_local, rounding_mode="floor") == m
+        # other shards' pairs sort past the last group and are not computed
+        local_id = torch.where(mine, pair_exp % e_local, e_local)
+        order = torch.sort(local_id, stable=True).indices
+        sizes = torch.bincount(local_id, minlength=e_local + 1)[:e_local]
+        y_sorted = _expert_ffn_ragged(wg, wu, wd, x_flat[pair_tok[order]],
+                                      sizes)
+        w = torch.where(mine, top_w.reshape(-1), 0).float()
+        vals = torch.empty((t_loc * k, d), dtype=torch.float32,
+                           device=x.device)
+        vals[order] = y_sorted.float() * w[order][:, None]
+        parts.append(vals.view(t_loc, k, d).sum(1))
+    gathered = mesh.all_gather(parts, axis)             # [ep, t_loc, D]
+    out = gathered[0]
+    for part in gathered[1:]:
+        out = out + part
+    return out.to(x.dtype).view(b, s, d)
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+              decode: bool = False) -> torch.Tensor:
+    """The reference's entry point. x: [B, S, D], the batch rows of one
+    data index (a rank: its own; on the one-process mesh the caller runs
+    each data index's rows in turn, as ``launch.steps.make_serve_fns``
+    does).
+
+    Reads the ambient mesh (``use_mesh``): without a mesh, with a
+    ``model`` axis of 1 or one that does not divide the experts,
+    ``moe_ref``; otherwise expert parallelism over ``model``, the
+    all-to-all path, or with ``decode`` the replicated path. Nothing
+    switches path on an error.
+    """
+    mesh = current_mesh()
+    axis = RULES["experts"]
+    if mesh is None or mesh.shape[axis] == 1 \
+            or cfg.moe.num_experts % mesh.shape[axis] != 0:
+        return moe_ref(cfg, p, x)
+    fn = _moe_repl if decode else _moe_a2a
+    return fn(cfg, p, x, mesh, axis)

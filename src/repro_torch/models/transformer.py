@@ -93,9 +93,12 @@ def _block_full(cfg: ArchConfig, p: dict, x: torch.Tensor, cos, sin,
     return x + _ffn(cfg, p, h2)
 
 
-def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor,
+         decode: bool = False) -> torch.Tensor:
+    """The block's FFN: SwiGLU, or the MoE (under a mesh, the all-to-all
+    path for full sequences and with ``decode`` the replicated one)."""
     if cfg.moe is not None:
-        return moe_lib.moe_apply(cfg, p["moe"], h)
+        return moe_lib.moe_apply(cfg, p["moe"], h, decode=decode)
     return mlp_apply(p["mlp"], h)
 
 
@@ -216,7 +219,7 @@ def decode_step(cfg: ArchConfig, params: dict, state: DecodeState,
             sc.h[layer].copy_(ssm_new.h)
         x = x + y
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2, decode=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0, :]
     return logits, DecodeState(cache=state.cache, pos=pos + 1)

@@ -47,6 +47,7 @@ from repro_torch.core import (SCHEMES, ConsensusADMM, PenaltyConfig,
 from repro_torch.core import admm
 from repro_torch.topology import TopologyConfig
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 J = 8
 STEPS_F64 = 25

@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import ops
 from torch_round_cases import (ARGS, NAMES, bf16_round, round_case,
                                run_reference, torch_args)
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 WHICH = ("oracle", "pallas")
 INT8_SHAPES = ((2, 1, 3, 128), (4, 2, 5, 64), (3, 3, 1, 256))

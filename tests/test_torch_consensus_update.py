@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import consensus_update as cu
 from repro_torch.kernels import ops, ref
 from torch_round_cases import bf16_round, run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 1024
 SIZES = (8 * BS, 5000, 777)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import graph, penalty
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = (2, 3, 5, 8)
 TAU_TOPOS = ("ring", "cluster", "complete")

@@ -687,3 +687,27 @@ def test_cuda_graphed_inner_solve_equals_eager():
     assert torch.equal(eng._solve_graphed(*args)["w"],
                        eng._solve_gradient(*args)["w"])
     assert len(eng._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ep_gloo_ranks_equal_one_process(tmp_path):
+    """The expert-parallel paths as 2 gloo ranks sharing the card (a data 1
+    x model 2 mesh, the all-to-all and the all-gathers staged through
+    pinned host buffers): the MoE unit's all-to-all and replicated outputs
+    and the served model's prefill and decode logits equal the one-process
+    mesh's on the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_ep_cases as ep
+    from repro_torch.distributed import local_mesh
+    from torch_ranks_cases import spawn
+    shape = (1, 2)
+    spawn(ep.ranks_worker, 2, tmp_path, str(tmp_path), "cuda", shape)
+    p, x = ep.unit_on("cuda")
+    params, toks = ep.served_on("cuda")
+    want = ep.run_ep(local_mesh(*shape, "cuda"), p, x, params, toks)
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert got["wg_shape"].tolist()[1] == 4
+        for name in ("a2a", "repl", "prefill", "decode"):
+            assert torch.equal(got[name], want[name].cpu()), (r, name)

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops, ref
 from torch_round_cases import (ARGS, NAMES, masked_round_case,
                                masked_torch_args, round_case, run_reference,
                                torch_args)
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 BS = 64
 WHICH = ("rows", "blocks", "oracle")

@@ -38,6 +38,7 @@ from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.topology import TopologyConfig, from_numpy
 from torch_round_cases import run_script
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 ROUNDS = 5
 DROP_AFTER = 2          # (b): node 2 is dropped after this round

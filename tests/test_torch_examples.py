@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from repro_torch.examples import dppca_sfm, dynamic_topology, quickstart
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = {
     "quickstart": (quickstart, ["--max-iters", "2"]),

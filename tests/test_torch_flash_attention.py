@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import ops, ref
 from torch_round_cases import bf16_round, run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 # (b, h, kv heads, s, hd, causal, window, block_q, block_k): the reference's
 # tests/test_kernels.py cases, then the zoo's other head dims; the blocks

@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.models import build_model
 from repro_torch.optim import flatten
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = ("reduced", "full4")
 DTYPES = ("float32", "bfloat16")

@@ -35,6 +35,7 @@ from repro_torch.optim import flatten
 from torch_round_cases import (ARGS, NAMES, fp8_round_case,
                                masked_round_case, masked_torch_args,
                                round_case, run_reference, torch_args)
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 SHARDS = (1, 2, 4)
 CODECS = ("native", "int8", "fp8_e4m3", "fp8_e5m2")

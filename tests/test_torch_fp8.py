@@ -47,6 +47,7 @@ from repro_torch.topology import TopologyConfig, from_numpy
 from torch_round_cases import (ARGS, NAMES, bf16_round, fp8_round_case,
                                masked_round_case, masked_torch_args,
                                run_reference, torch_args)
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 FORMATS = ("fp8_e4m3", "fp8_e5m2")
 DTYPES = ("float32", "bfloat16")

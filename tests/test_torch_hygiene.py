@@ -4,12 +4,16 @@
   reference package ``repro`` (an AST walk over every import).
 * ``repro_torch`` imports on a machine without CUDA, and importing it
   loads neither JAX nor the reference; neither does importing any of the
-  port's test modules (they compute the reference in a fresh process).
+  port's test modules (they compute the reference in a fresh process):
+  one interpreter imports them in turn, with ``sys.modules`` read after
+  each.
 * Nothing falls back: a tensor off the CPU never reaches the plain version,
   CUDA asked for without a card is an error, and ``chip_smoke.py`` fails
   without a card or without the repository beside it.
 """
 import ast
+import fcntl
+import json
 import os
 import pathlib
 import shutil
@@ -64,23 +68,75 @@ def test_package_imports_without_cuda_or_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+# imports the modules named on its command line in turn, printing after
+# each one line of JSON: the module, the JAX or reference modules loaded so
+# far, and an import error; stops after the first module that loads JAX or
+# the reference, or fails to import, so that a fresh interpreter takes the
+# next one and no module is judged on another's imports
+_IMPORT_SCRIPT = """
+import json, sys, traceback
+for name in sys.argv[1:]:
+    try:
+        __import__(name)
+        err = None
+    except BaseException:
+        err = traceback.format_exc()[-3000:]
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    print(json.dumps({"module": name, "bad": bad, "error": err}),
+          flush=True)
+    if bad or err:
+        break
+"""
+
+
+def _import_records(tmp_path_factory) -> dict:
+    """What importing each port test module loads, recorded once per test
+    run (the xdist workers share it under a file lock, as
+    ``torch_round_cases.run_reference`` shares the reference's outputs):
+    the modules go through one interpreter in turn, and after one that
+    loads JAX or the reference (or fails) a fresh interpreter continues."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent                  # the run's, shared by workers
+    path = base / "port_test_imports.json"
+    with open(str(path) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+            env.pop("PYTHONPATH", None)
+            records = {}
+            left = [p.stem for p in PORT_TESTS]
+            while left:
+                proc = subprocess.run(
+                    [sys.executable, "-c",
+                     f"import sys; sys.path[:0] = [{str(ROOT / 'tests')!r},"
+                     f" {str(ROOT / 'src')!r}]\n" + _IMPORT_SCRIPT] + left,
+                    env=env, capture_output=True, text=True, timeout=600)
+                got = [json.loads(ln) for ln in proc.stdout.splitlines()
+                       if ln.startswith("{")]
+                if not got:                 # the interpreter itself failed
+                    records[left[0]] = {"bad": [], "error": proc.stderr}
+                    got = [{"module": left[0]}]
+                records.update({r["module"]: r for r in got
+                                if r["module"] not in records})
+                left = left[len(got):]
+            path.write_text(json.dumps(records))
+    return json.loads(path.read_text())
+
+
+@pytest.fixture(scope="module")
+def import_records(tmp_path_factory):
+    return _import_records(tmp_path_factory)
+
+
 @pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
-def test_port_test_module_starts_no_jax(path):
+def test_port_test_module_starts_no_jax(path, import_records):
     """Importing a port test module loads neither JAX nor the reference, so
     no JAX backend starts in the test process."""
-    code = (
-        "import sys\n"
-        f"sys.path[:0] = [{str(ROOT / 'tests')!r}, {str(ROOT / 'src')!r}]\n"
-        f"import {path.stem}\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro')]\n"
-        "assert not bad, bad\n"
-        "print('ok')\n")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    env.pop("PYTHONPATH", None)
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    rec = import_records[path.stem]
+    assert rec["error"] is None, rec["error"]
+    assert not rec["bad"], rec["bad"]
 
 
 def test_no_fallback_off_the_cpu():

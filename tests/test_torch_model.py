@@ -25,6 +25,7 @@ from repro_torch.models import attention, build_model, transformer
 from repro_torch.models.params import from_jax
 from repro_torch.optim import adamw
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 TOKEN_KW = dict(vocab=256, seq_len=16, batch_per_node=3, num_nodes=2, seed=4)
 TOKEN_DRAWS = ((0, False), (7, False), (3, True))

@@ -29,6 +29,7 @@ from repro_torch.ppca import (DPPCA, PPCAParams, e_step, fit_em, fit_svd,
                               turntable_sfm)
 from repro_torch.ppca import dppca
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 30
 RUN = dict(max_iters=200, rel_tol=1e-3, min_iters=10)

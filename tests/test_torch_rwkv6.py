@@ -29,6 +29,7 @@ from repro_torch.kernels import rwkv6_scan as rw_kernel
 from repro_torch.models import rwkv6, transformer
 from repro_torch.models.params import from_jax, is_def
 from torch_round_cases import bf16_round, run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 # (b, h, t, hd, chunk): the reference's tests/test_kernels.py cases
 CASES = [(1, 2, 64, 16, 16), (2, 3, 128, 32, 32), (1, 1, 96, 8, 32),

@@ -33,6 +33,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.launch import serve
 from repro_torch.models.params import from_jax
 from torch_round_cases import SRC, run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 # name -> (arch, replaced config fields, batch, prompt length, gen length)
 CASES = {

@@ -54,6 +54,7 @@ from repro_torch.launch import mesh
 from repro_torch.models import build_model
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 STATIC = {codec: dict(j=2, shards=2, topology="ring", local_steps=2,
                       codec=codec, steps=6, batch=2)

@@ -25,6 +25,7 @@ from repro_torch.core import graph, penalty
 from repro_torch.runtime import fault_tolerance as ft
 from repro_torch import topology as topo
 from torch_round_cases import run_reference
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 BUILDERS = ("ring", "complete", "expander")
 SIZES = (4, 6, 8)

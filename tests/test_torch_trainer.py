@@ -27,6 +27,7 @@ from repro_torch.models.params import from_jax
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
 from torch_round_cases import run_script
+from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 6
 

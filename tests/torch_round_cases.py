@@ -1,17 +1,32 @@
 """Helpers shared by the port's tests: the inputs of one fused consensus
-round (used by the CPU parity tests and the card's tests) and a runner that
-computes the reference's outputs in a fresh process. This module imports no
-JAX, so it also runs on a machine without it."""
+round (used by the CPU parity tests and the card's tests), a runner that
+computes the reference's outputs in a fresh process, and the fixture that
+runs a test module's torch on one thread. This module imports no JAX, so
+it also runs on a machine without it."""
 import fcntl
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(TESTS), "src")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One CPU thread for torch while the importing test module runs, then
+    the count it had. The xdist workers and the reference's processes share
+    the cores, and a test process on every core beside them ran the port's
+    CPU work many times slower than alone (a D-PPCA run of 4.5 s alone took
+    133 s in a full run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 NAMES = ("theta", "lam", "bar", "r_sq", "s_sq")
 ARGS = ("theta", "lam", "barp", "wires", "scales", "e_sym", "alpha",
