@@ -224,12 +224,12 @@ seconds):
               and the tensor-core kernel at hymba's 25 heads of 64 with a
               window of 1024 at S 2048. The build phase prints the
               registers and spills of both kernels' instantiations.
- 21. zserve — ``launch.serve.run`` on glm4-9b (20 of 40 layers),
-              qwen2-7b (14 of 28), stablelm-3b (16 of 32),
+ 21. zserve — ``launch.serve.run`` on glm4-9b (10 of 40 layers),
+              qwen2-7b (7 of 28), stablelm-3b (8 of 32),
               moonshot-v1-16b-a3b (12 of 48, phase 28's depth),
               kimi-k2-1t-a32b (1 layer of 61: the whole model does not fit
-              one card), musicgen-large (16 of 48) and
-              llava-next-mistral-7b (16 of 32; the frontend stubs serve
+              one card), musicgen-large (8 of 48) and
+              llava-next-mistral-7b (8 of 32; the frontend stubs serve
               random embeddings; every cut but kimi-k2's is for time) at
               batch 4, prompt 512, and hymba-1.5b at 8 of its 32 layers
               (for time) and prompt 1280 (past its window of 1024, so the
@@ -359,6 +359,36 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               synchronized), and whether gloo takes CUDA tensors for
               all-to-all. NCCL's all-to-all (a card a rank) does not run
               on one card.
+ 29. inpod  — the in-pod sharded local step (``distributed.fsdp``):
+              moonshot-v1-16b-a3b at full width, 1 of 48 layers (1.242 B
+              parameters a node), bf16, capacity factor 1.25. (a)
+              ``launch.steps.make_train_fns`` on a data 2 x model 2 mesh,
+              global batch 4 x 512, 2 steps (lr 3e-4), each rank holding
+              its shards of the parameters and AdamW moments (a quarter,
+              but for the norms and the router); (b) the consensus trainer,
+              J 2 ring, nap, native wire, ``shard_consensus``, data 1 x
+              model 2 a node (4 ranks), 4 steps of 4 x 256 tokens a node
+              with a round after every second. Each first as one process
+              (``local_mesh``, ``trivial_grid(2, mesh=(1, 2))``), then as 4
+              gloo ranks sharing the card in one torchrun call (29a on
+              ``init_mesh``, then 29b on ``init_ranks(mesh=)`` over the
+              same process group). Checks: every rank's losses, grad
+              norms, round metrics and eta, and the digests of its
+              parameter and moment shards and its lam and theta_bar_prev
+              slabs, equal the one process's bit for bit; so do the drops
+              of each shard; a rank's parameter and moment bytes equal
+              its shards' reckoned from the specs, between every two
+              steps; each rank's round kernel launches once a round.
+              Prints each rank's peak beside ``reckon_inpod_peak`` and
+              the replicated layout (parameters and moments whole on
+              every rank), the step and round seconds of runs with no stats
+              (nothing synchronises inside a step), and from a separate
+              run with the mesh's stats on (29a's two steps, 29b's first
+              step), whose losses must equal the timed run's, the drops
+              and the gathers', reduce-scatters' and all-to-alls' seconds
+              a step (host clock, each between two synchronisations,
+              staged gloo), and the kernel's ms beside its bound. NCCL
+              across cards does not run on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -438,25 +468,27 @@ ZOO_SERVE["kimi-k2-1t-a32b"] = (1, 512)
 # hymba is cut to 8 of its 32 layers for time (its eager SSM loop and
 # prompt replay took 105-308 s at full depth), to pay for phase 26
 ZOO_SERVE["hymba-1.5b"] = (8, 1280)
-# cut for time, to pay for phase 28: each prompt replay is 512 eager decode
-# steps through every layer (at full depth moonshot's took about 44 s,
-# musicgen's 21-63 s, llava's 24-40 s, glm4's 22-39 s); moonshot serves at
-# phase 28's depth, the others at half theirs or less
+# cut for time, to pay for phases 28 and 29: each prompt replay is 512
+# eager decode steps through every layer (at full depth moonshot's took
+# about 44 s, musicgen's 21-63 s, llava's 24-40 s, glm4's 22-39 s);
+# moonshot serves at phase 28's depth; the others at half theirs or less
+# for phase 28, and at half that again for phase 29
 ZOO_SERVE["moonshot-v1-16b-a3b"] = (12, 512)
-ZOO_SERVE["musicgen-large"] = (16, 512)
-ZOO_SERVE["llava-next-mistral-7b"] = (16, 512)
-ZOO_SERVE["glm4-9b"] = (20, 512)
-ZOO_SERVE["qwen2-7b"] = (14, 512)
-ZOO_SERVE["stablelm-3b"] = (16, 512)
+ZOO_SERVE["musicgen-large"] = (8, 512)
+ZOO_SERVE["llava-next-mistral-7b"] = (8, 512)
+ZOO_SERVE["glm4-9b"] = (10, 512)
+ZOO_SERVE["qwen2-7b"] = (7, 512)
+ZOO_SERVE["stablelm-3b"] = (8, 512)
 ZOO_GEN = 8                         # generated tokens per served arch
 # billions of parameters at those depths, reckoned from the configs
-# before the port counted them (printed beside Model.param_count)
-ZOO_PARAMS_B = {"glm4-9b": 5.32, "qwen2-7b": 4.35,  # 20, 14 layers
-                "stablelm-3b": 1.53,                         # 16 layers
+# before the port counted them (printed beside Model.param_count; the
+# depths cut for phase 29 from the defs' shapes at the cut depth)
+ZOO_PARAMS_B = {"glm4-9b": 3.28, "qwen2-7b": 2.72,  # 10, 7 layers
+                "stablelm-3b": 0.89,                         # 8 layers
                 "moonshot-v1-16b-a3b": 7.52,                 # 12 layers
                 "kimi-k2-1t-a32b": 19.38,
-                "musicgen-large": 1.08, "hymba-1.5b": 0.43,  # 16, 8 layers
-                "llava-next-mistral-7b": 3.75}               # 16 layers
+                "musicgen-large": 0.55, "hymba-1.5b": 0.43,  # 8, 8 layers
+                "llava-next-mistral-7b": 2.01}               # 8 layers
 # phase 22: layers at full width, so that two replicas with f32 AdamW
 # moments and the f32 dual and neighbour-mean rows fit in 80 GB (about 23
 # bytes per parameter per node with the activations, as the static
@@ -2724,6 +2756,8 @@ def ranks_worker(spec_path) -> int:
         return runs_worker(spec, cfg, rank, os.path.dirname(spec_path))
     if spec.get("ep"):
         return ep_worker(spec, cfg, rank, os.path.dirname(spec_path))
+    if spec.get("inpod"):
+        return inpod_worker(spec, cfg, rank, os.path.dirname(spec_path))
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -4114,9 +4148,7 @@ def ep_serve(cfg, mesh, params):
         # a rank) grows the pinned staging
         prefill_fn(params, {"tokens": prompts}, use_kernel=True)
         torch.cuda.synchronize()
-        stats.dropped.clear()
-        stats.lost.clear()
-        stats.a2a_seconds, stats.a2a_calls = 0.0, 0
+        stats.clear()
         traced = digest(traced_prefill(params, {"tokens": prompts},
                                        use_kernel=True))
     for obj, attr in all_counters():
@@ -4148,7 +4180,7 @@ def ep_serve(cfg, mesh, params):
                 prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
                 dropped=[d.tolist() for d in stats.dropped],
                 lost=[t.cpu() for t in stats.lost],
-                a2a_s=stats.a2a_seconds, a2a_calls=stats.a2a_calls,
+                a2a_s=stats.seconds["a2a"], a2a_calls=stats.calls["a2a"],
                 peak_gb=peak_gb)
 
 
@@ -4178,10 +4210,10 @@ def ep_worker(spec, cfg, rank, out_dir) -> int:
     experts only (drawn leaf by leaf from the one process's seed), the
     served run; its digests and numbers into ``rank<r>.json``."""
     import torch
-    from repro_torch.distributed import EPStats
+    from repro_torch.distributed import MeshStats
     from repro_torch.launch.mesh import init_mesh
     from repro_torch.models import build_model
-    mesh = init_mesh(*EP_MESH, DEV, backend="gloo", stats=EPStats())
+    mesh = init_mesh(*EP_MESH, DEV, backend="gloo", stats=MeshStats())
     try:
         torch.cuda.reset_peak_memory_stats()
         params = build_model(cfg).init(
@@ -4215,14 +4247,14 @@ def ep_layer_check(cfg, params, prompts) -> float:
     within 4 bf16 ulps of max|y| (``tests/test_torch_moe.py``'s bf16
     bound: each path rounds another product to bf16)."""
     import torch
-    from repro_torch.distributed import EPStats, local_mesh, use_mesh
+    from repro_torch.distributed import MeshStats, local_mesh, use_mesh
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import moe
     from repro_torch.models.layers import embed_tokens, rms_norm
     from repro_torch.models.transformer import _layer
     c = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=EP_CHECK_CF))
-    stats = EPStats()
+    stats = MeshStats()
     with torch.inference_mode():
         lp = _layer(params, 0)
         x = embed_tokens(params, prompts).to(lp["ln1"].dtype)
@@ -4264,7 +4296,7 @@ def ep_decode_check(cfg, params, one) -> dict:
     ``EP_SERVED_TOP1_MARGIN`` below the witness's."""
     import torch
     from repro_torch.configs import ShapeCell
-    from repro_torch.distributed import EPStats, local_mesh
+    from repro_torch.distributed import MeshStats, local_mesh
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_serve_fns
     from repro_torch.models import build_model
@@ -4272,7 +4304,7 @@ def ep_decode_check(cfg, params, one) -> dict:
     model = build_model(cfg)
     cell = ShapeCell("ep", EP_PROMPT, EP_BATCH, "prefill")
     prompts, dec = one["prompts"], one["decode"].float()
-    stats = EPStats()
+    stats = MeshStats()
     plain_prefill, _ = make_serve_fns(
         model, local_mesh(*EP_MESH, DEV, stats=stats), cell)
     w_prefill, w_decode = make_serve_fns(model, None, cell)
@@ -4332,7 +4364,7 @@ def ep_slice(card_line):
     """Phase 28: expert-parallel serving, one process against two gloo
     ranks sharing the card. Returns the flash launches of its prefills."""
     import torch
-    from repro_torch.distributed import EPStats, local_mesh
+    from repro_torch.distributed import MeshStats, local_mesh
     from repro_torch.models import build_model
     cfg = zoo_config(EP_ARCH, EP_LAYERS)
     n, e = cfg.n_layers, cfg.moe.num_experts
@@ -4343,7 +4375,7 @@ def ep_slice(card_line):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh = local_mesh(*EP_MESH, DEV, stats=EPStats())
+    mesh = local_mesh(*EP_MESH, DEV, stats=MeshStats())
     params = model.init(torch.Generator(DEV).manual_seed(EP_SEED), DEV)
     one = ep_serve(cfg, mesh, params)
     t1 = time.perf_counter()
@@ -4426,6 +4458,572 @@ def ep_slice(card_line):
                 ranks=[{k: r[k] for k in ("prefill_ms", "decode_ms", "a2a_s",
                                           "peak_gb", "probe")}
                        for r in ranks])
+
+
+# phase 29: the in-pod sharded local step (distributed.fsdp) of
+# moonshot-v1-16b-a3b at full width, 1 of 48 layers, bf16, on 4 gloo ranks
+# sharing the card: (a) make_train_fns on data 2 x model 2, (b) the
+# consensus trainer, J 2 ring, data 1 x model 2 a node, shard_consensus
+INPOD_ARCH = "moonshot-v1-16b-a3b"
+INPOD_LAYERS = 1
+INPOD_TRAIN_MESH = (2, 2)
+INPOD_BATCH, INPOD_SEQ = 4, 512
+INPOD_TRAIN_STEPS = 2
+INPOD_CONS_MESH = (1, 2)
+INPOD_NODES = 2
+# 29b's batch a node: 4 x 256 tokens, so that four ranks' round and probe
+# transients fit the card beside each other (PERF.md)
+INPOD_CONS_SEQ = 256
+INPOD_CONS_STEPS, INPOD_LOCAL = 4, 2
+INPOD_SEED = 29
+INPOD_LR = 3e-4
+
+
+def inpod_batch(cfg, step):
+    """29a's global batch of ``step``: seeded tokens [4, 512] and their
+    next tokens as labels (the same on every rank)."""
+    import torch
+    g = torch.Generator(DEV).manual_seed(INPOD_SEED * 1000 + step)
+    toks = torch.randint(0, cfg.vocab, (INPOD_BATCH, INPOD_SEQ + 1),
+                         generator=g, device=DEV)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def spec_leaves(specs):
+    from repro_torch import tree as tree_lib
+    return tree_lib.leaves(specs, is_leaf=lambda v: isinstance(v, tuple))
+
+
+def shard_digests(tree, specs, mesh, coords=None):
+    """Digests of the leaves of a rank's shards (``coords`` None), or of
+    rank ``coords``' blocks of a whole tree."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import fsdp
+    out = []
+    for x, s in zip(tree_lib.leaves(tree), spec_leaves(specs), strict=True):
+        if coords is not None:
+            x = fsdp.shard_of(x, s, mesh, coords).contiguous()
+        out.append(digest(x))
+    return out
+
+
+def tree_bytes(*trees) -> int:
+    from repro_torch import tree as tree_lib
+    return sum(x.numel() * x.element_size() for t in trees
+               for x in tree_lib.leaves(t))
+
+
+def pinned_bytes(staging) -> int:
+    """The bytes of a ``HostStaging`` pair (0 without one)."""
+    if staging is None:
+        return 0
+    return staging.send.numel() + staging.recv.numel()
+
+
+def host_gb() -> tuple[float, float]:
+    """This process's resident host memory now (``VmRSS``) and at its
+    peak (``getrusage``'s ``ru_maxrss``), GB; pinned staging buffers count
+    in both."""
+    import resource
+    now = 0.0
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                now = int(ln.split()[1]) * 1024 / 1e9
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return now, peak
+
+
+def reckon_inpod_peak(cfg, mesh, rows, seq, total=None) -> dict:
+    """Phase 29's peak device bytes a rank, reckoned from the code before
+    the run (PERF.md). Resident: the shards' bf16 parameters and f32
+    AdamW moments (``fsdp.shard_bytes``) and, in a consensus run, the f32
+    lam and theta_bar_prev slabs (8 B an element of [1, total / S]). The
+    local step's transient: the bf16 gradient shards; the embedding and LM
+    head gathered whole and the head's whole gradient (4 x 2 B x vocab x
+    d); this model rank's experts of the layer gathered and their gradient
+    (2 x 2 B); three f32 logit-sized tensors of its rows. The round's
+    (29b): the larger of the pack (the whole tree gathered and the packed
+    row, 2 x 2 B an element) and the probes (the own slab and the received
+    one, 2 B an element of [1, total / S] each; the gathered payload, 2 B
+    an element; three f32 logit-sized tensors). ``whole`` is the replicated
+    layout: the node's parameters and moments whole on every rank (10 B a
+    parameter), with the same slabs and transients besides."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    n = model.param_count()
+    sb = fsdp.shard_bytes(model, mesh)
+    logits = 3 * 4 * rows * seq * cfg.vocab
+    experts = cfg.n_layers * 3 * cfg.moe.num_experts * cfg.d_model \
+        * cfg.moe.expert_d_ff
+    local = sb["params"] + 4 * 2 * cfg.vocab * cfg.d_model \
+        + 2 * 2 * experts // (cfg.n_layers * mesh.model) + logits
+    rnd, slabs = 0, 0
+    if total is not None:
+        slabs = 8 * (total // mesh.size)
+        rnd = max(2 * 2 * total,
+                  2 * 2 * (total // mesh.size) + 2 * total + logits)
+    resident = sb["total"] + slabs
+    return dict(resident=resident, local=local, round=rnd,
+                peak=resident + max(local, rnd),
+                whole=10 * n + slabs + max(local, rnd))
+
+
+def inpod_train(cfg, mesh):
+    """29a on ``mesh`` (the one-process mesh, or a rank's): ``make_train_fns``
+    drawn from the seed, ``INPOD_TRAIN_STEPS`` steps of ``inpod_batch``.
+    With ``mesh.stats`` None nothing synchronises inside a step, which is
+    timed alone; with stats on, each step's drops by shard and its
+    gathers', reduce-scatters' and all-to-alls' seconds (each between two
+    synchronisations of the device, which slow the step) are recorded too.
+    Returns the losses, grad norms, each step's seconds, the state's bytes
+    between steps and the peak, the drops and collectives with stats on,
+    and the state."""
+    import torch
+    from repro_torch.launch.steps import make_train_fns
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    model = build_model(cfg)
+    init, step, _, _ = make_train_fns(model, mesh, AdamWConfig(lr=INPOD_LR))
+    torch.cuda.reset_peak_memory_stats()
+    state = init(torch.Generator(DEV).manual_seed(INPOD_SEED), DEV)
+    st = mesh.stats
+    out = dict(loss=[], grad_norm=[], dropped=[], seconds=[], coll=[],
+               state_bytes=[])
+    for s in range(INPOD_TRAIN_STEPS):
+        batch = inpod_batch(cfg, s)
+        torch.cuda.synchronize()
+        out["state_bytes"].append(tree_bytes(state.params, state.opt.m,
+                                             state.opt.v))
+        if st is not None:
+            st.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if st is None:
+            continue
+        # each shard's drops summed over the layers: a rank records its
+        # own shard's, the one process every shard's (data index major)
+        per = {}
+        for n, d in enumerate(st.dropped):
+            for k, v in enumerate(d.tolist()):
+                coords = (n // cfg.n_layers, k) if mesh.local \
+                    else tuple(mesh.coords)
+                per[f"{coords[0]}{coords[1]}"] = per.get(
+                    f"{coords[0]}{coords[1]}", 0) + v
+        out["dropped"].append(per)
+        out["coll"].append(coll_seconds(st))
+    torch.cuda.synchronize()
+    out["state_bytes"].append(tree_bytes(state.params, state.opt.m,
+                                         state.opt.v))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["state"] = state
+    return out
+
+
+def coll_seconds(st) -> dict:
+    """A ``MeshStats``' seconds and calls of each kind of collective."""
+    out = {}
+    for k, v in st.seconds.items():
+        out[f"{k}_s"], out[f"{k}_calls"] = v, st.calls[k]
+    return out
+
+
+def inpod_timed_train(cfg, mesh):
+    """29a on a rank's ``mesh`` (its stats on): once with the stats, for
+    the drops and the collectives' seconds, then again from the same seed
+    with none, timed; the two runs' losses and grad norms must be equal.
+    Returns the timed run's numbers and state, with the instrumented run's
+    drops, collectives and step seconds."""
+    import torch
+    inst = inpod_train(cfg, mesh)
+    del inst["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = inpod_train(cfg, dataclasses.replace(mesh, stats=None))
+    check(out["loss"] == inst["loss"]
+          and out["grad_norm"] == inst["grad_norm"],
+          f"phase 29a rank {mesh.coords}: the timed run's losses "
+          f"{out['loss']} / grad norms {out['grad_norm']} differ from the "
+          f"instrumented run's {inst['loss']} / {inst['grad_norm']}")
+    out.update(dropped=inst["dropped"], coll=inst["coll"],
+               instrumented_s=inst["seconds"])
+    return out
+
+
+def inpod_trainer(cfg, grid):
+    """29b's consensus trainer on ``grid``, its data source and its state
+    drawn from the seed (the device's cache emptied after)."""
+    import torch
+    from repro_torch.core.penalty import PenaltyConfig
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    from repro_torch.optim.adamw import AdamWConfig
+    model = build_model(cfg)
+    tr = ConsensusTrainer(
+        model, num_nodes=INPOD_NODES, device=grid.device,
+        adamw=AdamWConfig(lr=INPOD_LR), ranks=grid,
+        consensus=ConsensusConfig(
+            penalty=PenaltyConfig(scheme="nap", eta0=0.1), topology="ring",
+            local_steps=INPOD_LOCAL, wire_codec="native",
+            shard_consensus=True))
+    data = SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, seq_len=INPOD_CONS_SEQ, batch_per_node=4,
+        num_nodes=INPOD_NODES, seed=INPOD_SEED), device=DEV,
+        nodes=(grid.node_lo, grid.node_hi))
+    params = model.init(torch.Generator(DEV).manual_seed(INPOD_SEED), DEV)
+    state = tr.init_state(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tr, data, state
+
+
+def inpod_cons_stats(cfg, grid):
+    """29b's first local step on a rank's ``grid``, with its mesh's stats
+    on: the in-pod gathers', reduce-scatters' and all-to-alls' seconds
+    (each between two synchronisations of the device) and the step's
+    seconds and loss, which must equal the timed run's."""
+    import torch
+    from repro_torch.distributed import MeshStats
+    stats = MeshStats()
+    grid = dataclasses.replace(grid, mesh=dataclasses.replace(
+        grid.mesh, stats=stats))
+    tr, data, state = inpod_trainer(cfg, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = tr.train_step(state, data.batch(0))
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, loss=float(m["loss"]),
+               coll=coll_seconds(stats))
+    del tr, data, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def inpod_cons(cfg, grid):
+    """29b on ``grid`` (``trivial_grid(2, shards=2, mesh=(1, 2))`` or a
+    rank's, with no stats): the consensus trainer, J 2 ring, nap, native
+    wire, 4 steps of 4 x ``INPOD_CONS_SEQ`` tokens a node with a round
+    after every second, every counter from 0 first. Each step and round
+    timed between two synchronisations (nothing synchronises inside); the
+    round kernel's device time by CUDA events hooked on its launch.
+    Returns the metrics, seconds, launches and the state."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    tr, data, state = inpod_trainer(cfg, grid)
+    launch, timed = ops._cu.launch, []
+
+    def timed_launch(theta, lam, bar_prev, wires, scales, e_sym, *rest,
+                     **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        bound = round_bound(theta, lam, bar_prev, wires, scales, e_sym,
+                            rest[3])[0]
+        a.record()
+        res = launch(theta, lam, bar_prev, wires, scales, e_sym, *rest, **kw)
+        b.record()
+        timed.append((a, b, bound))
+        return res
+
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    out = dict(loss=[], r_max=[], eta=[], step_s=[], round_s=[],
+               state_bytes=[])
+    ops._cu.launch = timed_launch
+    try:
+        for s in range(INPOD_CONS_STEPS):
+            torch.cuda.synchronize()
+            out["state_bytes"].append(tree_bytes(state.params, state.opt.m,
+                                                 state.opt.v))
+            t0 = time.perf_counter()
+            state, m = tr.train_step(state, data.batch(s))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["loss"].append(float(m["loss"]))
+            if tr.should_sync(s):
+                t0 = time.perf_counter()
+                state, cm = tr.consensus_step(state,
+                                              data.batch(10**6 + s))
+                torch.cuda.synchronize()
+                out["round_s"].append(time.perf_counter() - t0)
+                out["r_max"].append(float(cm["r_max"]))
+                out["eta"].append(float(cm["eta_mean"]))
+    finally:
+        ops._cu.launch = launch
+    torch.cuda.synchronize()
+    out["counts"] = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+                     for obj, attr in all_counters()}
+    out["kernel_ms"] = [a.elapsed_time(b) for a, b, _ in timed]
+    out["bound_ms"] = timed[0][2] if timed else None
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["total"] = tr.layout.total
+    out["state"], out["trainer"] = state, tr
+    return out
+
+
+def inpod_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of phase 29 (``chip_smoke.py --ranks-worker SPEC`` with
+    ``"inpod"`` in the spec): 29a on its data 2 x model 2 mesh
+    (``init_mesh``, gloo on the card), then 29b on the same 4 ranks
+    (``init_ranks`` with ``mesh=(1, 2)``: pod ``r // 2``); its digests and
+    numbers into ``rank<r>.json``."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import MeshStats, fsdp
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.launch.mesh import init_mesh, init_ranks
+    from repro_torch.models import build_model
+    mesh = init_mesh(*INPOD_TRAIN_MESH, DEV, backend="gloo",
+                     stats=MeshStats())
+    a = inpod_timed_train(cfg, mesh)
+    specs, _ = fsdp.specs_for(build_model(cfg), mesh)
+    st = a.pop("state")
+    a.update(coords=list(mesh.coords),
+             params=shard_digests(st.params, specs, mesh),
+             m=shard_digests(st.opt.m, specs, mesh),
+             v=shard_digests(st.opt.v, specs, mesh),
+             reckoned=fsdp.shard_bytes(build_model(cfg), mesh)["total"],
+             staging=pinned_bytes(mesh.staging), host_gb=host_gb())
+    # 29b runs on the same process group: let go of 29a's mesh and its
+    # pinned staging first
+    del st, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    grid = init_ranks(INPOD_NODES, DEV, backend="gloo", shard_consensus=True,
+                      mesh=INPOD_CONS_MESH)
+    try:
+        probe = inpod_cons_stats(cfg, grid)
+        b = inpod_cons(cfg, grid)
+        check(b["loss"][0] == probe["loss"], f"phase 29b rank {rank}: the "
+              f"timed run's first loss {b['loss'][0]} differs from the "
+              f"instrumented step's {probe['loss']}")
+        b.update(coll=probe["coll"], instrumented_s=probe["seconds"])
+        st, tr = b.pop("state"), b.pop("trainer")
+        first = lambda t: tree_lib.tree_map(lambda x: x[0], t)
+        b.update(pod=grid.pod, shard=grid.shard,
+                 coords=list(grid.mesh.coords),
+                 params=shard_digests(first(st.params), tr.specs, grid.mesh),
+                 m=shard_digests(first(st.opt.m), tr.specs, grid.mesh),
+                 lam=digest(st.lam[0]), bar=digest(st.theta_bar_prev[0]),
+                 eta_digest=digest(st.penalty.eta),
+                 reckoned=fsdp.shard_bytes(build_model(cfg),
+                                           grid.mesh)["total"],
+                 staging=tr.staging_bytes()
+                 + pinned_bytes(grid.mesh.staging), host_gb=host_gb())
+        del st, tr
+    finally:
+        grid.close()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "a": a, "b": b}, f)
+    return 0
+
+
+def inpod_slice(card_line):
+    """Phase 29: the in-pod sharded local step, one process against 4 gloo
+    ranks sharing the card, (a) through ``make_train_fns`` and (b) through
+    the consensus trainer. Returns the round kernel's launches and times."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import (MeshStats, fsdp, local_mesh,
+                                         trivial_grid)
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.models import build_model
+    cfg = zoo_config(INPOD_ARCH, INPOD_LAYERS)
+    model = build_model(cfg)
+    count = model.param_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_a = local_mesh(*INPOD_TRAIN_MESH, DEV, stats=MeshStats())
+    a = inpod_train(cfg, mesh_a)
+    specs_a, _ = fsdp.specs_for(model, mesh_a)
+    st = a.pop("state")
+    want_a = {c: {name: shard_digests(t, specs_a, mesh_a, c) for name, t in
+                  (("params", st.params), ("m", st.opt.m),
+                   ("v", st.opt.v))} for c in mesh_a.all_coords()}
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(map(math.isfinite, a["loss"] + a["grad_norm"])),
+          f"phase 29a: losses {a['loss']}, grad norms {a['grad_norm']}")
+    t1 = time.perf_counter()
+    b = inpod_cons(cfg, trivial_grid(INPOD_NODES, DEV,
+                                     mesh=INPOD_CONS_MESH))
+    st, tr = b.pop("state"), b.pop("trainer")
+    n_rounds = INPOD_CONS_STEPS // INPOD_LOCAL
+    want_counts = dict.fromkeys(b["counts"], 0)
+    want_counts["consensus_round.launches"] = n_rounds
+    check(b["counts"] == want_counts, f"phase 29b: one process's launches "
+          f"{b['counts']}, want {want_counts}")
+    check(all(map(math.isfinite, b["loss"] + b["r_max"] + b["eta"])),
+          f"phase 29b: losses {b['loss']}, r_max {b['r_max']}, eta "
+          f"{b['eta']}")
+    gm, s_n = tr.mesh, tr.mesh.size
+    want_b = {}
+    for pod in range(INPOD_NODES):
+        node = {name: tree_lib.tree_map(lambda x: x[pod], t)
+                for name, t in (("params", st.params), ("m", st.opt.m))}
+        for sh in range(s_n):
+            cols = tr.slayout.columns(sh)
+            want_b[(pod, sh)] = dict(
+                {name: shard_digests(t, tr.specs, gm, divmod(sh, gm.model))
+                 for name, t in node.items()},
+                lam=digest(st.lam[pod, cols]),
+                bar=digest(st.theta_bar_prev[pod, cols]))
+    eta_digest = digest(st.penalty.eta)
+    total = b["total"]
+    del st, tr, node
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the earlier phases' pinned host buffers stay cached by PyTorch's host
+    # allocator (phase 18's 28 GB among them): give them back before four
+    # ranks stage through pinned memory of their own
+    host_before = host_gb()
+    empty_host_cache()
+    host_after = host_gb()
+    t2 = time.perf_counter()
+    world = INPOD_TRAIN_MESH[0] * INPOD_TRAIN_MESH[1]
+    ranks, seconds = launch_ranks("phase 29", world, [], INPOD_LAYERS,
+                                  arch=INPOD_ARCH, inpod=True)
+    rank_mesh_a = local_mesh(*INPOD_TRAIN_MESH, DEV)
+    rank_mesh_b = local_mesh(*INPOD_CONS_MESH, DEV)
+    reck_a = reckon_inpod_peak(cfg, rank_mesh_a,
+                               INPOD_BATCH // INPOD_TRAIN_MESH[0], INPOD_SEQ)
+    reck_b = reckon_inpod_peak(cfg, rank_mesh_b, 4, INPOD_CONS_SEQ, total)
+    for r in ranks:
+        ra, rb = r["a"], r["b"]
+        c = tuple(ra["coords"])
+        tag = f"phase 29a rank {r['rank']} {c}"
+        check(ra["loss"] == a["loss"] and ra["grad_norm"] == a["grad_norm"],
+              f"{tag}: losses {ra['loss']} / grad norms {ra['grad_norm']} "
+              f"differ from the one process's {a['loss']} / "
+              f"{a['grad_norm']}")
+        for name in ("params", "m", "v"):
+            check(ra[name] == want_a[c][name], f"{tag}: {name} digests "
+                  "differ from the one process's")
+        key = f"{c[0]}{c[1]}"
+        check([d[key] for d in ra["dropped"]] ==
+              [d[key] for d in a["dropped"]],
+              f"{tag}: drops {ra['dropped']} differ from the one process's "
+              f"{a['dropped']}")
+        check(len(set(ra["state_bytes"])) == 1
+              and ra["state_bytes"][0] == ra["reckoned"],
+              f"{tag}: parameter and moment bytes {ra['state_bytes']}, "
+              f"reckoned {ra['reckoned']}")
+        tag = f"phase 29b rank {r['rank']} (pod {rb['pod']}, slab " \
+              f"{rb['shard']})"
+        for name in ("loss", "r_max", "eta"):
+            check(rb[name] == b[name], f"{tag}: {name} {rb[name]} differ "
+                  f"from the one process's {b[name]}")
+        w = want_b[(rb["pod"], rb["shard"])]
+        for name in ("params", "m", "lam", "bar"):
+            check(rb[name] == w[name], f"{tag}: {name} digests differ from "
+                  "the one process's")
+        check(rb["eta_digest"] == eta_digest, f"{tag}: eta differs")
+        want_r = dict.fromkeys(rb["counts"], 0)
+        want_r["consensus_round.launches"] = n_rounds
+        check(rb["counts"] == want_r, f"{tag}: launches {rb['counts']}, "
+              f"want {want_r}")
+        check(len(set(rb["state_bytes"])) == 1
+              and rb["state_bytes"][0] == rb["reckoned"],
+              f"{tag}: parameter and moment bytes {rb['state_bytes']}, "
+              f"reckoned {rb['reckoned']}")
+    gb = 1e9
+    print(f"phase 29: moonshot-v1-16b-a3b at full width, {cfg.n_layers} "
+          f"layer, {count / 1e9:.3f} B parameters a node, bf16; "
+          f"{time.perf_counter() - t0:.1f} s (one process 29a "
+          f"{t1 - t0:.1f} s, 29b {t2 - t1:.1f} s, ranks {seconds:.1f} s) "
+          f"[{card_line}]", flush=True)
+    print(f"phase 29a one process (local_mesh{INPOD_TRAIN_MESH}): losses "
+          f"{a['loss']}, grad norms {a['grad_norm']}, drops by step and "
+          f"shard {a['dropped']} (of {INPOD_BATCH // INPOD_TRAIN_MESH[0] * INPOD_SEQ // INPOD_TRAIN_MESH[1] * cfg.moe.top_k} "
+          f"pairs a shard a layer), steps (stats on) "
+          + " ".join(f"{x:.3f}" for x in a["seconds"])
+          + f" s, state {a['state_bytes'][0] / gb:.2f} GB, peak "
+          f"{a['peak_gb']:.2f} GB [{card_line}]", flush=True)
+    for r in ranks:
+        ra = r["a"]
+        print(f"phase 29a rank {r['rank']} {tuple(ra['coords'])}: state "
+              f"{ra['state_bytes'][0] / gb:.3f} GB (reckoned "
+              f"{ra['reckoned'] / gb:.3f}; whole on every rank: "
+              f"{10 * count / gb:.2f}), peak {ra['peak_gb']:.2f} GB "
+              f"(reckoned {reck_a['peak'] / gb:.2f}; the replicated layout "
+              f"{reck_a['whole'] / gb:.2f}); steps "
+              + " ".join(f"{x:.3f}" for x in ra["seconds"])
+              + " s (with stats on "
+              + " ".join(f"{x:.3f}" for x in ra["instrumented_s"])
+              + " s); with stats on, a step's gathers "
+              + " ".join(f"{x['gather_s']:.3f}" for x in ra["coll"])
+              + " s, reduce-scatters " + " ".join(
+                  f"{x['rs_s']:.3f}" for x in ra["coll"])
+              + " s, all-to-alls " + " ".join(
+                  f"{x['a2a_s']:.3f}" for x in ra["coll"])
+              + f" s (calls {ra['coll'][0]['gather_calls']}, "
+              f"{ra['coll'][0]['rs_calls']}, {ra['coll'][0]['a2a_calls']}; "
+              f"staged gloo, synchronized) [{card_line}]", flush=True)
+    print(f"phase 29b one process (trivial_grid({INPOD_NODES}, "
+          f"mesh={INPOD_CONS_MESH})): losses {b['loss']}, r_max "
+          f"{b['r_max']}, eta {b['eta']}; steps "
+          + " ".join(f"{x:.3f}" for x in b["step_s"]) + " s, rounds "
+          + " ".join(f"{x:.3f}" for x in b["round_s"])
+          + " s; consensus_round " + " ".join(
+              f"{x:.3f}" for x in b["kernel_ms"])
+          + f" ms, bound {b['bound_ms']:.3f} ms; peak {b['peak_gb']:.2f} GB "
+          f"[{card_line}]", flush=True)
+    for r in ranks:
+        rb = r["b"]
+        print(f"phase 29b rank {r['rank']} (pod {rb['pod']}, slab "
+              f"{rb['shard']}, {tuple(rb['coords'])}): state "
+              f"{rb['state_bytes'][0] / gb:.3f} GB (reckoned "
+              f"{rb['reckoned'] / gb:.3f}; the replicated layout "
+              f"{10 * count / gb:.2f}), slabs "
+              f"{8 * (total // 2) / gb:.3f} GB, peak {rb['peak_gb']:.2f} GB "
+              f"(reckoned {reck_b['peak'] / gb:.2f}; the replicated layout "
+              f"{reck_b['whole'] / gb:.2f}); steps "
+              + " ".join(f"{x:.3f}" for x in rb["step_s"]) + " s, rounds "
+              + " ".join(f"{x:.3f}" for x in rb["round_s"])
+              + f" s; its first step again with stats on "
+              f"{rb['instrumented_s']:.3f} s: gathers "
+              f"{rb['coll']['gather_s']:.3f} s, reduce-scatters "
+              f"{rb['coll']['rs_s']:.3f} s, all-to-alls "
+              f"{rb['coll']['a2a_s']:.3f} s (calls "
+              f"{rb['coll']['gather_calls']}, {rb['coll']['rs_calls']}, "
+              f"{rb['coll']['a2a_calls']}; staged gloo, synchronized)"
+              + "; consensus_round " + " ".join(
+                  f"{x:.3f}" for x in rb["kernel_ms"])
+              + f" ms (bound {rb['bound_ms']:.3f} ms); pinned staging "
+              f"{rb['staging'] / gb:.2f} GB [{card_line}]", flush=True)
+    print(f"phase 29 host memory: the main process {host_before[0]:.2f} GB "
+          f"resident before releasing the cached pinned blocks, "
+          f"{host_after[0]:.2f} after (peak so far {host_after[1]:.2f}); "
+          "the ranks' peaks " + " ".join(
+              f"{max(r['a']['host_gb'][1], r['b']['host_gb'][1]):.2f}"
+              for r in ranks) + " GB, their pinned staging after 29a "
+          + " ".join(f"{r['a']['staging'] / 1e9:.2f}" for r in ranks)
+          + " GB and after 29b " + " ".join(
+              f"{r['b']['staging'] / 1e9:.2f}" for r in ranks) + " GB",
+          flush=True)
+    print("phase 29: NCCL across cards has not run: the ranks share one "
+          "card, over gloo", flush=True)
+    rank_ms = [x for r in ranks for x in r["b"]["kernel_ms"]]
+    return dict(launches=n_rounds + sum(
+        r["b"]["counts"]["consensus_round.launches"] for r in ranks),
+        one_process_ms=float(np.median(b["kernel_ms"])),
+        one_process_bound_ms=b["bound_ms"],
+        rank_ms=float(np.median(rank_ms)),
+        rank_bound_ms=ranks[0]["b"]["bound_ms"],
+        train_step_s=[r["a"]["seconds"] for r in ranks],
+        round_s=[r["b"]["round_s"] for r in ranks],
+        peak_gb=[max(r["a"]["peak_gb"], r["b"]["peak_gb"]) for r in ranks])
 
 
 def build_phase():
@@ -4738,6 +5336,12 @@ def main() -> int:
     print(f"ep slice: phase 28 {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # -- 29. the in-pod sharded local step: one process, then 4 gloo ranks -
+    t0 = time.perf_counter()
+    inpod = inpod_slice(card_line)
+    print(f"inpod slice: phase 29 {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
     t0 = time.perf_counter()
     paper_phases(card_line)
@@ -4755,8 +5359,12 @@ def main() -> int:
                          z["launches"] for z in ztrain.values())
                      + sharded["native"]["launches"]
                      + pipe["sync native"]["launches"]
-                     + pipe["sync native depth 1"]["launches"],
+                     + pipe["sync native depth 1"]["launches"]
+                     + inpod["launches"],
                      full_numbers, in_round_ms=static["in_round_ms"],
+                     inpod={k: inpod[k] for k in (
+                         "launches", "one_process_ms", "one_process_bound_ms",
+                         "rank_ms", "rank_bound_ms")},
                      nccl1_launches=nccl1["launches"],
                      sharded=sharded["native"],
                      pipelined_ranks=pipe["sync native"],

@@ -65,6 +65,18 @@ def segments(node_lo: int, per: int, off: int, j: int
     return out
 
 
+def empty_host_cache() -> None:
+    """Give the free pinned blocks that PyTorch's caching host allocator
+    keeps back to CUDA (a freed pinned buffer stays cached for
+    reuse, so a buffer grown step by step would hold every size it had)."""
+    if not torch.cuda.is_available():
+        return
+    fn = getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                 None) or getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+
+
 class HostStaging:
     """One reused pair of pinned host byte buffers, each grown on demand,
     for what a rank sends and receives in one exchange or gather."""
@@ -78,12 +90,18 @@ class HostStaging:
         """At least ``nbytes`` to send and ``recv_nbytes`` (default
         ``nbytes``) to receive."""
         recv_nbytes = nbytes if recv_nbytes is None else recv_nbytes
-        if self.send.numel() < nbytes:
+        grow_send = self.send.numel() < nbytes
+        grow_recv = self.recv.numel() < recv_nbytes
+        if grow_send:
             self.send = None                        # free before regrowing
+        if grow_recv:
+            self.recv = None
+        if grow_send or grow_recv:
+            empty_host_cache()
+        if grow_send:
             self.send = torch.empty(nbytes, dtype=torch.uint8,
                                     pin_memory=True)
-        if self.recv.numel() < recv_nbytes:
-            self.recv = None
+        if grow_recv:
             self.recv = torch.empty(recv_nbytes, dtype=torch.uint8,
                                     pin_memory=True)
         return self.send, self.recv

@@ -7,6 +7,13 @@ Without sharding, rank r of R holds the contiguous block of nodes
 holds node ``r // S`` (its pod) and slab ``r % S`` of that node's flat
 rows, as the reference's in-pod devices each hold a slab of their pod's
 node.
+
+With an in-pod mesh (``RankGrid.mesh``, the reference's ``data`` and
+``model`` axes inside each pod), the S = data * model ranks of a pod also
+form a ``data x model`` grid: rank r is pod ``r // S``, at ``((r % S) //
+model, (r % S) % model)``, and holds its shards of the node's parameters
+and moments (``distributed.fsdp``). ``trivial_grid(J, shards=S,
+mesh=(data, model))`` is one process computing such a run whole.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import Mesh, local_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +55,7 @@ class RankGrid:
     shard: int = 0                  # this rank's slab, in [0, S)
     inpod_group: Any = None         # the S ranks of this rank's node
     shard_group: Any = None         # the J ranks holding slab ``shard``
+    mesh: Mesh | None = None        # the pod's data x model mesh, if any
 
     @property
     def pod(self) -> int:
@@ -93,9 +103,22 @@ class RankGrid:
 
 
 def trivial_grid(num_nodes: int, device: torch.device | str,
-                 shards: int = 1) -> RankGrid:
+                 shards: int = 1, mesh: tuple[int, int] | None = None
+                 ) -> RankGrid:
     """One process holding every node (and, with ``shards`` S > 1, every
-    slab of the S-way sharded layout), no process group."""
+    slab of the S-way sharded layout), no process group. ``mesh`` ``(data,
+    model)`` (S = data * model) is the one-process counterpart of the
+    pods' in-pod mesh: every node's parameters whole, each local step
+    computed shard by shard (``local_mesh``)."""
+    dev = torch.device(device)
+    pod_mesh = None
+    if mesh is not None:
+        data, model = (int(v) for v in mesh)
+        if shards not in (1, data * model):
+            raise ValueError(f"a data {data} x model {model} mesh has "
+                             f"{data * model} shards, not {shards}")
+        shards = data * model
+        pod_mesh = local_mesh(data, model, dev)
     return RankGrid(world=1, rank=0, local_rank=0, nodes_per_rank=num_nodes,
-                    node_lo=0, node_hi=num_nodes, device=torch.device(device),
-                    shards=int(shards))
+                    node_lo=0, node_hi=num_nodes, device=dev,
+                    shards=int(shards), mesh=pod_mesh)

@@ -22,8 +22,15 @@ exchange then stages its rows through host memory. NCCL does not run two
 ranks on one device, so that combination raises before any NCCL call, and
 nothing picks another backend or device on its own.
 
-``init_mesh`` does the same for the expert-parallel paths' ``data x
-model`` mesh (``distributed.sharding.Mesh``).
+With ``mesh=(data, model)`` as well (the reference's ``--mesh``: the
+in-pod axes), the S = data * model ranks of each pod form a ``data x
+model`` mesh (``RankGrid.mesh``): rank r is pod ``r // S`` at ``((r % S)
+// model, (r % S) % model)``, with the process groups of its pod's data
+and model axes, and holds its shards of the node's parameters and moments.
+
+``init_mesh`` does the same for a plain ``data x model`` mesh
+(``distributed.sharding.Mesh``: expert-parallel serving and
+``launch.steps.make_train_fns``).
 """
 from __future__ import annotations
 
@@ -75,7 +82,9 @@ def _join_world(world: int, device: str | torch.device, backend, init_method,
     device, backend)``. The rank and local rank come from the arguments
     or else torchrun's environment; ``backend`` None follows the device;
     the backend is checked before any NCCL call; a rank on a card runs on
-    ``cuda:{local_rank % cards}``."""
+    ``cuda:{local_rank % cards}``. A process group already up over the
+    same ranks (an earlier grid's, left open) is reused: the new grid's
+    subgroups are made on it."""
     env = os.environ
     rank = int(rank if rank is not None else env.get("RANK", "0"))
     local_rank = int(local_rank if local_rank is not None
@@ -91,18 +100,27 @@ def _join_world(world: int, device: str | torch.device, backend, init_method,
         torch.cuda.set_device(dev)
     else:
         dev = resolve_device(dev)
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank(), dist.get_backend()) \
+                != (world, rank, backend):
+            raise ValueError(
+                f"a process group of {dist.get_world_size()} ranks "
+                f"({dist.get_backend()}) is up; this grid wants {world} "
+                f"({backend})")
+        return rank, local_rank, dev, backend
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world, rank=rank)
     return rank, local_rank, dev, backend
 
 
-def _grid_groups(rows: int, cols: int) -> tuple[list, list]:
-    """The process groups of a ``rows x cols`` grid of ranks (rank ``r *
-    cols + c`` at ``(r, c)``): each row's, then each column's. Every rank
-    makes every group, in the same order."""
-    row_groups = [dist.new_group([r * cols + c for c in range(cols)])
+def _grid_groups(rows: int, cols: int, base: int = 0
+                 ) -> tuple[list, list]:
+    """The process groups of a ``rows x cols`` grid of ranks (rank ``base
+    + r * cols + c`` at ``(r, c)``): each row's, then each column's. Every
+    rank makes every group, in the same order."""
+    row_groups = [dist.new_group([base + r * cols + c for c in range(cols)])
                   for r in range(rows)]
-    col_groups = [dist.new_group([r * cols + c for r in range(rows)])
+    col_groups = [dist.new_group([base + r * cols + c for r in range(rows)])
                   for c in range(cols)]
     return row_groups, col_groups
 
@@ -110,8 +128,8 @@ def _grid_groups(rows: int, cols: int) -> tuple[list, list]:
 def init_ranks(num_nodes: int, device: str | torch.device, *,
                backend: str | None = None, init_method: str | None = None,
                world_size: int | None = None, rank: int | None = None,
-               local_rank: int | None = None, shard_consensus: bool = False
-               ) -> RankGrid:
+               local_rank: int | None = None, shard_consensus: bool = False,
+               mesh: tuple[int, int] | None = None) -> RankGrid:
     """This process's ``RankGrid`` for ``num_nodes`` ADMM nodes.
 
     The world size, rank and local rank come from the arguments or else
@@ -126,8 +144,28 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     each node S = R / J ranks. (One process computes an S-way sharded run
     whole on ``trivial_grid(J, device, shards=S)``.) Every round path runs
     on every grid: sync, dynamic and async rounds, pipelined or not.
+
+    ``mesh`` ``(data, model)``: the pods' in-pod mesh, S = data * model
+    (needs ``shard_consensus``; a world of J * S ranks, or one process,
+    which computes the run whole on ``trivial_grid(J, shards=S, mesh=)``).
     """
     world = _world_size(world_size)
+    if mesh is not None:
+        data, model = (int(v) for v in mesh)
+        if not shard_consensus:
+            raise ValueError(
+                "an in-pod mesh needs --shard-consensus: the reference's "
+                "replicated-in-pod consensus state with sharded parameters "
+                "is not ported")
+        if world > 1 and world != num_nodes * data * model:
+            raise ValueError(
+                f"a data {data} x model {model} in-pod mesh over "
+                f"{num_nodes} nodes needs {num_nodes * data * model} ranks, "
+                f"not {world}")
+        if world == 1 and backend is None:
+            return trivial_grid(num_nodes,
+                                resolve_device(torch.device(device)),
+                                mesh=(data, model))
     n_shards = 1
     if shard_consensus and world > 1:
         if world % num_nodes:
@@ -146,11 +184,25 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     if n_shards > 1:
         pods, slabs = _grid_groups(num_nodes, n_shards)
         pod, shard = divmod(rank, n_shards)
+        pod_mesh = None
+        if mesh is not None:
+            # every rank makes every pod's axis groups, in pod order
+            axes = [_grid_groups(data, model, base=p * n_shards)
+                    for p in range(num_nodes)]
+            model_groups, data_groups = axes[pod]
+            d, m = divmod(shard, model)
+            staged = backend == "gloo" and dev.type == "cuda"
+            pod_mesh = Mesh(data=data, model=model, device=dev, coords=(d, m),
+                            backend=backend, data_group=data_groups[m],
+                            model_group=model_groups[d],
+                            staging=HostStaging() if staged else None,
+                            group=pods[pod])
         return RankGrid(world=world, rank=rank, local_rank=local_rank,
                         nodes_per_rank=1, node_lo=pod, node_hi=pod + 1,
                         device=dev, backend=backend, group=dist.group.WORLD,
                         shards=n_shards, shard=shard,
-                        inpod_group=pods[pod], shard_group=slabs[shard])
+                        inpod_group=pods[pod], shard_group=slabs[shard],
+                        mesh=pod_mesh)
     per = num_nodes // world
     return RankGrid(world=world, rank=rank, local_rank=local_rank,
                     nodes_per_rank=per, node_lo=rank * per,
@@ -174,7 +226,7 @@ def init_mesh(data: int, model: int, device: str | torch.device, *,
     rank's device is ``cuda:{local_rank}``; under gloo on a card,
     ``cuda:{local_rank % cards}``, with the exchanges staged through
     pinned host buffers. NCCL with more ranks on this host than cards
-    raises before any NCCL call. ``stats`` (an ``EPStats``) collects what
+    raises before any NCCL call. ``stats`` (an ``MeshStats``) collects what
     the expert-parallel paths report.
     """
     world = _world_size(world_size)
@@ -192,4 +244,5 @@ def init_mesh(data: int, model: int, device: str | torch.device, *,
     return Mesh(data=data, model=model, device=dev, coords=(d, m),
                 backend=backend, data_group=data_groups[m],
                 model_group=model_groups[d],
-                staging=HostStaging() if staged else None, stats=stats)
+                staging=HostStaging() if staged else None, stats=stats,
+                group=dist.group.WORLD)

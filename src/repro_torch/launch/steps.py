@@ -1,5 +1,17 @@
-"""Serve step builders over a ``(data, model)`` mesh (port of the serve half
-of ``repro/launch/steps.py``).
+"""Train and serve step builders over a ``(data, model)`` mesh (port of
+``repro/launch/steps.py``).
+
+``make_train_fns`` returns the reference's ``(init_fn, step_fn,
+abstract_state, state_shardings)``: plain AdamW training with no
+consensus, the parameters and moments of rank ``(d, m)`` its shards under
+the arch rules (``distributed.fsdp``), its local step on the rows of data
+index ``d`` of the global batch, the gradients reduce-scattered onto the
+shards (what the reference's ``grad_rs=True`` asks for: the port has no
+other way, and takes no such switch), the clip reading the pod's global
+norm. On the one-process mesh the state is the whole tree and
+the step computes every data index in turn; the ranks equal it bit for
+bit. As in the reference, it needs a mesh (``local_mesh(1, 1, device)``
+is one device's plain step, the MoE on ``moe_ref``).
 
 ``make_serve_fns`` returns the reference's pair ``(prefill_fn,
 decode_fn)``, each run under ``use_mesh``, so that the model's MoE layers
@@ -13,18 +25,94 @@ on those rows, and all-gathers the logits over the data axis. The decode
 state a rank passes holds its own rows only (``Model.init_decode_state``
 at ``global_batch / data``); the one-process mesh passes the state of
 every row, and computes each data index's rows in turn, on views of its
-rows, with the ranks' shapes. ``make_train_fns`` and
-``decode_state_specs`` (parameter and state sharding in-pod) are not
-ported.
+rows, with the ranks' shapes. The serve steps read whole parameters (on a
+rank, its experts only). ``decode_state_specs`` and serving from sharded
+parameters are not ported.
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ShapeCell
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import Mesh, use_mesh
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import DecodeState
+from repro_torch.optim import adamw as adamw_lib
+
+
+class PlainTrainState(NamedTuple):
+    params: Any                 # this rank's shards (the whole tree in
+    #                             one process)
+    opt: adamw_lib.AdamWState   # f32 moments shaped as params
+    step: torch.Tensor          # [] int32
+
+
+class LeafSharding(NamedTuple):
+    """One leaf's spec (a mesh axis, or None, per dimension) and the shape
+    of a rank's shard."""
+    spec: tuple
+    shard_shape: tuple[int, ...]
+
+
+def make_train_fns(model: Model, mesh: Mesh, acfg: adamw_lib.AdamWConfig):
+    """Returns ``(init_fn, step_fn, abstract_state, state_shardings)``.
+
+    ``init_fn(gen, device)``: the state drawn from ``gen`` (a rank's
+    shards, or the whole tree). ``step_fn(state, batch)``: one AdamW step
+    on the global ``batch`` (``tokens`` or ``embeds``, ``labels``); the
+    state is updated in place and returned with ``{"loss", "grad_norm",
+    "lr"}``. ``abstract_state()``: the whole state's shapes and dtypes
+    (tensors on the ``meta`` device). ``state_shardings()``: for every
+    leaf of the state, a ``LeafSharding`` (the step and the moments' step
+    replicated).
+    """
+    specs, gspecs = fsdp.specs_for(model, mesh)
+
+    def init_fn(gen: torch.Generator, device=None) -> PlainTrainState:
+        device = mesh.device if device is None else device
+        params = model.init(gen, device, mesh=mesh, specs=specs)
+        opt = adamw_lib.init(acfg, params)
+        return PlainTrainState(params=params, opt=opt,
+                               step=torch.zeros((), dtype=torch.int32,
+                                                device=opt.step.device))
+
+    def step_fn(state: PlainTrainState, batch: dict):
+        loss, grads = fsdp.loss_and_grads(model, mesh, state.params, batch,
+                                          gspecs)
+        _, opt, m = adamw_lib.update(acfg, state.opt, state.params, grads,
+                                     mesh=mesh, specs=specs)
+        del grads
+        new = PlainTrainState(params=state.params, opt=opt,
+                              step=state.step + 1)
+        return new, {"loss": loss, **m}
+
+    def abstract_state() -> PlainTrainState:
+        from repro_torch.models.params import is_def
+        ap = tree_lib.tree_map(
+            lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"),
+            model.param_defs(), is_leaf=is_def)
+        f32 = lambda x: torch.empty(x.shape, dtype=torch.float32,
+                                    device="meta")
+        step = torch.empty((), dtype=torch.int32, device="meta")
+        return PlainTrainState(
+            params=ap, opt=adamw_lib.AdamWState(
+                step=step, m=tree_lib.tree_map(f32, ap),
+                v=tree_lib.tree_map(f32, ap)), step=step)
+
+    def state_shardings() -> PlainTrainState:
+        from repro_torch.models.params import is_def
+        rep = LeafSharding((), ())
+        sh = tree_lib.tree_map(
+            lambda d, s: LeafSharding(s, fsdp.shard_shape(d.shape, s, mesh)),
+            model.param_defs(), specs, is_leaf=is_def)
+        return PlainTrainState(params=sh, opt=adamw_lib.AdamWState(
+            step=rep, m=sh, v=sh), step=rep)
+
+    return init_fn, step_fn, abstract_state, state_shardings
 
 
 def _data_shards(mesh: Mesh | None) -> list[tuple[int, int]]:
@@ -35,15 +123,6 @@ def _data_shards(mesh: Mesh | None) -> list[tuple[int, int]]:
     return [(d, mesh.data) for d in mesh.shards("data")]
 
 
-def _rows(t: torch.Tensor | None, d: int, n: int, dim: int = 0):
-    """Data index ``d``'s rows of ``t`` (``n`` indices along ``dim``)."""
-    if t is None or n == 1:
-        return t
-    if t.shape[dim] % n:
-        raise ValueError(f"serve: batch {t.shape[dim]} does not split over "
-                         f"{n} data ranks")
-    size = t.shape[dim] // n
-    return t.narrow(dim, d * size, size)
 
 
 def _join(mesh: Mesh | None, outs: list[torch.Tensor]) -> torch.Tensor:
@@ -72,7 +151,7 @@ def make_serve_fns(model: Model, mesh: Mesh | None, cell: ShapeCell):
     def prefill_fn(params, batch, use_kernel: bool = False):
         outs = []
         for d, n in _data_shards(mesh):
-            sub = {k: _rows(v, d, n) for k, v in batch.items()}
+            sub = {k: fsdp.rows(v, d, n) for k, v in batch.items()}
             with use_mesh(mesh):
                 outs.append(model.prefill(params, sub,
                                           use_kernel=use_kernel))
@@ -85,14 +164,14 @@ def make_serve_fns(model: Model, mesh: Mesh | None, cell: ShapeCell):
             sub = state
             if local:           # this index's rows: leaves [L, B, ...]
                 sub = state._replace(cache={
-                    name: type(entry)(*(_rows(t, d, n, 1) if t.dim() > 1
+                    name: type(entry)(*(fsdp.rows(t, d, n, 1) if t.dim() > 1
                                         else t for t in entry))
                     for name, entry in state.cache.items()})
             with use_mesh(mesh):
                 logits, _ = model.decode_step(
-                    params, sub, _rows(inputs.get("token"), d, n),
+                    params, sub, fsdp.rows(inputs.get("token"), d, n),
                     max_len=cell.seq_len,
-                    embed_in=_rows(inputs.get("embed_in"), d, n))
+                    embed_in=fsdp.rows(inputs.get("embed_in"), d, n))
             outs.append(logits)
         return _join(mesh, outs), state._replace(pos=state.pos + 1)
 

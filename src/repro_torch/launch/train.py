@@ -10,7 +10,8 @@ J. The backend follows the device (NCCL on cards, gloo on the CPU);
 ``--dist-backend gloo`` on ``cuda`` runs ranks that share one card, their
 rows staged through host memory. With ``--shard-consensus`` under
 torchrun, R = J * S ranks: the S ranks of each node hold its parameters
-whole and one slab each of its flat consensus rows (S = R / J). ``--async``
+whole (with ``--mesh debug``, their shards) and one slab each of its flat
+consensus rows (S = R / J). ``--async``
 and ``--pipeline-offsets`` run on every such grid: every rank builds the
 same deterministic round clock and executor. Only rank 0 prints and
 writes the ``--obs-dir`` artifacts: the rings are replicated, so its drain
@@ -57,10 +58,21 @@ repro_torch.obs.dashboard DIR`` renders), and ``--profile-rounds N`` writes
 a torch.profiler Chrome trace of the first N rounds under
 ``<obs-dir>/profile/``.
 
-The ranks come from torchrun, not from a ``--mesh`` flag. The checkpoint
-flags come with their slice; until then argparse rejects them. The
-reference's ``--no-async-collectives`` only sets XLA scheduler flags and
-has no counterpart here: argparse rejects it too.
+``--mesh`` is the reference's flag, for the in-pod axes: the reference
+lays J pods x ``data`` x ``model`` devices on one mesh (``debug``: pod 2 x
+data 2 x model 2, ``make_debug_mesh(multi_pod=True)``), the port starts
+its ranks with torchrun and ``--mesh`` splits each node's S = R / J ranks
+into ``data x model``: ``debug`` is data 2 x model 2 (with
+``--shard-consensus``, R = 4 J ranks, or one process computing the run
+whole), each rank holding its shards of the node's parameters and moments
+and running the local step and the probes under the pod's mesh
+(``distributed.fsdp``); ``none`` (the default here) keeps the node's
+parameters whole on each of its ranks; ``prod`` (16 x 16 a pod) is
+refused. The number of pods is ``--nodes`` (the reference's mesh fixes it
+at 2; its ``--multi-pod`` has no counterpart). The checkpoint flags come
+with their slice; until then argparse rejects them. The reference's
+``--no-async-collectives`` only sets XLA scheduler flags and has no
+counterpart here: argparse rejects it too.
 """
 from __future__ import annotations
 
@@ -112,8 +124,15 @@ def parse_args(argv=None):
     ap.add_argument("--shard-consensus", action="store_true",
                     help="shard the flat consensus state (lam, "
                          "theta_bar_prev, the wire) over the S = R / J ranks "
-                         "of each node under torchrun; the local step stays "
-                         "whole on each of them")
+                         "of each node under torchrun; without --mesh the "
+                         "local step stays whole on each of them")
+    ap.add_argument("--mesh", choices=["none", "debug", "prod"],
+                    default="none",
+                    help="in-pod mesh of each node's S = R / J ranks: debug "
+                         "= data 2 x model 2 (needs --shard-consensus; each "
+                         "rank holds its shards of the node's parameters "
+                         "and moments); none = the parameters whole on "
+                         "every rank; prod (16 x 16 a pod) is refused")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
     ap.add_argument("--topo-scheduler", choices=SCHEDULERS,
@@ -187,7 +206,20 @@ def parse_args(argv=None):
     if args.health and not args.obs_dir:
         ap.error("--health requires --obs-dir (the monitor feeds off "
                  "drained per-node telemetry)")
+    if args.mesh == "prod":
+        ap.error("--mesh prod lays 256 ranks (data 16 x model 16) in each "
+                 "pod, which cannot run here; use --mesh debug")
+    if args.mesh != "none" and not args.shard_consensus:
+        ap.error(f"--mesh {args.mesh} needs --shard-consensus: the "
+                 "reference's replicated-in-pod consensus state with "
+                 "sharded parameters is not ported")
     return args
+
+
+def inpod_mesh(args) -> tuple[int, int] | None:
+    """The ``(data, model)`` split of each pod's ranks that ``--mesh``
+    asks for (None: the parameters whole on every rank)."""
+    return {"none": None, "debug": (2, 2)}[args.mesh]
 
 
 def run(cfg: ArchConfig, args, grid=None) -> dict:
@@ -214,7 +246,8 @@ def run(cfg: ArchConfig, args, grid=None) -> dict:
         return _run(cfg, args, grid)
     grid = init_ranks(args.nodes, args.device,
                       backend=args.dist_backend or None,
-                      shard_consensus=args.shard_consensus)
+                      shard_consensus=args.shard_consensus,
+                      mesh=inpod_mesh(args))
     try:
         return _run(cfg, args, grid)
     finally:

@@ -33,15 +33,22 @@ class KVCache(NamedTuple):
 def attn_defs(cfg: ArchConfig, dtype) -> dict:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {
-        "wq": ParamDef((d, h, hd), dtype),
-        "wk": ParamDef((d, k, hd), dtype),
-        "wv": ParamDef((d, k, hd), dtype),
-        "wo": ParamDef((h, hd, d), dtype),
+        "wq": ParamDef((d, h, hd), dtype,
+                       logical_axes=("fsdp", "heads", None)),
+        "wk": ParamDef((d, k, hd), dtype,
+                       logical_axes=("fsdp", "kv_heads", None)),
+        "wv": ParamDef((d, k, hd), dtype,
+                       logical_axes=("fsdp", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), dtype,
+                       logical_axes=("heads", None, "fsdp")),
     }
     if cfg.qkv_bias:
-        out["bq"] = ParamDef((h, hd), dtype, init="zeros")
-        out["bk"] = ParamDef((k, hd), dtype, init="zeros")
-        out["bv"] = ParamDef((k, hd), dtype, init="zeros")
+        out["bq"] = ParamDef((h, hd), dtype, init="zeros",
+                             logical_axes=("heads", None))
+        out["bk"] = ParamDef((k, hd), dtype, init="zeros",
+                             logical_axes=("kv_heads", None))
+        out["bv"] = ParamDef((k, hd), dtype, init="zeros",
+                             logical_axes=("kv_heads", None))
     if cfg.qk_norm:
         out["qn"] = ParamDef((hd,), dtype, init="zeros")
         out["kn"] = ParamDef((hd,), dtype, init="zeros")

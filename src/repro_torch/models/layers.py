@@ -44,9 +44,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def mlp_defs(cfg: ArchConfig, dtype) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "wi_gate": ParamDef((d, f), dtype),
-        "wi_up": ParamDef((d, f), dtype),
-        "wo": ParamDef((f, d), dtype),
+        "wi_gate": ParamDef((d, f), dtype, logical_axes=("fsdp", "mlp")),
+        "wi_up": ParamDef((d, f), dtype, logical_axes=("fsdp", "mlp")),
+        "wo": ParamDef((f, d), dtype, logical_axes=("mlp", "fsdp")),
     }
 
 
@@ -58,9 +58,10 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------- embeddings -----
 def embed_defs(cfg: ArchConfig, dtype) -> dict:
     out = {"embed": ParamDef((cfg.vocab, cfg.d_model), dtype, init="embed",
-                             scale=0.02)}
+                             scale=0.02, logical_axes=("vocab", "fsdp"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), dtype)
+        out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), dtype,
+                                  logical_axes=("fsdp", "vocab"))
     return out
 
 

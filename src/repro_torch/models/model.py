@@ -1,5 +1,5 @@
 """Public model API (port of ``repro/models/model.py``): init, parameter
-counts, loss, prefill and decode.
+counts, sharding specs, loss, prefill and decode.
 
 The audio and vision archs' frontends are stubs, as in the reference: they
 take precomputed embeddings in place of tokens (``embeds`` [B, S, D] for a
@@ -18,8 +18,28 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import params as plib
 from repro_torch.models import transformer as tf
+
+
+def arch_rules(cfg: ArchConfig, mesh) -> dict:
+    """Per-arch logical->mesh rules (``repro/models/model.py:21-36``): the
+    head, kv-head, flattened-head, mlp and vocab axes go to ``model`` only
+    where ``model`` divides them. The reference's query heads are its
+    ``eff_heads``, ``n_heads`` itself at its ``PAD_HEADS_MULT`` of 0."""
+    tp = mesh.shape["model"] if mesh is not None else 1
+    h_eff = cfg.n_heads
+    heads_ok = h_eff % tp == 0 and h_eff > 0
+    kv_ok = cfg.n_kv_heads % tp == 0 and cfg.n_kv_heads > 0
+    rules = shd.default_rules(kv_divisible=kv_ok, heads_divisible=heads_ok)
+    # flattened head projections (SSM / RWKV) shard if q_dim divides
+    rules["heads_flat"] = "model" if cfg.q_dim % max(tp, 1) == 0 else None
+    if cfg.d_ff % max(tp, 1) != 0:
+        rules["mlp"] = None
+    if cfg.vocab % max(tp, 1) != 0:
+        rules["vocab"] = None
+    return rules
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -31,10 +51,17 @@ class Model:
         return tf.stacked_defs(self.cfg, self.dtype)
 
     def init(self, gen: torch.Generator, device: torch.device | str,
-             mesh=None) -> dict:
+             mesh=None, specs=None) -> dict:
         """The parameters drawn from ``gen``; on a rank of ``mesh``, only
-        its experts of each expert leaf (``params.materialize``)."""
-        return plib.materialize(gen, self.param_defs(), device, mesh=mesh)
+        its experts of each expert leaf, or with ``specs`` its shards
+        (``params.materialize``)."""
+        return plib.materialize(gen, self.param_defs(), device, mesh=mesh,
+                                specs=specs)
+
+    def param_specs(self, rules: dict | None = None) -> dict:
+        """The parameters' specs under ``rules`` (else the installed
+        rules; ``repro/models/model.py:54-55``)."""
+        return plib.spec_tree(self.param_defs(), rules)
 
     def param_count(self) -> int:
         return plib.count(self.param_defs())
@@ -51,8 +78,10 @@ class Model:
             total += n
         return total
 
-    def loss(self, params: dict, batch: dict):
-        return tf.loss_fn(self.cfg, params, batch)
+    def loss(self, params: dict, batch: dict, **kw):
+        """``transformer.loss_fn``: ``count``, ``read`` and ``remat`` for
+        the in-pod sharded local step (``distributed.fsdp``)."""
+        return tf.loss_fn(self.cfg, params, batch, **kw)
 
     def prefill(self, params: dict, batch: dict,
                 use_kernel: bool = False) -> torch.Tensor:

@@ -24,6 +24,20 @@ axis that does not divide the experts, the dense masked ``moe_ref``
     rank routes all of its data rows' tokens, computes only the pairs of
     its own experts, and the partial sums are added over the model axis.
 
+The all-to-all path runs under autograd (the local step of training and
+the probes, ``distributed.fsdp``), with the backward of each exchange
+(``distributed.sharding.Mesh``): the all-gather of the outputs keeps this
+rank's slice of the gradient (the model ranks compute alike after it);
+the slice of the replicated x all-gathers the slices' gradients, so that
+every model rank holds the whole ``dx``; the replicated router sums its
+gradient over the model ranks in rank order; each all-to-all runs
+backward as the same exchange of the gradients. A dropped pair moves no
+row and gets a zero gradient; the slot-(0, 0) row, zeroed as the
+reference writes it, passes none. A rank's tree holds its own experts
+only (sharded parameters gathered over ``data``,
+``params.shard_experts``) or all of them (a whole tree, as a probe of a
+neighbour's parameters gives it): then it reads its slice.
+
 Two of the reference's numbers are mirrored on purpose:
 
   * its dispatch scatters every pair, dropped ones as zero rows into slot
@@ -58,7 +72,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import RULES, Mesh, current_mesh
+from repro_torch.distributed.sharding import (Mesh, current_mesh,
+                                              is_recomputing)
 from repro_torch.models.params import ParamDef
 
 
@@ -71,9 +86,12 @@ def moe_defs(cfg: ArchConfig, dtype) -> dict:
     e = cfg.moe
     return {
         "router": ParamDef((d, e.num_experts), dtype, scale=0.02),
-        "wg": ParamDef((e.num_experts, d, e.expert_d_ff), dtype),
-        "wu": ParamDef((e.num_experts, d, e.expert_d_ff), dtype),
-        "wd": ParamDef((e.num_experts, e.expert_d_ff, d), dtype),
+        "wg": ParamDef((e.num_experts, d, e.expert_d_ff), dtype,
+                       logical_axes=("experts", "fsdp", None)),
+        "wu": ParamDef((e.num_experts, d, e.expert_d_ff), dtype,
+                       logical_axes=("experts", "fsdp", None)),
+        "wd": ParamDef((e.num_experts, e.expert_d_ff, d), dtype,
+                       logical_axes=("experts", None, "fsdp")),
     }
 
 
@@ -188,15 +206,16 @@ def _dispatch_local(cfg, x_flat, top_i, top_w, ep, e_local, cap):
 
 
 def _local_experts(p: dict, mesh: Mesh, m: int, e_local: int):
-    """Model shard m's ``wg``, ``wu``, ``wd``: sliced from the whole tree on
-    the one-process mesh; a rank's tree holds only its own experts
-    (``params.shard_experts``)."""
+    """Model shard m's ``wg``, ``wu``, ``wd``: sliced from a whole tree
+    (the one-process mesh's, or a whole tree on a rank); a rank's sharded
+    tree holds only its own experts."""
     ws = [p[name] for name in ("wg", "wu", "wd")]
-    if mesh.local:
+    n = ws[0].shape[0]
+    if n == e_local * mesh.model:
         return [w[m * e_local:(m + 1) * e_local] for w in ws]
-    if ws[0].shape[0] != e_local:
-        raise ValueError(f"model rank {m} holds {ws[0].shape[0]} experts, "
-                         f"want its {e_local} (params.shard_experts)")
+    if mesh.local or n != e_local:
+        raise ValueError(f"model rank {m} holds {n} experts, want its "
+                         f"{e_local} or all {e_local * mesh.model}")
     return ws
 
 
@@ -242,15 +261,16 @@ def _moe_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh: Mesh,
     cap = capacity(cfg, t_loc, ep)
     shards = mesh.shards(axis)
     bufs, metas, plans = [], [], []
-    for m in shards:
-        xm = x[:, m * s_loc:(m + 1) * s_loc].reshape(t_loc, d)
-        top_i, top_w = _route(cfg, p["router"], xm)
+    for xm, router in zip(mesh.split(x, axis, 1),
+                          mesh.replicate(p["router"], axis)):
+        xm = xm.reshape(t_loc, d)
+        top_i, top_w = _route(cfg, router, xm)
         buf, meta, plan = _dispatch_local(cfg, xm, top_i, top_w, ep,
                                           e_local, cap)
         bufs.append(buf)
         metas.append(meta)
         plans.append(plan)
-    if mesh.stats is not None:
+    if mesh.stats is not None and not is_recomputing():
         _record(mesh, plans, t_loc)
     recvs = mesh.all_to_all(bufs, axis)
     ids = mesh.all_to_all(metas, axis)
@@ -324,7 +344,7 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     switches path on an error.
     """
     mesh = current_mesh()
-    axis = RULES["experts"]
+    axis = "model"
     if mesh is None or mesh.shape[axis] == 1 \
             or cfg.moe.num_experts % mesh.shape[axis] != 0:
         return moe_ref(cfg, p, x)

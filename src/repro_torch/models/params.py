@@ -1,9 +1,13 @@
 """Parameter definitions (port of ``repro/models/params.py``).
 
 Models declare their parameters as a nested dict of ``ParamDef`` (shape,
-dtype, initializer). ``materialize`` draws them from an explicit
-``torch.Generator``; ``from_jax`` takes the reference's parameters as numpy
-arrays instead, so that both packages compute from the same weights.
+dtype, initializer, and the reference's logical sharding axes,
+``repro/models/params.py:24-33``). ``materialize`` draws them from an
+explicit ``torch.Generator``; ``from_jax`` takes the reference's parameters
+as numpy arrays instead, so that both packages compute from the same
+weights. ``spec_tree`` maps the logical axes to mesh axes under the
+installed rules (``repro/models/params.py:67-71``); ``distributed.fsdp``
+cuts a whole tree into a rank's shards by them.
 
 On a ``data x model`` mesh of ranks (``distributed.sharding.Mesh``) model
 rank m holds only experts ``[m E/ep, (m+1) E/ep)`` of each MoE expert
@@ -32,6 +36,17 @@ class ParamDef:
     dtype: torch.dtype = torch.float32
     init: str = "normal"        # normal | zeros | ones | embed
     scale: float | None = None  # None => 1/sqrt(fan-in)
+    # one logical axis name (or None) per dimension; None => all None
+    logical_axes: tuple[str | None, ...] | None = None
+
+    def __post_init__(self):
+        if self.logical_axes is not None:
+            assert len(self.shape) == len(self.logical_axes), (
+                self.shape, self.logical_axes)
+
+    @property
+    def axes(self) -> tuple[str | None, ...]:
+        return self.logical_axes or (None,) * len(self.shape)
 
 
 # a leaf is drawn in flat float32 pieces of at most this many elements (1 GB)
@@ -73,13 +88,21 @@ def _init_one(gen: torch.Generator, d: ParamDef, device) -> torch.Tensor:
 
 
 def materialize(gen: torch.Generator, defs: Any,
-                device: torch.device | str, mesh=None) -> dict:
+                device: torch.device | str, mesh=None, specs=None) -> dict:
     """Draw every leaf of ``defs`` in tree order from ``gen``; on a rank of
-    ``mesh``, keep only its experts of each expert leaf (the numbers of
-    the whole tree's draw)."""
+    ``mesh``, keep only its experts of each expert leaf, or with ``specs``
+    (``distributed.fsdp.specs_for``) its shard of every leaf (the numbers
+    of the whole tree's draw, each leaf cut as it is drawn)."""
     pl = tree_lib.leaves_with_paths(defs, is_leaf=is_def)
-    vals = [_expert_slice(p, _init_one(gen, d, device), mesh)
-            for p, d in pl]
+    if specs is not None and mesh is not None and not mesh.local:
+        from repro_torch.distributed.fsdp import shard_of
+        spec_of = dict(tree_lib.leaves_with_paths(
+            specs, is_leaf=lambda x: isinstance(x, tuple)))
+        vals = [shard_of(_init_one(gen, d, device), spec_of[p], mesh,
+                         mesh.coords).clone() for p, d in pl]
+    else:
+        vals = [_expert_slice(p, _init_one(gen, d, device), mesh)
+                for p, d in pl]
     return tree_lib.unflatten([p for p, _ in pl], vals)
 
 
@@ -111,6 +134,14 @@ def shard_experts(tree: Any, mesh) -> dict:
     pl = tree_lib.leaves_with_paths(tree)
     return tree_lib.unflatten([p for p, _ in pl],
                               [_expert_slice(p, x, mesh) for p, x in pl])
+
+
+def spec_tree(defs: Any, rules: dict | None = None) -> dict:
+    """The tree of specs mirroring ``defs`` under ``rules`` (else the
+    installed rules; ``distributed.sharding.logical_to_spec``)."""
+    from repro_torch.distributed.sharding import logical_to_spec
+    return tree_lib.tree_map(lambda d: logical_to_spec(d.axes, rules), defs,
+                             is_leaf=is_def)
 
 
 def count(defs: Any) -> int:

@@ -45,24 +45,29 @@ def rwkv_defs(cfg: ArchConfig, dtype) -> dict:
         # time-mix
         "maa_x": ParamDef((d,), dtype, init="zeros"),
         "maa": ParamDef((_N_MIX, d), dtype, init="zeros"),
-        "tm_w1": ParamDef((d, _N_MIX * _MIX_RANK), dtype),
-        "tm_w2": ParamDef((_N_MIX, _MIX_RANK, d), dtype),
-        "td_w1": ParamDef((d, _DECAY_RANK), dtype),
-        "td_w2": ParamDef((_DECAY_RANK, d), dtype),
+        "tm_w1": ParamDef((d, _N_MIX * _MIX_RANK), dtype,
+                          logical_axes=("fsdp", None)),
+        "tm_w2": ParamDef((_N_MIX, _MIX_RANK, d), dtype,
+                          logical_axes=(None, None, "fsdp")),
+        "td_w1": ParamDef((d, _DECAY_RANK), dtype,
+                          logical_axes=("fsdp", None)),
+        "td_w2": ParamDef((_DECAY_RANK, d), dtype,
+                          logical_axes=(None, "fsdp")),
         "decay_base": ParamDef((d,), dtype, init="zeros"),
         "bonus_u": ParamDef((hh, hd), dtype, init="zeros"),
-        "wr": ParamDef((d, d), dtype),
-        "wk": ParamDef((d, d), dtype),
-        "wv": ParamDef((d, d), dtype),
-        "wg": ParamDef((d, d), dtype),
-        "wo_tm": ParamDef((d, d), dtype),
+        "wr": ParamDef((d, d), dtype, logical_axes=("fsdp", "heads_flat")),
+        "wk": ParamDef((d, d), dtype, logical_axes=("fsdp", "heads_flat")),
+        "wv": ParamDef((d, d), dtype, logical_axes=("fsdp", "heads_flat")),
+        "wg": ParamDef((d, d), dtype, logical_axes=("fsdp", "heads_flat")),
+        "wo_tm": ParamDef((d, d), dtype,
+                          logical_axes=("heads_flat", "fsdp")),
         "ln_x": ParamDef((d,), dtype, init="zeros"),
         # channel-mix
         "cm_maa_k": ParamDef((d,), dtype, init="zeros"),
         "cm_maa_r": ParamDef((d,), dtype, init="zeros"),
-        "cm_wk": ParamDef((d, f), dtype),
-        "cm_wv": ParamDef((f, d), dtype),
-        "cm_wr": ParamDef((d, d), dtype),
+        "cm_wk": ParamDef((d, f), dtype, logical_axes=("fsdp", "mlp")),
+        "cm_wv": ParamDef((f, d), dtype, logical_axes=("mlp", "fsdp")),
+        "cm_wr": ParamDef((d, d), dtype, logical_axes=("fsdp", None)),
     }
 
 

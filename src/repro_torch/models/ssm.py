@@ -31,15 +31,16 @@ class SSMState(NamedTuple):
 def ssm_defs(cfg: ArchConfig, dtype) -> dict:
     d, di, n, hh = cfg.d_model, cfg.q_dim, cfg.ssm_state, cfg.n_heads
     return {
-        "w_x": ParamDef((d, di), dtype),
-        "w_z": ParamDef((d, di), dtype),
-        "w_b": ParamDef((d, n), dtype),
-        "w_c": ParamDef((d, n), dtype),
-        "w_dt": ParamDef((d, hh), dtype),
+        "w_x": ParamDef((d, di), dtype, logical_axes=("fsdp", "heads_flat")),
+        "w_z": ParamDef((d, di), dtype, logical_axes=("fsdp", "heads_flat")),
+        "w_b": ParamDef((d, n), dtype, logical_axes=("fsdp", None)),
+        "w_c": ParamDef((d, n), dtype, logical_axes=("fsdp", None)),
+        "w_dt": ParamDef((d, hh), dtype, logical_axes=("fsdp", None)),
         "dt_bias": ParamDef((hh,), dtype, init="zeros"),
         "a_log": ParamDef((hh,), dtype, init="zeros"),
         "d_skip": ParamDef((hh,), dtype, init="ones"),
-        "w_out": ParamDef((di, d), dtype),
+        "w_out": ParamDef((di, d), dtype,
+                           logical_axes=("heads_flat", "fsdp")),
     }
 
 

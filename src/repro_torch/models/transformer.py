@@ -13,9 +13,22 @@ The audio and vision archs' frontends are stubs, as in the reference:
 place of tokens, and ``decode_step`` one embedding per sequence
 (``embed_in``). Layers are stacked on a leading L axis as in the
 reference; the forward pass and the decode step loop over them in Python
-where the reference scans. There is no rematerialization: at the depths
-this port trains (a few layers at full width) the activations fit beside
-the state, so autograd keeps them.
+where the reference scans. Without a mesh of more than one shard there is
+no rematerialization: at the depths this port trains on one device (a few
+layers at full width) the activations fit beside the state, so autograd
+keeps them.
+
+Under an in-pod mesh (``distributed.fsdp``) a rank holds only its shards
+of the parameters: ``forward`` and ``loss_fn`` take a ``read`` that gives
+each layer's leaves gathered just before its block (``read.layer``) and
+the embedding, final norm and LM head where they are read
+(``read.leaf``), and with ``remat`` each layer (and the head with the
+loss) runs under a checkpoint, so that its gathered leaves and
+activations are freed after the forward and gathered and recomputed in
+the backward: the counterpart of the reference's ``remat=True``. A tied
+embedding is read once for both its uses. ``loss_fn`` with ``count``
+divides the masked sum of its rows by the node's whole token count, so
+that the data ranks' losses add up to the node's mean.
 
 ``forward`` takes ``use_kernel`` (the reference's ``forward`` does not):
 it routes the reference's own switch on ``attention`` and ``time_mix`` to
@@ -25,12 +38,16 @@ leaves it off, since neither kernel has a backward.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (current_mesh, current_rules,
+                                              recomputing, use_mesh)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
@@ -64,7 +81,7 @@ def stacked_defs(cfg: ArchConfig, dtype) -> dict:
     """All model parameters; block leaves get a leading layer axis."""
     blocks = tree_lib.tree_map(
         lambda p: ParamDef((cfg.n_layers,) + p.shape, p.dtype, p.init,
-                           p.scale),
+                           p.scale, logical_axes=(None,) + p.axes),
         block_defs(cfg, dtype), is_leaf=is_def)
     out = dict(embed_defs(cfg, dtype))
     out["blocks"] = blocks
@@ -106,36 +123,115 @@ def _layer(params: dict, layer: int) -> dict:
     return tree_lib.tree_map(lambda a: a[layer], params["blocks"])
 
 
-def forward(cfg: ArchConfig, params: dict, *,
-            tokens: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None,
-            use_kernel: bool = False) -> torch.Tensor:
-    """Full-sequence forward to logits. tokens [B, S] or embeds [B, S, D]
-    (the frontend stubs' precomputed embeddings)."""
-    x = embed_tokens(params, tokens) if embeds is None else embeds
+class Whole:
+    """Reads a whole parameter tree (``forward``'s default ``read``)."""
+
+    @staticmethod
+    def layer(params: dict, layer: int) -> dict:
+        return _layer(params, layer)
+
+    @staticmethod
+    def leaf(params: dict, name: str) -> torch.Tensor:
+        return params[name]
+
+
+def _remat_context():
+    return contextlib.nullcontext(), recomputing()
+
+
+def _checkpointed(fn, remat: bool, *args):
+    """``fn(*args)``, under a checkpoint when ``remat`` and autograd is on;
+    the ambient mesh is installed again for the recomputation, which may
+    run on the autograd engine's own thread."""
+    mesh, rules = current_mesh(), current_rules()
+
+    def run(*a):
+        with use_mesh(mesh, rules):
+            return fn(*a)
+    if remat and torch.is_grad_enabled():
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False, early_stop=False,
+                          context_fn=_remat_context)
+    return run(*args)
+
+
+def _trunk(cfg: ArchConfig, params: dict, tokens, embeds, use_kernel: bool,
+           read, remat: bool, embed) -> torch.Tensor:
+    """The embedding and every block: the last hidden state."""
+    if embeds is None:
+        x = embed_tokens({"embed": embed if embed is not None
+                          else read.leaf(params, "embed")}, tokens)
+    else:
+        x = embeds
     x = x.to(torch_dtype(cfg.dtype))
     cos = sin = None
     if not cfg.rwkv:
         cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
+
+    def block(x, layer):
+        return _block_full(cfg, read.layer(params, layer), x, cos, sin,
+                           use_kernel=use_kernel)
     for layer in range(cfg.n_layers):
-        x = _block_full(cfg, _layer(params, layer), x, cos, sin,
-                        use_kernel=use_kernel)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x)
+        x = _checkpointed(block, remat, x, layer)
+    return x
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict
-            ) -> tuple[torch.Tensor, dict]:
+def _head(cfg: ArchConfig, params: dict, x: torch.Tensor, read,
+          embed) -> torch.Tensor:
+    x = rms_norm(x, read.leaf(params, "final_norm"), cfg.norm_eps)
+    w = {"embed": embed} if cfg.tie_embeddings \
+        else {"lm_head": read.leaf(params, "lm_head")}
+    return unembed(cfg, w, x)
+
+
+def _tied_embed(cfg: ArchConfig, params: dict, read):
+    """The embedding, read once, where both the lookup and the head use
+    it; else None (each reads its own leaf where it needs it)."""
+    if cfg.tie_embeddings:
+        return read.leaf(params, "embed")
+    return None
+
+
+def forward(cfg: ArchConfig, params: dict, *,
+            tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
+            use_kernel: bool = False, read=None,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward to logits. tokens [B, S] or embeds [B, S, D]
+    (the frontend stubs' precomputed embeddings). ``read`` gives the
+    leaves (``Whole`` by default; ``distributed.fsdp.Gathered`` on a rank
+    that holds shards)."""
+    read = read or Whole
+    embed = _tied_embed(cfg, params, read)
+    x = _trunk(cfg, params, tokens, embeds, use_kernel, read, remat, embed)
+    return _head(cfg, params, x, read, embed)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
+            count: torch.Tensor | None = None, read=None,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy over labels >= 0 (f32). The batch
-    holds ``tokens`` or, for the frontend stubs, ``embeds``."""
-    logits = forward(cfg, params, tokens=batch.get("tokens"),
-                     embeds=batch.get("embeds")).to(torch.float32)
+    holds ``tokens`` or, for the frontend stubs, ``embeds``. With
+    ``count`` the masked sum is divided by it (the node's token count)
+    instead of by the batch's own."""
+    read = read or Whole
     labels = batch["labels"]
-    lse = torch.logsumexp(logits, dim=-1)
-    # masked labels (-1) gather index 0; the mask zeroes their term
-    ll = torch.gather(logits, -1, labels.clamp_min(0)[..., None].long())[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    nll = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    embed = _tied_embed(cfg, params, read)
+    x = _trunk(cfg, params, batch.get("tokens"), batch.get("embeds"), False,
+               read, remat, embed)
+
+    def head_nll(x, embed):
+        logits = _head(cfg, params, x, read, embed).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        # masked labels (-1) gather index 0; the mask zeroes their term
+        ll = torch.gather(logits, -1,
+                          labels.clamp_min(0)[..., None].long())[..., 0]
+        return ((lse - ll) * mask).sum()
+    total = _checkpointed(head_nll, remat, x, embed)
+    if count is None:
+        count = torch.clamp_min(mask.sum(), 1.0)
+    nll = total / count
     return nll, {"loss": nll, "tokens": mask.sum()}
 
 

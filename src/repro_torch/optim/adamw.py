@@ -4,7 +4,11 @@ The arithmetic follows the reference term for term: a global-norm clip over
 every leaf, f32 moments and f32 bias corrections, decoupled weight decay.
 ``update`` works IN PLACE on the parameters and moments it is given (the
 PyTorch habit; it keeps the f32 temporaries to one leaf at a time), and
-returns them.
+returns them. On an in-pod mesh they are a rank's shards
+(``distributed.fsdp``): the update is elementwise, and the clip reads the
+global norm of the node's whole gradient (``global_norm`` with ``mesh``
+and ``specs``: every rank's sum of squares added over the pod, each
+element counted once), so that every rank clips alike.
 """
 from __future__ import annotations
 
@@ -42,18 +46,26 @@ def init(cfg: AdamWConfig, params: Any) -> AdamWState:
                       v=tree_lib.tree_map(zeros, params))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, mesh=None, specs: Any = None) -> torch.Tensor:
+    """The norm over every leaf; with an in-pod ``mesh``, of the node's
+    gradient whose shards (or, on the one-process mesh, whole leaves)
+    ``tree`` holds (``distributed.fsdp.grad_norm``)."""
+    if mesh is not None:
+        from repro_torch.distributed.fsdp import grad_norm
+        return grad_norm(tree, specs, mesh)
     return torch.sqrt(sum(x.to(torch.float32).square().sum()
                           for x in tree_lib.leaves(tree)))
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, state: AdamWState, params: Any, grads: Any,
-           lr_scale: float = 1.0) -> tuple[Any, AdamWState, dict]:
-    """One AdamW step; params, state.m and state.v are updated in place."""
+           lr_scale: float = 1.0, mesh=None, specs: Any = None
+           ) -> tuple[Any, AdamWState, dict]:
+    """One AdamW step; params, state.m and state.v are updated in place
+    (with ``mesh``, a rank's shards under ``specs``, see above)."""
     step = state.step + 1
     f32 = torch.float32
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     if cfg.grad_clip > 0:
         clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     else:

@@ -28,6 +28,20 @@ from per-node values all-gathered in node order (the probes, the
 residuals' per-row partials, the local losses and grad norms), so that
 every rank computes them from the same bits as one process would.
 
+In-pod mesh (``RankGrid.mesh``, the reference's ``data`` and ``model``
+axes inside each pod, ``launch.mesh.init_ranks(mesh=)``): the S = data *
+model ranks of a node's pod hold only their shards of its parameters and
+moments (``distributed.fsdp``, by the arch rules), and run its local step
+and its probes under the pod's mesh with ``batch -> data``: rank ``(d,
+m)`` on data index d's rows, the MoE's experts parallel over ``model``
+with the reference's capacity and drops, the gradients reduce-scattered
+onto the shards and the clip reading the pod's norm. A round packs the
+node's whole flat row from its leaves gathered in-pod (a transient),
+encodes its slab as below, and after the kernel each rank keeps only its
+shards of the new parameters. The in-pod mesh needs the sharded
+consensus state; the reference's replicated-in-pod state with sharded
+parameters is not ported.
+
 Sharded consensus state (``ConsensusConfig.shard_consensus``, a grid of
 R = J * S ranks, ``RankGrid.shards``): the S ranks of a node's pod hold its
 parameters and moments whole and step them alike, and each holds slab s
@@ -92,6 +106,7 @@ from repro_torch.core.penalty import (PenaltyConfig, PenaltyState,
                                       init_penalty_state, update_penalty)
 from repro_torch.distributed import (HostStaging, RankGrid, circulant_start,
                                      gather_nodes, gather_pod, trivial_grid)
+from repro_torch.distributed import fsdp, local_mesh
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 from repro_torch.obs import node_ring as obs_node_ring
@@ -143,6 +158,11 @@ class ConsensusConfig:
     # every round, so the ledger is never decoded. The port builds the
     # ledger only with async_exec and leaves it untouched here
     pipeline_offsets: int = 1
+    # the reference's switch to reduce-scatter the gradients onto the
+    # parameter shards. Under an in-pod mesh (RankGrid.mesh) the port's
+    # gradients always land reduce-scattered on the shards, whatever it
+    # says; without one there is nothing to scatter
+    grad_rs: bool = False
 
 
 class TrainState(NamedTuple):
@@ -223,6 +243,18 @@ class ConsensusTrainer:
                              "shard_consensus")
         self.sharded = (consensus.shard_consensus and self.num_nodes > 1
                         and n_shards > 1)
+        # the pods' in-pod mesh: each rank holds its shards of its node's
+        # parameters and moments (the whole trees on the one-process mesh);
+        # without one, each node's local step runs on a 1 x 1 mesh
+        self.mesh = self.ranks.mesh
+        if self.mesh is None:
+            self.mesh = local_mesh(1, 1, self.device)
+        elif self.mesh.size != n_shards:
+            raise ValueError(f"the in-pod mesh has {self.mesh.size} ranks, "
+                             f"the grid {n_shards} shards")
+        self.specs, self.gather_specs = fsdp.specs_for(model, self.mesh)
+        # a rank of a mesh holds shards (the one-process mesh whole trees)
+        self.param_shards = not self.mesh.local
         # this rank's node rows
         self.n_local = self.ranks.nodes_per_rank
         self.pipeline_depth = max(1, int(consensus.pipeline_offsets))
@@ -305,9 +337,13 @@ class ConsensusTrainer:
 
     # ------------------------------------------------------------ state ----
     def init_state(self, params1: dict) -> TrainState:
-        """State with ``params1`` (one node's parameters) on every node;
-        the per-node rows are this rank's."""
+        """State with ``params1`` (one node's whole parameters) on every
+        node; the per-node rows are this rank's (on a rank of an in-pod
+        mesh, its shards)."""
         j, rows = self.num_nodes, self.n_local
+        if self.param_shards:
+            params1 = fsdp.cut(params1, self.specs, self.mesh,
+                               self.mesh.coords)
         params = tree_lib.tree_map(
             lambda x: x.to(self.device)[None].expand(rows, *x.shape).clone(),
             params1)
@@ -346,25 +382,17 @@ class ConsensusTrainer:
         losses, gnorms = [], []
         for i in range(self.n_local):
             p_i = tree_lib.tree_map(lambda x: x[i], state.params)
-            paths = [p for p, _ in tree_lib.leaves_with_paths(p_i)]
-            leaves = [x.detach().requires_grad_()
-                      for x in tree_lib.leaves(p_i)]
-            loss, _ = self.model.loss(tree_lib.unflatten(paths, leaves),
-                                      {k: v[i] for k, v in batch.items()})
-            # a leaf the loss does not read (the frontend stubs' embed
-            # table) gets a zero gradient, as jax.grad gives it
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            del leaves
+            loss, grads = fsdp.loss_and_grads(
+                self.model, self.mesh, p_i,
+                {k: v[i] for k, v in batch.items()}, self.gather_specs)
             opt_i = adamw_lib.AdamWState(
                 step=state.opt.step,
                 m=tree_lib.tree_map(lambda x: x[i], state.opt.m),
                 v=tree_lib.tree_map(lambda x: x[i], state.opt.v))
-            _, _, mtr = adamw_lib.update(self.acfg, opt_i, p_i,
-                                         tree_lib.unflatten(paths,
-                                                            list(grads)))
+            _, _, mtr = adamw_lib.update(self.acfg, opt_i, p_i, grads,
+                                         mesh=self.mesh, specs=self.specs)
             del grads
-            losses.append(loss.detach())
+            losses.append(loss)
             gnorms.append(mtr["grad_norm"])
         new = state._replace(
             opt=state.opt._replace(step=state.opt.step + 1),
@@ -372,6 +400,45 @@ class ConsensusTrainer:
         losses = gather_nodes(torch.stack(losses), self.ranks)
         gnorms = gather_nodes(torch.stack(gnorms), self.ranks)
         return new, {"loss": losses.mean(), "grad_norm": gnorms}
+
+    def _whole_params(self, params: dict) -> dict:
+        """This rank's node rows of the whole parameters: on a rank of an
+        in-pod mesh its shards gathered in-pod (a transient, ``[1,
+        ...]``), else ``params`` itself."""
+        if not self.param_shards:
+            return params
+        one = fsdp.gather_whole(tree_lib.tree_map(lambda x: x[0], params),
+                                self.specs, self.mesh)
+        return tree_lib.tree_map(lambda x: x[None], one)
+
+    def _own_slab(self, theta_flat: torch.Tensor) -> torch.Tensor:
+        """The packed rows the round kernel runs on: a slab rank's own
+        slab, copied out of its whole packed row once its message is
+        encoded, so that the rest of the row is freed before the probes;
+        else the rows themselves."""
+        if not self.slab:
+            return theta_flat
+        return theta_flat[:, self.cols].clone()
+
+    def _keep_params(self, params: dict, theta_new: torch.Tensor,
+                     rows=None) -> None:
+        """The round's new rows ``theta_new`` (whole flat rows) into the
+        parameter rows ``rows`` (all of this rank's by default), in place;
+        on a rank of an in-pod mesh, its shards of them."""
+        new = self.layout.unpack(theta_new)
+        leaves = tree_lib.leaves(params)
+        specs = tree_lib.leaves(self.specs, is_leaf=lambda x: isinstance(
+            x, tuple)) if self.param_shards else [None] * len(leaves)
+        for dst, src, spec in zip(leaves, tree_lib.leaves(new), specs,
+                                  strict=True):
+            if spec is not None:         # the node axis leads
+                src = fsdp.shard_of(src, (None,) + tuple(spec), self.mesh,
+                                    self.mesh.coords)
+            if rows is None:
+                dst.copy_(src)
+            else:
+                for r in rows:
+                    dst[r].copy_(src[r])
 
     def should_sync(self, step: int) -> bool:
         return self.num_nodes > 1 and (step + 1) % self.ccfg.local_steps == 0
@@ -399,12 +466,15 @@ class ConsensusTrainer:
 
     @torch.no_grad()
     def _probe_losses(self, params: dict, batch: dict) -> torch.Tensor:
-        """[J/R] local objectives f_i at node i's row of ``params``, for
-        this rank's nodes."""
-        return torch.stack([
-            self.model.loss(tree_lib.tree_map(lambda x: x[i], params),
-                            {k: v[i] for k, v in batch.items()})[0]
-            for i in range(self.n_local)])
+        """[J/R] local objectives f_i at node i's row of ``params`` (whole
+        rows), for this rank's nodes: under the in-pod mesh with ``batch ->
+        data`` (on a 1 x 1 mesh, the node's whole batch)."""
+        out = []
+        for i in range(self.n_local):
+            p_i = tree_lib.tree_map(lambda x: x[i], params)
+            b_i = {k: v[i] for k, v in batch.items()}
+            out.append(fsdp.node_loss(self.model, self.mesh, p_i, b_i))
+        return torch.stack(out)
 
     def _gather_slabs(self, t: torch.Tensor) -> torch.Tensor:
         """The S slabs of a slab rank's pod, joined along the last dim:
@@ -439,8 +509,8 @@ class ConsensusTrainer:
 
     def _fused_round(self, window, theta_flat, state, wires, scales,
                      e_stack, alpha, sym_sum, eta_node, gated):
-        """The round kernel on this rank's rows (a slab rank's slab: a
-        contiguous view of its one packed row), then every node's block
+        """The round kernel on this rank's rows ``theta_flat`` (a slab
+        rank's own slab of its packed row), then every node's block
         partials summed as one process sums its own, the same bits however
         the rows and the slabs are split. ``window`` holds the round's
         exchanges, each of which must have been waited on. Returns
@@ -452,7 +522,7 @@ class ConsensusTrainer:
                 "kernel, which overwrites a native wire in place")
         with self._span("consensus/fused_round"):
             theta_new, lam_new, bar_new, r_sq, s_sq = kops.consensus_round(
-                theta_flat[:, self.cols], state.lam, state.theta_bar_prev,
+                theta_flat, state.lam, state.theta_bar_prev,
                 wires, scales,
                 self._local(e_stack), self._local(alpha),
                 self._local(sym_sum), self._local(eta_node),
@@ -519,16 +589,22 @@ class ConsensusTrainer:
             live = [bool(gates[rows, (rows + off) % j].sum() > 0)
                     for off in offsets]
 
+        # this rank's nodes' whole parameters: on a rank of an in-pod
+        # mesh its shards gathered in-pod, a transient read by the own
+        # probe and the pack
+        whole = self._whole_params(state.params)
         with self._span("consensus/probe"):
-            f_self = self._probe_losses(state.params, probe_batch)  # [J/R]
+            f_self = self._probe_losses(whole, probe_batch)  # [J/R]
 
         # pack in the params' float dtype (bf16 params -> bf16 wire); a
         # slab rank packs the whole row and encodes its slab's message
         with self._span("consensus/pack"):
-            theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
+            theta_flat = lay.pack(whole, dtype=lay.wire_dtype)
+            del whole
             with self._span("wire/encode"):
                 wire = (self.codec.encode_slab(theta_flat, self.ranks.shard)
                         if self.slab else self.codec.encode(theta_flat))
+            theta_flat = self._own_slab(theta_flat)
 
         # exchange: rolled[d] = torch.roll(wire of all J, -off_d, 0), this
         # rank's rows. These are COPIES, never views of theta_flat: the
@@ -544,6 +620,7 @@ class ConsensusTrainer:
                 rolled[d].zero_()
         window = self._window([d for d in range(deg) if live[d]],
                               lambda d: rolled[d], wire)
+        del wire               # the window holds it until all are issued
         # consume in offset order: wait, then probe this rank's nodes at
         # the offset's payload (one row decoded: the bytes the stacked
         # decode below gives the kernel), then issue the next offset
@@ -553,7 +630,6 @@ class ConsensusTrainer:
                 window.wait(d)
                 f_live.append(self._probe_row(rolled[d], probe_batch))
                 window.fill()
-        del wire
         with self._span("wire/decode"):
             payloads, dec_scales = (
                 self.codec.decode_slab(rolled, self.ranks.shard) if self.slab
@@ -626,11 +702,8 @@ class ConsensusTrainer:
             sym_sum, eta_node, gated)
         del wires
 
-        # theta_new -> the parameter replicas, in place
-        for dst, src in zip(tree_lib.leaves(state.params),
-                            tree_lib.leaves(lay.unpack(theta_new)),
-                            strict=True):
-            dst.copy_(src)
+        # theta_new -> the parameter replicas (a rank's shards), in place
+        self._keep_params(state.params, theta_new)
         del theta_flat, theta_new
         r_norm = torch.sqrt(r_sq)
         s_norm = torch.sqrt(s_sq)
@@ -791,13 +864,16 @@ class ConsensusTrainer:
                        + gk[1][rows, (rows + off) % j].sum() > 0)
                   for off in offsets]
 
+        whole = self._whole_params(state.params)
         with self._span("consensus/probe"):
-            f_self = self._probe_losses(state.params, probe_batch)  # [J/R]
+            f_self = self._probe_losses(whole, probe_batch)  # [J/R]
         with self._span("consensus/pack"):
-            theta_flat = lay.pack(state.params, dtype=lay.wire_dtype)
+            theta_flat = lay.pack(whole, dtype=lay.wire_dtype)
+            del whole
             with self._span("wire/encode"):
                 wire = (self.codec.encode_slab(theta_flat, self.ranks.shard)
                         if self.slab else self.codec.encode(theta_flat))
+            theta_flat = self._own_slab(theta_flat)
         # merge: every rank exchanges each offset where any payload landed
         # (the replicated arrivals) into its ledger rows, keeping the held
         # row of each receiver whose payload did not land (a COPY: a native
@@ -808,6 +884,7 @@ class ConsensusTrainer:
         merged = [d for d in range(deg) if arr_np[d].any()]
         window = self._window(merged, lambda d: ledger.wires[d], wire,
                               keep=~arr_np[:, lo:hi])
+        del wire               # the window holds it until all are issued
         # consume in offset order: the merge, then this rank's probes of
         # the payload actually consumed (a held one included; a fully
         # gated, kick-free offset skips the forward pass)
@@ -819,7 +896,6 @@ class ConsensusTrainer:
                 f_probed.append(self._probe_row(ledger.wires[d],
                                                 probe_batch))
             window.fill()
-        del wire
         with self._span("wire/decode"):
             payloads, dec_scales = (
                 self.codec.decode_slab(ledger.wires, self.ranks.shard)
@@ -876,14 +952,9 @@ class ConsensusTrainer:
         # theta_new -> the parameter replicas of this rank's advancing nodes
         adv_rows = range(self.n_local) if adv_mine is None \
             else np.nonzero(adv_mine)[0]
-        for dst, src in zip(tree_lib.leaves(state.params),
-                            tree_lib.leaves(lay.unpack(theta_new)),
-                            strict=True):
-            if len(adv_rows) == self.n_local:
-                dst.copy_(src)
-            else:
-                for i in adv_rows:
-                    dst[i].copy_(src[i])
+        self._keep_params(state.params, theta_new,
+                          None if len(adv_rows) == self.n_local
+                          else adv_rows)
         del theta_flat, theta_new
         r_norm = torch.sqrt(r_sq)
         s_norm = torch.sqrt(s_sq)

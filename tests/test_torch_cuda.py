@@ -711,3 +711,54 @@ def test_cuda_ep_gloo_ranks_equal_one_process(tmp_path):
         assert got["wg_shape"].tolist()[1] == 4
         for name in ("a2a", "repl", "prefill", "decode"):
             assert torch.equal(got[name], want[name].cpu()), (r, name)
+
+
+@pytest.mark.cuda
+def test_cuda_inpod_gloo_ranks_equal_one_process(tmp_path):
+    """The in-pod sharded local step as 4 gloo ranks sharing the card, at
+    reduced size (``tests/torch_inpod_cases.py``): make_train_fns on a data
+    2 x model 2 mesh (the gathers, reduce-scatters and all-to-alls staged
+    through pinned host buffers) and the consensus trainer, J 2 with a
+    data 1 x model 2 mesh a node; every rank's losses, norms, round
+    metrics, parameter and moment shards and slabs equal one process's on
+    the card bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_inpod_cases as cases
+    from repro_torch.distributed import MeshStats, local_mesh, trivial_grid
+    from torch_ranks_cases import spawn
+    spawn(cases.ranks_worker, 4, tmp_path, str(tmp_path), "cuda")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    stats = MeshStats()
+    train = cases.run_train(local_mesh(*cases.RANKS_TRAIN_MESH, "cuda",
+                                       stats=stats), cases.ARCH,
+                            cases.TRAIN_CF, device="cuda", stats=stats)
+    cases.assert_train_ranks_equal(ranks, train)
+    cons = cases.run_consensus(trivial_grid(2, "cuda",
+                                            mesh=cases.RANKS_CONS_MESH),
+                               device="cuda")
+    cases.assert_cons_ranks_equal(ranks, cons)
+
+
+@pytest.mark.cuda
+def test_cuda_inpod_node_ring_sharded_equals_replicated():
+    """On the card, the node ring of the sharded path (J 2 on the trivial
+    grid with a data 1 x model 2 in-pod mesh, reduced qwen3-4b in float32)
+    holds the replicated run's per-node residuals, probes and penalties
+    (rtol 1e-4), as the reference's
+    ``tests/test_obs.py::test_node_residuals_sharded_equals_replicated``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_inpod_cases as cases
+    from repro_torch.distributed import trivial_grid
+    from repro_torch.obs.schema import NODE_COLUMN_INDEX
+    runs = [cases.run_consensus(trivial_grid(2, "cuda", mesh=mesh),
+                                device="cuda", obs=True, arch="qwen3-4b")
+            for mesh in (cases.RANKS_CONS_MESH, None)]
+    a, b = (r["node_ring"].cpu() for r in runs)
+    cols = [NODE_COLUMN_INDEX[k] for k in ("r", "s", "f_local",
+                                           "eta_row_mean", "alive")]
+    assert bool((b[..., cols[0]] > 0).any())
+    np.testing.assert_allclose(a[..., cols].numpy(), b[..., cols].numpy(),
+                               rtol=1e-4, atol=1e-6)

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 import torch_ep_cases as cases
-from repro_torch.distributed import EPStats, local_mesh, use_mesh
+from repro_torch.distributed import MeshStats, local_mesh, use_mesh
 from repro_torch.models import moe
 from repro_torch.models.params import from_jax, shard_experts
 from torch_ranks_cases import spawn
@@ -188,12 +188,12 @@ def test_dispatch_plans_match_reference(ref, cf, shard):
 @pytest.mark.parametrize("cf", CFS)
 def test_dropped_pairs_match_reference(ref, cf):
     """The set of dropped (token, expert) pairs equals the reference's
-    (weight zero in its plan, which keeps no destination for them), and the drop counts reach ``EPStats``: none
+    (weight zero in its plan, which keeps no destination for them), and the drop counts reach ``MeshStats``: none
     at 8.0, some at 1.0 (the guard against a vacuous test)."""
     p, x = _unit()
     cfg = cases.moe_cfg(cf)
     data, model = cases.MESH
-    stats = EPStats()
+    stats = MeshStats()
     cases.moe_rows(cfg, p, x, local_mesh(data, model, "cpu", stats=stats))
     n_dropped = 0
     for d in range(data):
