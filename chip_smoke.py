@@ -224,14 +224,14 @@ seconds):
               and the tensor-core kernel at hymba's 25 heads of 64 with a
               window of 1024 at S 2048. The build phase prints the
               registers and spills of both kernels' instantiations.
- 21. zserve — ``launch.serve.run`` on glm4-9b (10 of 40 layers),
-              qwen2-7b (7 of 28), stablelm-3b (8 of 32),
-              moonshot-v1-16b-a3b (12 of 48, phase 28's depth),
+ 21. zserve — ``launch.serve.run`` on glm4-9b (5 of 40 layers),
+              qwen2-7b (4 of 28), stablelm-3b (4 of 32),
+              moonshot-v1-16b-a3b (6 of 48),
               kimi-k2-1t-a32b (1 layer of 61: the whole model does not fit
-              one card), musicgen-large (8 of 48) and
-              llava-next-mistral-7b (8 of 32; the frontend stubs serve
+              one card), musicgen-large (4 of 48) and
+              llava-next-mistral-7b (4 of 32; the frontend stubs serve
               random embeddings; every cut but kimi-k2's is for time) at
-              batch 4, prompt 512, and hymba-1.5b at 8 of its 32 layers
+              batch 4, prompt 512, and hymba-1.5b at 4 of its 32 layers
               (for time) and prompt 1280 (past its window of 1024, so the
               prefill's window binds and the decode's ring wraps), 8
               generated tokens, one after the other. Counters from
@@ -248,7 +248,7 @@ seconds):
               ``Model.param_count`` beside the configs' reckoning.
  22. ztrain — ``launch.train.run`` at full width with depth cut
               (``ZOO_TRAIN_LAYERS``: glm4-9b, qwen2-7b and moonshot 1
-              layer, llava 4, stablelm-3b and musicgen 8, hymba 4,
+              layer, llava 4, stablelm-3b and musicgen 8, hymba 2,
               rwkv6-7b 2): 2 nodes, ring, nap, eta0 0.1, native wire, lr
               3e-4, 4 x 512 tokens a node, 4 steps with a round after
               every second one (the frontend stubs train on embeddings).
@@ -291,8 +291,9 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               state and per-round metrics equal to phase 4's run bit for
               bit.
  26. sharded — the consensus state sharded in-pod
-              (``--shard-consensus``): stablelm-3b at full width, 4
-              layers, 2 nodes on a ring, nap, eta0 0.1, 4 x 512 tokens a
+              (``--shard-consensus``): stablelm-3b at full width, 2
+              layers (4 before phase 30 paid for its time), 2 nodes on a
+              ring, nap, eta0 0.1, 4 x 512 tokens a
               node, lr 3e-4, 4 steps with a round every 2, on the native
               and then the fp8_e4m3 wire: first each as one process
               computing the 2-way sharded run whole (on
@@ -318,8 +319,8 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               the ledger slabs (joined) and w_prev included; every round
               launches the gated per-block kernel on each slab.
  27. pipe   — the round pipeline and the async executor across ranks:
-              stablelm-3b at full width, 4 layers, 3 nodes on a ring
-              (offsets 1, 2), nap, eta0 0.1, 4 x 512 tokens a node, lr
+              stablelm-3b at full width, 2 layers (4 before phase 30),
+              3 nodes on a ring (offsets 1, 2), nap, eta0 0.1, 4 x 512 tokens a node, lr
               3e-4; (a) synchronous static native rounds, 4 steps with a
               round every 2; (b) ``--async``, ``max_staleness`` 1, node 0
               4x slow, fp8_e4m3, a round after each of 6 steps. Each first
@@ -389,6 +390,36 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               a step (host clock, each between two synchronisations,
               staged gloo), and the kernel's ms beside its bound. NCCL
               across cards does not run on one card.
+ 30. replicated — the reference launcher's own command: stablelm-3b at
+              full width (d 2560, 32 heads of 80, the tensor-core flash
+              route), 2 of 32 layers (416 M parameters a node), bf16, J 2
+              ring, nap, native wire, 4 steps of 4 x 256 tokens a node
+              with a round after every second, through
+              ``launch.train.run``. (a) The consensus state replicated
+              in-pod (no ``--shard-consensus``) on data 1 x model 2 a
+              node: first as one process (``trivial_grid(2, mesh=(1,
+              2))``), then as 4 gloo ranks sharing the card, each holding
+              its shards of its node's parameters and moments and the
+              node's whole flat rows; then the same ranks with
+              ``--shard-consensus``. Checks: every rank's round metrics,
+              eta, mask, the digests of its shards and of its pod's whole
+              lam and theta_bar_prev equal the one process's bit for bit,
+              the two ranks of a pod hold the same row digests, and the
+              sharded ranks equal their one-process run; the replicated
+              and the sharded one-process runs agree, parameters, duals
+              and means within 1e-5 and the residual metrics within 5e-4
+              relative. (b) Checkpoint and resume through the launcher on
+              the same ranks: the run to step 2 with ``--ckpt-dir`` and
+              ``--ckpt-every 2`` in the same torchrun call, then a fresh
+              torchrun that resumes to step 4; every rank's final digests
+              equal the uninterrupted run's (a). The free disk space is
+              checked first and the directory removed after. Prints each
+              rank's state bytes beside the reckoning, its peak beside
+              ``reckon_inpod_peak`` for whole rows, the step and round
+              seconds and the kernel's ms on a whole row beside its byte
+              bound; the bytes each rank wrote, the save and restore
+              seconds and the host peak. NCCL across cards does not run
+              on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -466,40 +497,42 @@ ZOO = ("glm4-9b", "qwen2-7b", "stablelm-3b", "moonshot-v1-16b-a3b",
 ZOO_SERVE = {arch: (None, 512) for arch in ZOO}
 ZOO_SERVE["kimi-k2-1t-a32b"] = (1, 512)
 # hymba is cut to 8 of its 32 layers for time (its eager SSM loop and
-# prompt replay took 105-308 s at full depth), to pay for phase 26
-ZOO_SERVE["hymba-1.5b"] = (8, 1280)
-# cut for time, to pay for phases 28 and 29: each prompt replay is 512
+# prompt replay took 105-308 s at full depth), to pay for phase 26, and
+# to 4 for phase 30
+ZOO_SERVE["hymba-1.5b"] = (4, 1280)
+# cut for time, to pay for phases 28 to 30: each prompt replay is 512
 # eager decode steps through every layer (at full depth moonshot's took
-# about 44 s, musicgen's 21-63 s, llava's 24-40 s, glm4's 22-39 s);
-# moonshot serves at phase 28's depth; the others at half theirs or less
-# for phase 28, and at half that again for phase 29
-ZOO_SERVE["moonshot-v1-16b-a3b"] = (12, 512)
-ZOO_SERVE["musicgen-large"] = (8, 512)
-ZOO_SERVE["llava-next-mistral-7b"] = (8, 512)
-ZOO_SERVE["glm4-9b"] = (10, 512)
-ZOO_SERVE["qwen2-7b"] = (7, 512)
-ZOO_SERVE["stablelm-3b"] = (8, 512)
+# about 44 s, musicgen's 21-63 s, llava's 24-40 s, glm4's 22-39 s); each
+# at half its depth or less for phase 28, half that again for phase 29,
+# and half that again for phase 30
+ZOO_SERVE["moonshot-v1-16b-a3b"] = (6, 512)
+ZOO_SERVE["musicgen-large"] = (4, 512)
+ZOO_SERVE["llava-next-mistral-7b"] = (4, 512)
+ZOO_SERVE["glm4-9b"] = (5, 512)
+ZOO_SERVE["qwen2-7b"] = (4, 512)
+ZOO_SERVE["stablelm-3b"] = (4, 512)
 ZOO_GEN = 8                         # generated tokens per served arch
 # billions of parameters at those depths, reckoned from the configs
 # before the port counted them (printed beside Model.param_count; the
-# depths cut for phase 29 from the defs' shapes at the cut depth)
-ZOO_PARAMS_B = {"glm4-9b": 3.28, "qwen2-7b": 2.72,  # 10, 7 layers
-                "stablelm-3b": 0.89,                         # 8 layers
-                "moonshot-v1-16b-a3b": 7.52,                 # 12 layers
+# depths cut for phases 29 and 30 from the defs' shapes at the cut depth)
+ZOO_PARAMS_B = {"glm4-9b": 2.26, "qwen2-7b": 2.02,  # 5, 4 layers
+                "stablelm-3b": 0.57,                         # 4 layers
+                "moonshot-v1-16b-a3b": 4.09,                 # 6 layers
                 "kimi-k2-1t-a32b": 19.38,
-                "musicgen-large": 0.55, "hymba-1.5b": 0.43,  # 8, 8 layers
-                "llava-next-mistral-7b": 2.01}               # 8 layers
+                "musicgen-large": 0.28, "hymba-1.5b": 0.26,  # 4, 4 layers
+                "llava-next-mistral-7b": 1.13}               # 4 layers
 # phase 22: layers at full width, so that two replicas with f32 AdamW
 # moments and the f32 dual and neighbour-mean rows fit in 80 GB (about 23
 # bytes per parameter per node with the activations, as the static
 # training slice measured).
 # kimi-k2 does not train on the card: its embedding and one layer are
 # 19.4 B parameters a node, about 450 GB of training state. hymba is cut to
-# 4 layers for time, not memory: its SSM loop is an eager step per token
-# in every layer, so a local step's time grows with the depth.
+# 4 layers for time, not memory (2 since phase 30): its SSM loop is an
+# eager step per token in every layer, so a local step's time grows with
+# the depth.
 ZOO_TRAIN_LAYERS = {"glm4-9b": 1, "qwen2-7b": 1, "moonshot-v1-16b-a3b": 1,
                     "llava-next-mistral-7b": 4, "stablelm-3b": 8,
-                    "rwkv6-7b": 2, "musicgen-large": 8, "hymba-1.5b": 4}
+                    "rwkv6-7b": 2, "musicgen-large": 8, "hymba-1.5b": 2}
 ZOO_TRAIN_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
                   "--eta0", "0.1", "--wire-codec", "native",
                   "--local-steps", "2", "--steps", "4", "--batch-per-node",
@@ -2502,7 +2535,7 @@ RANKS_PROCS = 3
 RANKS_TIMEOUT_S = 480           # one torchrun call, start to end
 # phase 26: the sharded consensus state, J 2 x S 2 gloo ranks on the card
 SHARD_ARCH = "stablelm-3b"
-SHARD_LAYERS = 4
+SHARD_LAYERS = 2                # 4 until phase 30 needed the time
 SHARD_NODES, SHARD_S = 2, 2
 SHARD_ARGS = ["--arch", SHARD_ARCH, "--nodes", str(SHARD_NODES), "--scheme",
               "nap", "--topology", "ring", "--eta0", "0.1", "--local-steps",
@@ -2516,7 +2549,7 @@ SHARD_RUNS = {"native": ("native", []), "fp8_e4m3": ("fp8_e4m3", []),
 # phase 27: the round pipeline and the async executor across ranks, J 3 on
 # a ring (offsets 1, 2), three gloo ranks sharing the card, a node a rank
 PIPE_ARCH = "stablelm-3b"
-PIPE_LAYERS = 4
+PIPE_LAYERS = 2                 # 4 until phase 30 needed the time
 PIPE_NODES = 3
 PIPE_DEPTH = 2
 PIPE_ARGS = ["--arch", PIPE_ARCH, "--nodes", str(PIPE_NODES), "--scheme",
@@ -2758,6 +2791,8 @@ def ranks_worker(spec_path) -> int:
         return ep_worker(spec, cfg, rank, os.path.dirname(spec_path))
     if spec.get("inpod"):
         return inpod_worker(spec, cfg, rank, os.path.dirname(spec_path))
+    if spec.get("rep"):
+        return rep_worker(spec, cfg, rank, os.path.dirname(spec_path))
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -4534,7 +4569,8 @@ def host_gb() -> tuple[float, float]:
     return now, peak
 
 
-def reckon_inpod_peak(cfg, mesh, rows, seq, total=None) -> dict:
+def reckon_inpod_peak(cfg, mesh, rows, seq, total=None,
+                      whole_rows=False) -> dict:
     """Phase 29's peak device bytes a rank, reckoned from the code before
     the run (PERF.md). Resident: the shards' bf16 parameters and f32
     AdamW moments (``fsdp.shard_bytes``) and, in a consensus run, the f32
@@ -4548,19 +4584,33 @@ def reckon_inpod_peak(cfg, mesh, rows, seq, total=None) -> dict:
     one, 2 B an element of [1, total / S] each; the gathered payload, 2 B
     an element; three f32 logit-sized tensors). ``whole`` is the replicated
     layout: the node's parameters and moments whole on every rank (10 B a
-    parameter), with the same slabs and transients besides."""
+    parameter), with the same slabs and transients besides.
+
+    A dense arch gathers a whole layer instead of its experts (2 x 2 B a
+    parameter of the layer). With ``whole_rows`` (phase 30, the flat rows
+    replicated in-pod) each rank holds the whole f32 lam and
+    theta_bar_prev rows (8 B an element of [1, total]), and the round's
+    probes hold the whole packed row and the received one (2 B an element
+    each: a native payload is a view of it) beside the logits."""
     from repro_torch.distributed import fsdp
     from repro_torch.models import build_model
     model = build_model(cfg)
     n = model.param_count()
     sb = fsdp.shard_bytes(model, mesh)
     logits = 3 * 4 * rows * seq * cfg.vocab
-    experts = cfg.n_layers * 3 * cfg.moe.num_experts * cfg.d_model \
-        * cfg.moe.expert_d_ff
+    if cfg.moe is not None:
+        experts = cfg.n_layers * 3 * cfg.moe.num_experts * cfg.d_model \
+            * cfg.moe.expert_d_ff
+        gathered = experts // (cfg.n_layers * mesh.model)
+    else:
+        gathered = (n - 2 * cfg.vocab * cfg.d_model) // cfg.n_layers
     local = sb["params"] + 4 * 2 * cfg.vocab * cfg.d_model \
-        + 2 * 2 * experts // (cfg.n_layers * mesh.model) + logits
+        + 2 * 2 * gathered + logits
     rnd, slabs = 0, 0
-    if total is not None:
+    if total is not None and whole_rows:
+        slabs = 8 * total
+        rnd = max(2 * 2 * total, 2 * 2 * total + logits)
+    elif total is not None:
         slabs = 8 * (total // mesh.size)
         rnd = max(2 * 2 * total,
                   2 * 2 * (total // mesh.size) + 2 * total + logits)
@@ -5026,6 +5076,364 @@ def inpod_slice(card_line):
         peak_gb=[max(r["a"]["peak_gb"], r["b"]["peak_gb"]) for r in ranks])
 
 
+# phase 30: the reference launcher's own command in the port: the consensus
+# state replicated in-pod (stablelm-3b at full width, 2 of 32 layers, J 2 x
+# data 1 x model 2 on 4 gloo ranks sharing the card), and checkpoint/resume
+REP_ARCH = "stablelm-3b"
+REP_LAYERS = 2
+REP_NODES = 2
+REP_MESH = (1, 2)
+REP_ARGS = ["--arch", REP_ARCH, "--nodes", str(REP_NODES), "--scheme",
+            "nap", "--topology", "ring", "--eta0", "0.1", "--local-steps",
+            "2", "--steps", "4", "--batch-per-node", "4", "--seq", "256",
+            "--lr", "3e-4", "--wire-codec", "native", "--device", DEV]
+REP_CKPT_AT = 2                 # 30b: the first run stops at this step
+REP_PEAKS_GB = 64.0             # four ranks' reckoned peaks, at most
+
+
+def rep_digests(state, specs=None, mesh=None, pod=None, cols=None):
+    """Digests of a consensus state's parameter and moment rows (a rank's
+    shards, or with ``mesh`` and ``pod`` the one process's node ``pod``
+    cut to every in-pod rank's shards), its lam and theta_bar_prev rows
+    (whole, or the columns ``cols``) and its replicated eta, mask and
+    liveness."""
+    from repro_torch import tree as tree_lib
+    _, rep = state_digests(state, 0)
+    if mesh is None:
+        first = lambda t: [digest(x[0]) for x in tree_lib.leaves(t)]
+        return dict(params=first(state.params), m=first(state.opt.m),
+                    lam=digest(state.lam[0]),
+                    bar=digest(state.theta_bar_prev[0]), replicated=rep)
+    cols = slice(None) if cols is None else cols
+    node = lambda t: tree_lib.tree_map(lambda x: x[pod], t)
+    return {"".join(map(str, c)): dict(
+        params=shard_digests(node(state.params), specs, mesh, c),
+        m=shard_digests(node(state.opt.m), specs, mesh, c))
+        for c in mesh.all_coords()} | dict(
+        lam=digest(state.lam[pod, cols]),
+        bar=digest(state.theta_bar_prev[pod, cols]), replicated=rep)
+
+
+def rep_run(cfg, args_list, grid):
+    """One phase-30 run through ``launch.train.run`` on ``grid``
+    (``traced_train``: counters from 0, the kernel's device ms), with this
+    rank's digests, numbers and byte counts."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record, state, ms, _, _ = traced_train(
+        cfg, train_lib.parse_args(args_list), grid)
+    out = dict(rep_digests(state), rounds=record["rounds"],
+               losses=record["losses"], step_s=record["step_seconds"],
+               kernel_ms=ms, counts=record["counts"],
+               start_step=record["start_step"],
+               lam_shape=list(state.lam.shape),
+               state_bytes=tree_bytes(state.params, state.opt.m,
+                                      state.opt.v)
+               + nbytes(state.lam) + nbytes(state.theta_bar_prev),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               total=record["layout"].total,
+               block_size=record["layout"].block_size,
+               deg=len(record["offsets"]))
+    out["shard_bytes"] = tree_bytes(state.params, state.opt.m, state.opt.v)
+    del state, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rep_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of phase 30 (``chip_smoke.py --ranks-worker SPEC`` with
+    ``"rep"`` in the spec). Without ``"resume"``: 30a's replicated run and
+    its ``--shard-consensus`` twin, each on its grid over one process
+    group, then 30b's run to step ``REP_CKPT_AT`` checkpointing into
+    ``spec["ckpt"]``; with it, 30b's fresh run resuming from there to step
+    4. The save and restore seconds are the host's around
+    ``checkpoint.save_async`` and ``wait_pending`` (the writes, barriers
+    and rename) and ``restore``. This rank's results into
+    ``rank<r>.json``."""
+    from repro_torch import checkpoint
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.launch.mesh import init_ranks
+    out = {"rank": rank}
+    timed = {"save_async": [], "wait_pending": [], "restore": []}
+    saved = {k: getattr(checkpoint, k) for k in timed}
+
+    def timing(name):
+        fn = saved[name]
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            timed[name].append(time.perf_counter() - t0)
+            return res
+        return call
+    for k in timed:
+        setattr(checkpoint, k, timing(k))
+    ckpt = ["--ckpt-dir", spec["ckpt"]]
+    # the grids share one process group, which the replicated grid's
+    # close() ends
+    grid = init_ranks(REP_NODES, DEV, backend="gloo", mesh=REP_MESH)
+    try:
+        if spec.get("resume"):
+            # --ckpt-every past the run: the resumed run saves nothing
+            out["resumed"] = rep_run(cfg, REP_ARGS + ckpt + [
+                "--ckpt-every", "100"], grid)
+        else:
+            out["rep"] = rep_run(cfg, REP_ARGS, grid)
+            out["pod"], out["coords"] = grid.pod, list(grid.mesh.coords)
+            empty_host_cache()
+            out["sharded"] = rep_run(cfg, REP_ARGS + ["--shard-consensus"],
+                                     init_ranks(REP_NODES, DEV,
+                                                backend="gloo",
+                                                shard_consensus=True,
+                                                mesh=REP_MESH))
+            empty_host_cache()
+            out["first"] = rep_run(cfg, REP_ARGS + ckpt + [
+                "--steps", str(REP_CKPT_AT), "--ckpt-every",
+                str(REP_CKPT_AT)], grid)
+            step = os.path.join(spec["ckpt"], f"step_{REP_CKPT_AT:010d}")
+            mine = [f"leaves.rank{rank:05d}.npz"] + (
+                ["leaves.npz", "manifest.msgpack"] if rank == 0 else [])
+            out["written"] = sum(os.path.getsize(os.path.join(step, f))
+                                 for f in mine)
+    finally:
+        grid.close()
+        for k, fn in saved.items():
+            setattr(checkpoint, k, fn)
+    out.update(timed=timed, host_gb=host_gb())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def rep_compare(one_rep, one_sh, layouts) -> dict:
+    """The replicated and the sharded one-process runs' states: the
+    largest |difference| of the parameters, of lam and of theta_bar_prev,
+    each unpacked by its run's layout, leaf by leaf."""
+    from repro_torch import tree as tree_lib
+    out = {"params": 0.0, "lam": 0.0, "bar": 0.0}
+    for a, b in zip(tree_lib.leaves(one_rep.params),
+                    tree_lib.leaves(one_sh.params), strict=True):
+        out["params"] = max(out["params"],
+                            float((a.float() - b.float()).abs().max()))
+    for key, name in (("lam", "lam"), ("bar", "theta_bar_prev")):
+        ua = layouts[0].unpack(getattr(one_rep, name))
+        ub = layouts[1].unpack(getattr(one_sh, name))
+        for a, b in zip(tree_lib.leaves(ua), tree_lib.leaves(ub),
+                        strict=True):
+            out[key] = max(out[key], float((a - b).abs().max()))
+    return out
+
+
+def rel_err(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def replicated_slice(card_line):
+    """Phase 30: the reference launcher's command, the consensus state
+    replicated in-pod (a) and checkpoint/resume (b), one process against 4
+    gloo ranks sharing the card. Returns the round kernel's launches and
+    times."""
+    import shutil
+    import torch
+    from repro_torch import resolve_device
+    from repro_torch.distributed import fsdp, local_mesh, trivial_grid
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten
+    t0 = time.perf_counter()
+    cfg = zoo_config(REP_ARCH, REP_LAYERS)
+    mesh = local_mesh(*REP_MESH, DEV)
+    defs = build_model(cfg).param_defs()
+    bs = flatten.auto_block_size(defs)
+    total = flatten.FlatLayout.for_tree(defs, block_size=bs,
+                                        node_axis=False).total
+    reck = reckon_inpod_peak(cfg, mesh, 4, 256, total, whole_rows=True)
+    check(4 * reck["peak"] <= REP_PEAKS_GB * 1e9, f"phase 30: four ranks' "
+          f"reckoned peaks {4 * reck['peak'] / 1e9:.2f} GB pass "
+          f"{REP_PEAKS_GB} GB")
+    model = build_model(cfg)
+    count = model.param_count()
+    specs, _ = fsdp.specs_for(model, mesh)
+    lay_sh = flatten.FlatLayout.for_tree(defs, block_size=bs,
+                                         node_axis=False, shards=2)
+    slay = lay_sh.shard(2)
+    reck_state = fsdp.shard_bytes(model, mesh)["total"] + 8 * total
+    n_rounds = 2
+    want_counts = {"launches": n_rounds, "masked_launches": 0,
+                   "per_block_launches": 0}
+    # (a) one process: the replicated run, then the sharded one
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = lambda: trivial_grid(REP_NODES, resolve_device(DEV),
+                                mesh=REP_MESH)
+    runs = {}
+    for tag, extra in (("rep", []), ("sharded", ["--shard-consensus"])):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        record, state, ms, _, _ = traced_train(
+            cfg, train_lib.parse_args(REP_ARGS + extra), grid())
+        check(record["counts"] == want_counts, f"phase 30 one process "
+              f"{tag}: launches {record['counts']}, want {want_counts}")
+        check(all(map(math.isfinite, record["losses"] + [
+            x["r_max"] for x in record["rounds"]])),
+            f"phase 30 one process {tag}: losses {record['losses']}, "
+            f"rounds {record['rounds']}")
+        runs[tag] = dict(record=record, state=state, ms=ms,
+                         seconds=time.perf_counter() - t1,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    one, one_sh = runs["rep"], runs["sharded"]
+    diff = rep_compare(one["state"], one_sh["state"],
+                       (one["record"]["layout"], lay_sh))
+    metric_err = max(rel_err(a[k], b[k]) for a, b in zip(
+        one["record"]["rounds"], one_sh["record"]["rounds"])
+        for k in ("r_max", "s_max", "f_mean", "eta_mean"))
+    check(max(diff.values()) <= 1e-5 and metric_err <= 5e-4,
+          f"phase 30: the replicated run against the sharded one: "
+          f"|diff| {diff}, metrics {metric_err:.3g} relative")
+    want = {p: rep_digests(one["state"], specs, mesh, p)
+            for p in range(REP_NODES)}
+    want_sh = {(p, s_): rep_digests(one_sh["state"], specs, mesh, p,
+                                    slay.columns(s_))
+               for p in range(REP_NODES) for s_ in range(2)}
+    for r in runs.values():
+        del r["state"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    t_one = time.perf_counter() - t0
+    # (b) the checkpoint's directory and its free space
+    ckpt = os.path.join(ROOT, "build", "phase30_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    os.makedirs(ckpt)
+    need = 4 * reck_state * 1.2
+    free = shutil.disk_usage(ckpt).free
+    check(free >= need, f"phase 30b: {free / 1e9:.1f} GB free under "
+          f"{ckpt}, the checkpoint needs {need / 1e9:.1f}")
+    try:
+        t1 = time.perf_counter()
+        ranks, call_a = launch_ranks("phase 30", 4, [], REP_LAYERS,
+                                     arch=REP_ARCH, rep=True, ckpt=ckpt)
+        resumed, call_b = launch_ranks("phase 30b", 4, [], REP_LAYERS,
+                                       arch=REP_ARCH, rep=True, ckpt=ckpt,
+                                       resume=True)
+        t_ranks = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec, rec_sh = one["record"], one_sh["record"]
+    for r, b in zip(ranks, resumed):
+        pod, c = r["pod"], "".join(map(str, r["coords"]))
+        tag = f"phase 30a rank {r['rank']} (pod {pod}, {tuple(r['coords'])})"
+        a, sh = r["rep"], r["sharded"]
+        check(a["lam_shape"] == [1, total], f"{tag}: lam {a['lam_shape']}, "
+              f"want the whole row [1, {total}]")
+        same_rounds(tag, {"rank": r["rank"], "rounds": a["rounds"]}, rec)
+        check(a["losses"] == rec["losses"], f"{tag}: losses {a['losses']} "
+              f"!= {rec['losses']}")
+        for name in ("params", "m"):
+            check(a[name] == want[pod][c][name], f"{tag}: {name} digests "
+                  "differ from the one process's")
+        for name in ("lam", "bar", "replicated"):
+            check(a[name] == want[pod][name], f"{tag}: {name} differs from "
+                  "the one process's")
+        check(a["counts"] == want_counts and sh["counts"] == want_counts,
+              f"{tag}: launches {a['counts']}, sharded {sh['counts']}")
+        check(a["state_bytes"] == reck_state, f"{tag}: state "
+              f"{a['state_bytes']} B, reckoned {reck_state}")
+        twin = ranks[r["rank"] ^ 1]["rep"]
+        check(all(a[k] == twin[k] for k in ("lam", "bar", "replicated")),
+              f"{tag}: its in-pod twin's rows differ")
+        s_ = r["rank"] % 2
+        same_rounds(tag + " sharded", {"rank": r["rank"],
+                                       "rounds": sh["rounds"]}, rec_sh)
+        for name in ("params", "m"):
+            check(sh[name] == want_sh[(pod, s_)][c][name],
+                  f"{tag} sharded: {name} digests differ")
+        for name in ("lam", "bar", "replicated"):
+            check(sh[name] == want_sh[(pod, s_)][name],
+                  f"{tag} sharded: {name} differs")
+        tag = f"phase 30b rank {r['rank']}"
+        fin = b["resumed"]
+        check(fin["start_step"] == REP_CKPT_AT, f"{tag}: started at step "
+              f"{fin['start_step']}, want {REP_CKPT_AT}")
+        check(fin["losses"] == a["losses"][REP_CKPT_AT:],
+              f"{tag}: losses {fin['losses']} != the uninterrupted run's "
+              f"{a['losses'][REP_CKPT_AT:]}")
+        for name in ("params", "m", "lam", "bar", "replicated"):
+            check(fin[name] == a[name], f"{tag}: {name} digests differ "
+                  "from the uninterrupted run's")
+        check(r["first"]["losses"] == a["losses"][:REP_CKPT_AT],
+              f"{tag}: the first run's losses differ")
+    gb = 1e9
+    bound = row_bound_ms(total, len(rec["offsets"]), "native", bs)
+    print(f"phase 30: {REP_ARCH} at full width, {REP_LAYERS} of 32 layers, "
+          f"{count / 1e6:.1f} M parameters a node, {total} elements a row, "
+          f"bf16; J {REP_NODES} x data {REP_MESH[0]} x model {REP_MESH[1]}; "
+          f"{time.perf_counter() - t0:.1f} s (one process {t_one:.1f} s, "
+          f"torchrun {call_a:.1f} + {call_b:.1f} s of {t_ranks:.1f} s) "
+          f"[{card_line}]", flush=True)
+    for tag, o in runs.items():
+        print(f"phase 30a one process {tag}: losses {o['record']['losses']}, "
+              f"r_max {[x['r_max'] for x in o['record']['rounds']]}; "
+              f"{o['seconds']:.1f} s, steps " + " ".join(
+                  f"{x:.3f}" for x in o["record"]["step_seconds"])
+              + " s, rounds " + " ".join(
+                  f"{x['seconds']:.3f}" for x in o["record"]["rounds"])
+              + " s; consensus_round " + " ".join(
+                  f"{x:.3f}" for x in o["ms"])
+              + f" ms; peak {o['peak_gb']:.2f} GB [{card_line}]", flush=True)
+    print(f"phase 30a replicated vs sharded (one process): |diff| params "
+          f"{diff['params']:.3g}, lam {diff['lam']:.3g}, theta_bar_prev "
+          f"{diff['bar']:.3g} (bound 1e-5); residual metrics "
+          f"{metric_err:.3g} relative (bound 5e-4)", flush=True)
+    for r in ranks:
+        a = r["rep"]
+        print(f"phase 30a rank {r['rank']} (pod {r['pod']}, "
+              f"{tuple(r['coords'])}): state {a['state_bytes'] / gb:.3f} GB "
+              f"(reckoned {reck_state / gb:.3f}: shards "
+              f"{a['shard_bytes'] / gb:.3f}, whole rows "
+              f"{8 * total / gb:.3f}), peak {a['peak_gb']:.2f} GB (reckoned "
+              f"{reck['peak'] / gb:.2f}); steps " + " ".join(
+                  f"{x:.3f}" for x in a["step_s"]) + " s, rounds "
+              + " ".join(f"{x['seconds']:.3f}" for x in a["rounds"])
+              + " s; consensus_round on the whole row " + " ".join(
+                  f"{x:.3f}" for x in a["kernel_ms"])
+              + f" ms (bound {bound:.3f} ms); sharded: peak "
+              f"{r['sharded']['peak_gb']:.2f} GB, rounds " + " ".join(
+                  f"{x['seconds']:.3f}" for x in r["sharded"]["rounds"])
+              + " s, slab kernel " + " ".join(
+                  f"{x:.3f}" for x in r["sharded"]["kernel_ms"])
+              + f" ms [{card_line}]", flush=True)
+    for r, b in zip(ranks, resumed):
+        t, tb = r["timed"], b["timed"]
+        print(f"phase 30b rank {r['rank']}: wrote {r['written'] / gb:.3f} GB "
+              f"(reckoned {reck_state / gb:.3f}); save_async "
+              + " ".join(f"{x:.3f}" for x in t["save_async"])
+              + f" s (the host copy), wait_pending "
+              f"{t['wait_pending'][-1]:.3f} s (the writes, barriers and "
+              "rename); restore "
+              + " ".join(f"{x:.3f}" for x in tb["restore"])
+              + f" s (warm page cache); host peak {r['host_gb'][1]:.2f} GB "
+              f"(first run), {b['host_gb'][1]:.2f} GB (resumed run); final "
+              f"digests equal the uninterrupted run's [{card_line}]",
+              flush=True)
+    print("phase 30: NCCL across cards has not run: the ranks share one "
+          "card, over gloo", flush=True)
+    ms = [x for r in ranks for x in r["rep"]["kernel_ms"][1:]]
+    launches = 2 * n_rounds + sum(
+        r[k]["counts"]["launches"] for r in ranks
+        for k in ("rep", "sharded", "first")) + sum(
+        b["resumed"]["counts"]["launches"] for b in resumed)
+    return dict(launches=launches, whole_row_ms=float(np.median(ms)),
+                whole_row_bound_ms=bound, total=total,
+                seconds=time.perf_counter() - t0)
+
+
 def build_phase():
     """Phase 2: build every source (one nvcc each, all started together),
     print each kernel's registers and spills (nvcc's -Xptxas -v) and its
@@ -5342,6 +5750,13 @@ def main() -> int:
     print(f"inpod slice: phase 29 {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # -- 30. the reference launcher's command: the consensus state
+    # replicated in-pod, and checkpoint/resume on the same 4 ranks ---------
+    t0 = time.perf_counter()
+    rep = replicated_slice(card_line)
+    print(f"replicated slice: phase 30 {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
     t0 = time.perf_counter()
     paper_phases(card_line)
@@ -5360,11 +5775,14 @@ def main() -> int:
                      + sharded["native"]["launches"]
                      + pipe["sync native"]["launches"]
                      + pipe["sync native depth 1"]["launches"]
-                     + inpod["launches"],
+                     + inpod["launches"] + rep["launches"],
                      full_numbers, in_round_ms=static["in_round_ms"],
                      inpod={k: inpod[k] for k in (
                          "launches", "one_process_ms", "one_process_bound_ms",
                          "rank_ms", "rank_bound_ms")},
+                     replicated={k: rep[k] for k in (
+                         "launches", "whole_row_ms", "whole_row_bound_ms",
+                         "total")},
                      nccl1_launches=nccl1["launches"],
                      sharded=sharded["native"],
                      pipelined_ranks=pipe["sync native"],

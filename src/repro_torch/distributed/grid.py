@@ -6,7 +6,11 @@ Without sharding, rank r of R holds the contiguous block of nodes
 (``ConsensusConfig.shard_consensus``), a run has R = J * S ranks: rank r
 holds node ``r // S`` (its pod) and slab ``r % S`` of that node's flat
 rows, as the reference's in-pod devices each hold a slab of their pod's
-node.
+node. Without it but with an in-pod mesh (the reference's default,
+``shard_consensus`` off), the S ranks of a pod each hold the node's whole
+flat rows, the same bits on each (``RankGrid.replicated``): no rank holds
+a slab. Either way the J ranks with the same in-pod index, one a pod, form
+the exchange group (``shard_group``).
 
 With an in-pod mesh (``RankGrid.mesh``, the reference's ``data`` and
 ``model`` axes inside each pod), the S = data * model ranks of a pod also
@@ -40,6 +44,13 @@ class RankGrid:
     that hold slab s (``shard_group``, in node order) exchange and gather
     per node. The trivial grid with S > 1 is one process computing an
     S-way sharded run whole: the sharded layout and wire, every slab.
+
+    ``replicated``: the S ranks of a pod share its node without cutting
+    its flat rows: each holds them whole, with the same bits as its
+    in-pod twins (the reference's consensus state replicated in-pod under
+    an in-pod mesh). Its ``shard`` is its in-pod index, and its
+    ``shard_group`` (the ranks of the same index across the pods) the
+    group it exchanges and gathers over.
     """
 
     world: int                      # ranks R
@@ -56,6 +67,7 @@ class RankGrid:
     inpod_group: Any = None         # the S ranks of this rank's node
     shard_group: Any = None         # the J ranks holding slab ``shard``
     mesh: Mesh | None = None        # the pod's data x model mesh, if any
+    replicated: bool = False        # the S ranks hold the rows whole
 
     @property
     def pod(self) -> int:
@@ -89,7 +101,8 @@ class RankGrid:
     @property
     def holds_slab(self) -> bool:
         """This rank holds one slab of its node's flat rows (not all)."""
-        return self.shards > 1 and self.inpod_group is not None
+        return (self.shards > 1 and self.inpod_group is not None
+                and not self.replicated)
 
     @property
     def staged(self) -> bool:
@@ -109,7 +122,9 @@ def trivial_grid(num_nodes: int, device: torch.device | str,
     slab of the S-way sharded layout), no process group. ``mesh`` ``(data,
     model)`` (S = data * model) is the one-process counterpart of the
     pods' in-pod mesh: every node's parameters whole, each local step
-    computed shard by shard (``local_mesh``)."""
+    computed shard by shard (``local_mesh``); whether its flat rows are
+    sharded (the S slabs) or replicated in-pod (whole) is the trainer's
+    ``shard_consensus``."""
     dev = torch.device(device)
     pod_mesh = None
     if mesh is not None:

@@ -22,11 +22,14 @@ exchange then stages its rows through host memory. NCCL does not run two
 ranks on one device, so that combination raises before any NCCL call, and
 nothing picks another backend or device on its own.
 
-With ``mesh=(data, model)`` as well (the reference's ``--mesh``: the
-in-pod axes), the S = data * model ranks of each pod form a ``data x
-model`` mesh (``RankGrid.mesh``): rank r is pod ``r // S`` at ``((r % S)
-// model, (r % S) % model)``, with the process groups of its pod's data
-and model axes, and holds its shards of the node's parameters and moments.
+With ``mesh=(data, model)`` (the reference's ``--mesh``: the in-pod
+axes), the S = data * model ranks of each pod form a ``data x model``
+mesh (``RankGrid.mesh``): rank r is pod ``r // S`` at ``((r % S) //
+model, (r % S) % model)``, with the process groups of its pod's data and
+model axes, and holds its shards of the node's parameters and moments.
+With ``shard_consensus`` as well each also holds slab ``r % S`` of the
+node's flat rows; without it (the reference's default) each holds them
+whole (``RankGrid.replicated``).
 
 ``init_mesh`` does the same for a plain ``data x model`` mesh
 (``distributed.sharding.Mesh``: expert-parallel serving and
@@ -145,18 +148,16 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
     whole on ``trivial_grid(J, device, shards=S)``.) Every round path runs
     on every grid: sync, dynamic and async rounds, pipelined or not.
 
-    ``mesh`` ``(data, model)``: the pods' in-pod mesh, S = data * model
-    (needs ``shard_consensus``; a world of J * S ranks, or one process,
-    which computes the run whole on ``trivial_grid(J, shards=S, mesh=)``).
+    ``mesh`` ``(data, model)``: the pods' in-pod mesh, S = data * model,
+    on a world of J * S ranks, or one process, which computes the run
+    whole on ``trivial_grid(J, mesh=)``. Without ``shard_consensus`` the
+    S ranks of a pod hold its flat rows whole (``RankGrid.replicated``).
+    S > 1 ranks a node with neither a mesh nor ``shard_consensus`` is
+    refused: the reference has no such grid.
     """
     world = _world_size(world_size)
     if mesh is not None:
         data, model = (int(v) for v in mesh)
-        if not shard_consensus:
-            raise ValueError(
-                "an in-pod mesh needs --shard-consensus: the reference's "
-                "replicated-in-pod consensus state with sharded parameters "
-                "is not ported")
         if world > 1 and world != num_nodes * data * model:
             raise ValueError(
                 f"a data {data} x model {model} in-pod mesh over "
@@ -167,7 +168,7 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
                                 resolve_device(torch.device(device)),
                                 mesh=(data, model))
     n_shards = 1
-    if shard_consensus and world > 1:
+    if (shard_consensus or mesh is not None) and world > 1:
         if world % num_nodes:
             raise ValueError(
                 f"--shard-consensus: the world size {world} is not a "
@@ -202,7 +203,7 @@ def init_ranks(num_nodes: int, device: str | torch.device, *,
                         device=dev, backend=backend, group=dist.group.WORLD,
                         shards=n_shards, shard=shard,
                         inpod_group=pods[pod], shard_group=slabs[shard],
-                        mesh=pod_mesh)
+                        mesh=pod_mesh, replicated=not shard_consensus)
     per = num_nodes // world
     return RankGrid(world=world, rank=rank, local_rank=local_rank,
                     nodes_per_rank=per, node_lo=rank * per,

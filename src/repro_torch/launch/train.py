@@ -49,6 +49,13 @@ Examples:
       --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-4b \\
       --reduced --nodes 4 --async --max-staleness 1 --slow-node 0:3.0 \\
       --pipeline-offsets 2 --local-steps 1 --steps 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+      --reduced --steps 40 --scheme nap --topology ring --local-steps 4 \\
+      --mesh debug --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch moonshot-v1-16b-a3b --reduced --nodes 2 --mesh debug \\
+      --steps 4 --local-steps 2 --device cpu
 
 With ``--obs-dir`` the rounds append to the device metrics rings, the
 launcher drains them every ``--obs-drain-every`` rounds into the
@@ -62,17 +69,33 @@ a torch.profiler Chrome trace of the first N rounds under
 lays J pods x ``data`` x ``model`` devices on one mesh (``debug``: pod 2 x
 data 2 x model 2, ``make_debug_mesh(multi_pod=True)``), the port starts
 its ranks with torchrun and ``--mesh`` splits each node's S = R / J ranks
-into ``data x model``: ``debug`` is data 2 x model 2 (with
-``--shard-consensus``, R = 4 J ranks, or one process computing the run
-whole), each rank holding its shards of the node's parameters and moments
-and running the local step and the probes under the pod's mesh
-(``distributed.fsdp``); ``none`` (the default here) keeps the node's
-parameters whole on each of its ranks; ``prod`` (16 x 16 a pod) is
-refused. The number of pods is ``--nodes`` (the reference's mesh fixes it
-at 2; its ``--multi-pod`` has no counterpart). The checkpoint flags come
-with their slice; until then argparse rejects them. The reference's
+into ``data x model``: ``debug`` is data 2 x model 2 (R = 4 J ranks, or
+one process computing the run whole), each rank holding its shards of the
+node's parameters and moments and running the local step and the probes
+under the pod's mesh (``distributed.fsdp``). Without ``--shard-consensus``
+(the reference's default) each of the S ranks holds the node's flat
+consensus rows whole, the same bits as its in-pod twins; with it, one slab
+each. ``none`` keeps the node's parameters whole on each of its ranks;
+``prod`` (16 x 16 a pod) is refused. The port's default is ``none``, where
+the reference's is ``debug``: the reference's default lays its 8 devices
+itself, while here the ranks come from torchrun, and a plain start is one
+process. The number of pods is ``--nodes`` (the reference's mesh fixes it
+at 2; its ``--multi-pod`` has no counterpart). The reference's
 ``--no-async-collectives`` only sets XLA scheduler flags and has no
-counterpart here: argparse rejects it too.
+counterpart here: argparse rejects it.
+
+``--ckpt-dir`` (``repro_torch.checkpoint``, the reference's on-disk
+format): every ``--ckpt-every`` steps the state is saved in the background
+(``save_async``); a run started on a directory that holds a checkpoint
+resumes from its newest step (``resumed from step N``), on the same grid
+only: the checkpoint names its grid, and another grid is refused. Under
+torchrun every rank writes its own rows, slab or shards, and rank 0 the
+replicated state and the manifest. A synchronous run resumed from step k
+equals the uninterrupted run bit for bit. An async run's round clock is
+host state that neither package checkpoints (the reference saves the
+train state only): a resumed async run starts a fresh clock, and its
+rounds after the resume differ from the uninterrupted run's. The obs
+writer and the straggler monitor start afresh too, as the reference's do.
 """
 from __future__ import annotations
 
@@ -83,6 +106,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.async_exec import (AsyncConfig, AsyncExecutor, RoundClock,
                                     straggler_compute)
 from repro_torch.configs import get_config, get_reduced_config
@@ -96,6 +120,7 @@ from repro_torch.models import build_model
 from repro_torch.obs import ObsConfig, ObsWriter, host_span_factory
 from repro_torch.optim import ConsensusConfig, ConsensusTrainer
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.consensus import replicated_leaf
 from repro_torch.runtime import (ElasticController, StragglerMonitor,
                                  aged_out_nodes, node_durations)
 from repro_torch.topology import SCHEDULERS, TopologyConfig
@@ -129,10 +154,11 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", choices=["none", "debug", "prod"],
                     default="none",
                     help="in-pod mesh of each node's S = R / J ranks: debug "
-                         "= data 2 x model 2 (needs --shard-consensus; each "
-                         "rank holds its shards of the node's parameters "
-                         "and moments); none = the parameters whole on "
-                         "every rank; prod (16 x 16 a pod) is refused")
+                         "= data 2 x model 2 (each rank holds its shards of "
+                         "the node's parameters and moments, and the flat "
+                         "consensus rows whole, or one slab of them with "
+                         "--shard-consensus); none = the parameters whole "
+                         "on every rank; prod (16 x 16 a pod) is refused")
     ap.add_argument("--scheme", choices=SCHEMES, default="nap")
     ap.add_argument("--topology", default="ring")
     ap.add_argument("--topo-scheduler", choices=SCHEDULERS,
@@ -177,6 +203,10 @@ def parse_args(argv=None):
                          "scale tail, fp8_* = 1 B/param float8 with "
                          "per-block f32 scales; empty resolves from "
                          "--compression")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: saved every --ckpt-every "
+                         "steps, resumed from when it holds a checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obs-dir", default="",
                     help="observability (repro_torch.obs): drain the device "
@@ -209,10 +239,6 @@ def parse_args(argv=None):
     if args.mesh == "prod":
         ap.error("--mesh prod lays 256 ranks (data 16 x model 16) in each "
                  "pod, which cannot run here; use --mesh debug")
-    if args.mesh != "none" and not args.shard_consensus:
-        ap.error(f"--mesh {args.mesh} needs --shard-consensus: the "
-                 "reference's replicated-in-pod consensus state with "
-                 "sharded parameters is not ported")
     return args
 
 
@@ -230,8 +256,9 @@ def run(cfg: ArchConfig, args, grid=None) -> dict:
     per-block scales; async rounds add ``stale_edges``, ``age_max`` and the
     nodes that advanced), the layout,
     the wire bytes per node per offset, with ``--async`` the executor's
-    summary, and with ``--obs-dir`` the obs rollup (``record["obs"]``) and
-    the profile trace's path (``record["profile"]``).
+    summary, with ``--obs-dir`` the obs rollup (``record["obs"]``) and
+    the profile trace's path (``record["profile"]``), and the step the run
+    started from (``record["start_step"]``: a checkpoint's, or 0).
 
     The local step is not retried: it updates the replicas in place, so a
     replay would start from a half-updated state.
@@ -241,7 +268,9 @@ def run(cfg: ArchConfig, args, grid=None) -> dict:
     writes ``--obs-dir`` and profiles. The process group lives for the
     call, unless the caller passes its own ``grid`` (``init_ranks`` for
     ``args``, or ``trivial_grid(J, device, shards=S)``: one process
-    computing an S-way sharded run whole) and closes it itself."""
+    computing an S-way sharded run whole) and closes it itself. With
+    ``--ckpt-dir`` every rank saves and restores its own part; the writes
+    in flight have finished when this returns."""
     if grid is not None:
         return _run(cfg, args, grid)
     grid = init_ranks(args.nodes, args.device,
@@ -287,6 +316,14 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
     # every rank draws the same one-node parameters from the seed
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(model.init(gen, device))
+    ckpt_ranks = grid if grid.distributed else None
+    ckpt_grid = trainer.grid_spec()
+    start_step = 0
+    if args.ckpt_dir and checkpoint.latest_steps(args.ckpt_dir):
+        state, meta = checkpoint.restore(args.ckpt_dir, state,
+                                         ranks=ckpt_ranks, grid=ckpt_grid)
+        start_step = int(meta["step"])
+        say(f"resumed from step {start_step}", flush=True)
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq,
         batch_per_node=args.batch_per_node, num_nodes=trainer.num_nodes,
@@ -314,7 +351,8 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
     elastic = ElasticController(trainer.graph, topology=trainer.topo_rt)
     record = {"losses": [], "step_seconds": [], "rounds": [],
               "layout": trainer.layout, "offsets": list(trainer.offsets),
-              "wire_bytes": trainer.codec.wire_bytes()}
+              "wire_bytes": trainer.codec.wire_bytes(),
+              "start_step": start_step}
     writer = None
     if args.obs_dir and lead:
         writer = ObsWriter(args.obs_dir, meta={
@@ -341,7 +379,7 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
         say(f"profile trace ({rounds} rounds) -> {record['profile']}",
               flush=True)
     t_start = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         t0 = time.perf_counter()
         state, m = trainer.train_step(state, make_batch(step))
         loss = float(m["loss"])
@@ -426,8 +464,16 @@ def _run(cfg: ArchConfig, args, grid) -> dict:
         record["losses"].append(loss)
         record["step_seconds"].append(dt)
         say(f"{line} {dt * 1e3:.0f}ms", flush=True)
-    say(f"done: {args.steps} steps in {time.perf_counter() - t_start:.1f}s",
-          flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            checkpoint.save_async(
+                args.ckpt_dir, step + 1, state,
+                metadata={"step": step + 1, "arch": cfg.arch_id,
+                          "scheme": args.scheme, "topology": args.topology,
+                          "grid": ckpt_grid},
+                ranks=ckpt_ranks, shared=replicated_leaf)
+    checkpoint.wait_pending()
+    say(f"done: {args.steps - start_step} steps in "
+        f"{time.perf_counter() - t_start:.1f}s", flush=True)
     if prof is not None:                # fewer rounds than asked for
         finish_profile()
     if executor is not None:

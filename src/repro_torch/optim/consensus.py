@@ -38,9 +38,22 @@ with the reference's capacity and drops, the gradients reduce-scattered
 onto the shards and the clip reading the pod's norm. A round packs the
 node's whole flat row from its leaves gathered in-pod (a transient),
 encodes its slab as below, and after the kernel each rank keeps only its
-shards of the new parameters. The in-pod mesh needs the sharded
-consensus state; the reference's replicated-in-pod state with sharded
-parameters is not ported.
+shards of the new parameters.
+
+Replicated in-pod state (an in-pod mesh without ``shard_consensus``, the
+reference's default, ``RankGrid.replicated``): each of the S ranks of a
+pod holds its shards of the node's parameters and moments, as above, and
+the node's whole flat rows (``lam`` and ``theta_bar_prev`` ``[1, total]``,
+with ``async_exec`` the whole ledger rows ``[deg, 1, W]``), the same bits
+as its in-pod twins, as the reference's GSPMD keeps rows sharded over
+``pod`` only. A round packs the node's whole row from its leaves gathered
+in-pod and encodes it whole, exchanges it with the rank of the same
+in-pod coordinates in the neighbour pod (the shard group), probes the
+received row under the pod's mesh with no in-pod gather of the payload,
+makes the same kernel launch on the whole row as its twins, takes the
+residuals from that row's partials with no in-pod sum, and keeps its
+shards of the new parameters. Every replicated value is computed from
+the same bits in the same order on each in-pod rank.
 
 Sharded consensus state (``ConsensusConfig.shard_consensus``, a grid of
 R = J * S ranks, ``RankGrid.shards``): the S ranks of a node's pod hold its
@@ -170,7 +183,8 @@ class TrainState(NamedTuple):
     params: Any                    # tree of [J/R, ...] per-node replicas
     opt: adamw_lib.AdamWState      # moments [J/R, ...] f32, one shared step
     lam: torch.Tensor              # [J/R, total] f32 flat duals (a slab
-    #                                rank's [1, shard_total])
+    #                                rank's [1, shard_total]; a replicated
+    #                                in-pod rank's whole [1, total])
     theta_bar_prev: torch.Tensor   # [J/R, total] f32 neighbor means (eq. 5)
     # replicated on every rank
     penalty: PenaltyState          # [J, J]
@@ -180,6 +194,18 @@ class TrainState(NamedTuple):
     #                                only (a slab rank's [deg, 1, shard W])
     ring: Any = None               # obs.MetricsRing [cap, n_metrics]
     node_ring: Any = None          # obs.NodeRing [cap, J, n_node_cols]
+
+
+# the TrainState fields replicated on every rank (a checkpoint's rank 0
+# writes them once); every other leaf is a rank's own rows, slab or shards
+REPLICATED_FIELDS = (("opt", "step"), ("penalty",), ("step",), ("topo",),
+                     ("ledger", "round"), ("ledger", "w_prev"), ("ring",),
+                     ("node_ring",))
+
+
+def replicated_leaf(path: tuple[str, ...]) -> bool:
+    """Whether the TrainState leaf at ``path`` is the same on every rank."""
+    return any(tuple(path[:len(f)]) == f for f in REPLICATED_FIELDS)
 
 
 class _Window:
@@ -237,10 +263,17 @@ class ConsensusTrainer:
             raise ValueError(f"rank {self.ranks.rank} runs on "
                              f"{self.ranks.device}, not {self.device}")
         n_shards = self.ranks.shards
-        if n_shards > 1 and not consensus.shard_consensus:
-            raise ValueError(f"the rank grid shards each node over "
-                             f"{n_shards} ranks; set ConsensusConfig."
-                             "shard_consensus")
+        if n_shards > 1 and not consensus.shard_consensus \
+                and self.ranks.mesh is None:
+            raise ValueError(f"the rank grid shares each node among "
+                             f"{n_shards} ranks with no in-pod mesh; set "
+                             "ConsensusConfig.shard_consensus")
+        if self.ranks.distributed and n_shards > 1 \
+                and self.ranks.replicated == consensus.shard_consensus:
+            raise ValueError(
+                f"the rank grid holds each node's flat rows "
+                f"{'whole' if self.ranks.replicated else 'in slabs'}, the "
+                f"trainer's shard_consensus is {consensus.shard_consensus}")
         self.sharded = (consensus.shard_consensus and self.num_nodes > 1
                         and n_shards > 1)
         # the pods' in-pod mesh: each rank holds its shards of its node's
@@ -324,6 +357,19 @@ class ConsensusTrainer:
                 covered |= np.roll(np.eye(self.num_nodes, dtype=bool), off,
                                    axis=1)
             self._covered = torch.as_tensor(covered, device=self.device)
+
+    def grid_spec(self) -> dict:
+        """What this trainer's state is laid out by, as a checkpoint
+        records it: the nodes J, the ranks R, the ranks S a node, the
+        in-pod mesh, whether the flat rows are cut into slabs, the wire
+        codec, the flat row's length and the arch."""
+        mesh = self.ranks.mesh
+        return {"nodes": self.num_nodes, "ranks": self.ranks.world,
+                "shards": self.ranks.shards,
+                "mesh": None if mesh is None else [mesh.data, mesh.model],
+                "shard_consensus": bool(self.sharded),
+                "codec": self.codec_name, "total": int(self.layout.total),
+                "arch": self.model.cfg.arch_id}
 
     def _check_circulant(self):
         j = self.num_nodes

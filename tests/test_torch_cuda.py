@@ -713,8 +713,22 @@ def test_cuda_ep_gloo_ranks_equal_one_process(tmp_path):
             assert torch.equal(got[name], want[name].cpu()), (r, name)
 
 
+@pytest.fixture(scope="module")
+def cuda_inpod_ranks(tmp_path_factory):
+    """``torch_inpod_cases.ranks_worker`` as 4 gloo ranks sharing the card,
+    once for the module: its directory and the ranks' outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_inpod_cases as cases
+    from torch_ranks_cases import spawn
+    d = tmp_path_factory.mktemp("cuda_inpod_ranks")
+    spawn(cases.ranks_worker, 4, d, str(d), "cuda", timeout=600)
+    return d, [torch.load(d / f"rank{r}.pt", weights_only=False)
+               for r in range(4)]
+
+
 @pytest.mark.cuda
-def test_cuda_inpod_gloo_ranks_equal_one_process(tmp_path):
+def test_cuda_inpod_gloo_ranks_equal_one_process(cuda_inpod_ranks):
     """The in-pod sharded local step as 4 gloo ranks sharing the card, at
     reduced size (``tests/torch_inpod_cases.py``): make_train_fns on a data
     2 x model 2 mesh (the gathers, reduce-scatters and all-to-alls staged
@@ -722,14 +736,9 @@ def test_cuda_inpod_gloo_ranks_equal_one_process(tmp_path):
     data 1 x model 2 mesh a node; every rank's losses, norms, round
     metrics, parameter and moment shards and slabs equal one process's on
     the card bit for bit."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc")
     import torch_inpod_cases as cases
     from repro_torch.distributed import MeshStats, local_mesh, trivial_grid
-    from torch_ranks_cases import spawn
-    spawn(cases.ranks_worker, 4, tmp_path, str(tmp_path), "cuda")
-    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
-             for r in range(4)]
+    _, ranks = cuda_inpod_ranks
     stats = MeshStats()
     train = cases.run_train(local_mesh(*cases.RANKS_TRAIN_MESH, "cuda",
                                        stats=stats), cases.ARCH,
@@ -739,6 +748,58 @@ def test_cuda_inpod_gloo_ranks_equal_one_process(tmp_path):
                                             mesh=cases.RANKS_CONS_MESH),
                                device="cuda")
     cases.assert_cons_ranks_equal(ranks, cons)
+
+
+@pytest.mark.cuda
+def test_cuda_replicated_ranks_equal_one_process(cuda_inpod_ranks, tmp_path):
+    """The flat rows replicated in-pod on the 4 ranks sharing the card
+    (J 2, data 1 x model 2 a node): the trainer's run and the launcher's
+    async (int8, pipelined) and dynamic (fp8) runs equal one process on
+    ``trivial_grid(2, mesh=(1, 2))`` on the card bit for bit, and the two
+    in-pod ranks of each pod hold the same bits."""
+    import torch_inpod_cases as cases
+    from repro_torch.distributed import trivial_grid
+    _, ranks = cuda_inpod_ranks
+    grid = lambda: trivial_grid(2, "cuda", mesh=cases.RANKS_CONS_MESH)
+    want = cases.run_consensus(grid(), device="cuda", obs=True, shard=False)
+    cases.assert_rep_ranks_equal(ranks, want)
+    for name in cases.PATH_RUNS:
+        record, state = cases.traced_run(
+            cases.cfg(cases.PATH_ARCH),
+            cases.path_args(name, "cuda", str(tmp_path / name)), grid())
+        one = dict(cases.record_numbers(record), **cases.state_rows(state))
+        for rank, r in enumerate(ranks):
+            got, pod = r["paths"][name], rank // 2
+            assert got["losses"] == one["losses"]
+            assert got["rounds"] == one["rounds"]
+            for key in ("lam", "bar"):
+                assert torch.equal(got[key], one[key][pod:pod + 1])
+            for u, v in zip(got["replicated"], one["replicated"],
+                            strict=True):
+                assert torch.equal(u, v), (name, rank)
+    for pod in range(2):
+        a, b = ranks[2 * pod]["rep"], ranks[2 * pod + 1]["rep"]
+        assert torch.equal(a["lam"], b["lam"])
+        assert torch.equal(a["bar"], b["bar"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rows", "slabs", "inpod"])
+def test_cuda_resume_on_ranks_equals_uninterrupted(cuda_inpod_ranks, name):
+    """Through the launcher on the 4 ranks sharing the card: a run resumed
+    from its step-2 checkpoint ends in the same checkpoint bytes as the
+    uninterrupted run (blocks of rows, slabs, replicated in-pod shards)."""
+    import torch_inpod_cases as cases
+    d, ranks = cuda_inpod_ranks
+    step = f"step_{cases.RESUME_STEPS:010d}"
+    base = d / f"resume_{name}"
+    cases.same_checkpoint(str(base / "full" / step),
+                          str(base / "resumed" / step))
+    for r in ranks:
+        got = r["resume"][name]
+        assert got["start_step"] == cases.RESUME_AT
+        assert got["resumed"]["losses"] == \
+            got["full"]["losses"][cases.RESUME_AT:]
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 """Package rules of the PyTorch port.
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
-  reference package ``repro`` (an AST walk over every import).
+  reference package ``repro``, nor ``msgpack`` or ``ml_dtypes``, which the
+  port does not depend on (an AST walk over every import).
 * ``repro_torch`` imports on a machine without CUDA, and importing it
-  loads neither JAX nor the reference; neither does importing any of the
-  port's test modules (they compute the reference in a fresh process):
+  loads none of those; importing any of the port's test modules loads
+  neither JAX nor the reference (they compute the reference in a fresh
+  process):
   one interpreter imports them in turn, with ``sys.modules`` read after
   each.
 * Nothing falls back: a tensor off the CPU never reaches the plain version,
@@ -34,7 +36,7 @@ PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -58,7 +60,7 @@ def test_package_imports_without_cuda_or_jax():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'repro')]\n"
+        "('jax', 'repro', 'msgpack', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),

@@ -15,15 +15,21 @@ devices (``_reference_outputs``, through
   where pairs drop, and the first step's gradients (``jax.grad`` of the
   same loss under the mesh); moonshot's 3 steps again at lr 1e-2;
 * (c) its ``ConsensusTrainer`` on ``(pod 2, data 2, model 2)`` with
-  ``shard_consensus``: reduced moonshot in float32 at its own capacity
-  factor 1.25, nap, ring, local_steps 2, 4 steps.
+  ``shard_consensus`` and without it (the flat rows replicated in-pod,
+  the reference's default): reduced moonshot in float32 at its own
+  capacity factor 1.25, nap, ring, local_steps 2, 4 steps.
 
 The port computes each whole in one process (``local_mesh``,
-``trivial_grid(2, shards=4, mesh=(2, 2))``), from the reference's initial
-parameters. Then (d) the gradient through ``gather_leaf`` and the
-all-to-all path at capacity factor 8.0 (nothing drops) against the whole
-tree's through ``moe_ref``, and (e) spawned gloo ranks on phase 29a's and
-29b's grids against the one-process mesh.
+``trivial_grid(2, mesh=(2, 2))``), from the reference's initial
+parameters, and holds its replicated run against its sharded one as the
+reference holds that pair (1e-5, metrics 5e-4). Then (d) the gradient
+through ``gather_leaf`` and the all-to-all path at capacity factor 8.0
+(nothing drops) against the whole tree's through ``moe_ref``, (e)
+spawned gloo ranks on phase 29a's and 29b's grids against the
+one-process mesh, and (f) the same ranks with the flat rows replicated
+in-pod (the trainer, and the launcher's async and dynamic paths) against
+one process bit for bit, every in-pod twin holding the same bits, and
+the launcher's ``--mesh debug`` on 8 torchrun ranks against one process.
 
 Tolerances:
 * specs exactly;
@@ -46,7 +52,6 @@ Tolerances:
 * the ranks equal the one-process mesh bit for bit, and each holds the
   bytes its specs reckon.
 """
-import fcntl
 import json
 import os
 
@@ -61,7 +66,6 @@ from repro_torch.distributed import MeshStats, fsdp, local_mesh, trivial_grid
 from repro_torch.models import build_model
 from repro_torch.models.model import arch_rules
 from repro_torch.optim.adamw import AdamWConfig
-from torch_ranks_cases import spawn
 from torch_round_cases import one_torch_thread  # noqa: F401 (autouse)
 from torch_round_cases import run_reference
 
@@ -156,30 +160,36 @@ def _reference_outputs():
                 state, _ = step_hi(state, batch)
             put(f"tf/{arch}/p_hi", state.params)
 
-    # (c) the consensus trainer on (pod 2, data 2, model 2)
+    # (c) the consensus trainer on (pod 2, data 2, model 2), the flat rows
+    # sharded in-pod ("cons") and replicated in-pod ("rep", the default)
     c = cfg(cases.ARCH)
     mesh = make_mesh((2,) + cases.CONS_MESH, ("pod", "data", "model"))
-    tr = ConsensusTrainer(jbuild(c), mesh, adamw=AdamWConfig(lr=1e-2),
-                          consensus=ConsensusConfig(
-                              penalty=PenaltyConfig(scheme="nap", eta0=0.1),
-                              topology="ring", local_steps=cases.CONS_LOCAL,
-                              use_fused_kernel=True, shard_consensus=True))
-    state = tr.init_state(jax.random.PRNGKey(0))
-    put("cons/p0", jax.tree_util.tree_map(lambda x: x[0], state.params))
-    data = SyntheticTokens(DataConfig(vocab=c.vocab, seq_len=32,
-                                      batch_per_node=4, num_nodes=2))
-    train, cons = jax.jit(tr.train_step), jax.jit(tr.consensus_step)
-    losses, r_max, eta = [], [], []
-    for s in range(cases.CONS_STEPS):
-        state, m = train(state, data.batch(s))
-        losses.append(float(m["loss"]))
-        if tr.should_sync(s):
-            state, cm = cons(state, data.batch(10**6 + s))
-            r_max.append(float(cm["r_max"]))
-            eta.append(float(cm["eta_mean"]))
-    out.update({"cons/loss": np.asarray(losses),
-                "cons/r_max": np.asarray(r_max),
-                "cons/eta": np.asarray(eta)})
+    for key, shard in (("cons", True), ("rep", False)):
+        tr = ConsensusTrainer(jbuild(c), mesh, adamw=AdamWConfig(lr=1e-2),
+                              consensus=ConsensusConfig(
+                                  penalty=PenaltyConfig(scheme="nap",
+                                                        eta0=0.1),
+                                  topology="ring",
+                                  local_steps=cases.CONS_LOCAL,
+                                  use_fused_kernel=True,
+                                  shard_consensus=shard))
+        state = tr.init_state(jax.random.PRNGKey(0))
+        put(f"{key}/p0", jax.tree_util.tree_map(lambda x: x[0],
+                                                state.params))
+        data = SyntheticTokens(DataConfig(vocab=c.vocab, seq_len=32,
+                                          batch_per_node=4, num_nodes=2))
+        train, cons = jax.jit(tr.train_step), jax.jit(tr.consensus_step)
+        losses, r_max, eta = [], [], []
+        for s in range(cases.CONS_STEPS):
+            state, m = train(state, data.batch(s))
+            losses.append(float(m["loss"]))
+            if tr.should_sync(s):
+                state, cm = cons(state, data.batch(10**6 + s))
+                r_max.append(float(cm["r_max"]))
+                eta.append(float(cm["eta_mean"]))
+        out.update({f"{key}/loss": np.asarray(losses),
+                    f"{key}/r_max": np.asarray(r_max),
+                    f"{key}/eta": np.asarray(eta)})
     return out
 
 
@@ -325,19 +335,81 @@ def test_high_lr_misses_sit_at_adamw_eps(ref):
 
 
 # ------------------------------------------------- (c) consensus trainer ----
-def _cons_port(ref, grid):
-    out = cases.run_consensus(grid, params=cases.params_from(ref, "cons/p0"))
-    return {k: torch.stack(out[k]).numpy() for k in ("loss", "r_max", "eta")}
+def _cons_port(ref, grid, key="cons", shard=None):
+    out = cases.run_consensus(grid, params=cases.params_from(ref, f"{key}/p0"),
+                              shard=shard)
+    return {k: torch.stack(v).numpy() if isinstance(v, list)
+            and k != "replicated" else v for k, v in out.items()}
 
 
-def test_consensus_trainer_matches_reference(ref):
-    """J 2 on the trivial grid with S 4 on a (2, 2) in-pod mesh: the local
-    step and the probes take the all-to-all path and drop as the
-    reference's (losses rtol 1e-4, r_max and eta rtol 1e-3)."""
-    got = _cons_port(ref, trivial_grid(2, "cpu", mesh=cases.CONS_MESH))
-    np.testing.assert_allclose(got["loss"], ref["cons/loss"], rtol=1e-4)
-    np.testing.assert_allclose(got["r_max"], ref["cons/r_max"], rtol=1e-3)
-    np.testing.assert_allclose(got["eta"], ref["cons/eta"], rtol=1e-3)
+@pytest.fixture(scope="module")
+def cons_runs(ref):
+    """The port's J 2 runs on the trivial grid with a (2, 2) in-pod mesh
+    from the reference's initial parameters: the flat rows sharded in-pod
+    (``cons``) and replicated in-pod (``rep``)."""
+    grid = trivial_grid(2, "cpu", mesh=cases.CONS_MESH)
+    return {"cons": _cons_port(ref, grid, "cons", shard=True),
+            "rep": _cons_port(ref, grid, "rep", shard=False)}
+
+
+def _match_reference(ref, got, key):
+    np.testing.assert_allclose(got["loss"], ref[f"{key}/loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["r_max"], ref[f"{key}/r_max"],
+                               rtol=1e-3)
+    np.testing.assert_allclose(got["eta"], ref[f"{key}/eta"], rtol=1e-3)
+
+
+def test_consensus_trainer_matches_reference(ref, cons_runs):
+    """J 2 on the trivial grid with S 4 on a (2, 2) in-pod mesh, the flat
+    rows sharded in-pod: the local step and the probes take the
+    all-to-all path and drop as the reference's (losses rtol 1e-4, r_max
+    and eta rtol 1e-3)."""
+    _match_reference(ref, cons_runs["cons"], "cons")
+
+
+def test_replicated_trainer_matches_reference(ref, cons_runs):
+    """The same with the flat rows replicated in-pod, against the
+    reference's ``shard_consensus=False`` trainer, at the same
+    tolerances."""
+    _match_reference(ref, cons_runs["rep"], "rep")
+
+
+def test_replicated_matches_sharded(ref, cons_runs):
+    """The replicated in-pod run against the sharded one, as the
+    reference's ``test_sharded_matches_unsharded_all_schemes`` holds its
+    pair: parameters, duals and neighbour means within 1e-5, the residual
+    metrics within 5e-4 relative (the sharded layout's padding cuts the
+    row's blocks elsewhere, so its partials sum in another order)."""
+    assert np.array_equal(ref["cons/p0/embed"], ref["rep/p0/embed"])
+    rep, sh = cons_runs["rep"], cons_runs["cons"]
+    for name in ("params", "m", "v"):
+        for (path, a), b in zip(tree_lib.leaves_with_paths(rep[name]),
+                                tree_lib.leaves(sh[name]), strict=True):
+            assert float((a - b).abs().max()) <= 1e-5, (name, path)
+    lay = _layouts()
+    for name in ("lam", "bar"):
+        a = lay["whole"].unpack(rep[name])
+        b = lay["sharded"].unpack(sh[name])
+        for (path, x), y in zip(tree_lib.leaves_with_paths(a),
+                                tree_lib.leaves(b), strict=True):
+            assert float((x - y).abs().max()) <= 1e-5, (name, path)
+    for name in ("r_max", "s_max", "f_mean", "eta"):
+        np.testing.assert_allclose(rep[name], sh[name], rtol=5e-4,
+                                   err_msg=name)
+    np.testing.assert_allclose(rep["loss"], sh["loss"], rtol=1e-5)
+
+
+def _layouts():
+    """The whole row's flat layout of the run's model and the S 4 sharded
+    one (``lam`` and ``bar`` of each run unpack by theirs)."""
+    from repro_torch.optim import flatten
+    defs = build_model(cases.cfg()).param_defs()
+    bs = flatten.auto_block_size(defs)
+    return {"whole": flatten.FlatLayout.for_tree(defs, block_size=bs,
+                                                 node_axis=False),
+            "sharded": flatten.FlatLayout.for_tree(defs, block_size=bs,
+                                                   node_axis=False,
+                                                   shards=4)}
 
 
 def test_consensus_trainer_without_mesh_misses_reference(ref):
@@ -373,19 +445,9 @@ def test_gradients_one_process_mesh_match_moe_ref(whole_grads):
 def ranks(tmp_path_factory):
     """One spawn of 4 gloo ranks per test run (the xdist workers share it
     under a file lock, as ``run_reference`` shares the reference): phase
-    29a's grid, then 29b's."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    d = os.path.join(str(base), "inpod_ranks")
-    with open(d + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(os.path.join(d, "done")):
-            os.makedirs(d, exist_ok=True)
-            spawn(cases.ranks_worker, 4, d, d)
-            open(os.path.join(d, "done"), "w").close()
-    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
-            for r in range(4)]
+    29a's grid, then 29b's, then the replicated in-pod grid and the
+    resume cases (``torch_inpod_cases.ranks_worker``)."""
+    return cases.spawned_ranks(tmp_path_factory)[1]
 
 
 def test_gradients_through_gather_leaf_match_moe_ref(ranks, whole_grads):
@@ -484,18 +546,134 @@ def test_node_ring_sharded_equals_replicated():
 
 
 def test_mesh_refusals():
-    """An in-pod mesh without the sharded consensus state, a world that is
-    not J x data x model, and the launcher's ``--mesh prod`` are refused;
-    ``--mesh debug`` gives data 2 x model 2."""
+    """A world that is not J x data x model, S > 1 ranks a node with
+    neither an in-pod mesh nor the sharded consensus state (the reference
+    has no such grid), a trainer whose ``shard_consensus`` disagrees with
+    its grid's rows, and the launcher's ``--mesh prod`` are refused; an
+    in-pod mesh without ``--shard-consensus`` is the replicated grid, and
+    ``--mesh debug`` gives data 2 x model 2 with or without it."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import init_ranks
-    with pytest.raises(ValueError, match="needs --shard-consensus"):
-        init_ranks(2, "cpu", mesh=(1, 2))
+    from repro_torch.optim import ConsensusConfig, ConsensusTrainer
+    grid = init_ranks(2, "cpu", mesh=(1, 2))
+    assert grid.mesh is not None and grid.shards == 2 and not grid.holds_slab
     with pytest.raises(ValueError, match="needs 8 ranks"):
         init_ranks(2, "cpu", backend="gloo", world_size=4, rank=0,
                    shard_consensus=True, mesh=(2, 2))
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        init_ranks(2, "cpu", backend="gloo", world_size=4, rank=0,
+                   mesh=(2, 2))
+    with pytest.raises(ValueError, match="not a multiple of the world"):
+        init_ranks(2, "cpu", world_size=4, rank=0)
+    model = build_model(cases.cfg("qwen3-4b"))
+    with pytest.raises(ValueError, match="no in-pod mesh"):
+        ConsensusTrainer(model, num_nodes=2, device="cpu",
+                         adamw=AdamWConfig(), consensus=ConsensusConfig(),
+                         ranks=trivial_grid(2, "cpu", shards=2))
+    from repro_torch.distributed import RankGrid
+    rep = RankGrid(world=4, rank=0, local_rank=0, nodes_per_rank=1,
+                   node_lo=0, node_hi=1, device=torch.device("cpu"),
+                   backend="gloo", group=object(), shards=2, shard=0,
+                   inpod_group=object(), shard_group=object(),
+                   mesh=local_mesh(1, 2, "cpu"), replicated=True)
+    assert not rep.holds_slab
+    with pytest.raises(ValueError, match="shard_consensus is True"):
+        ConsensusTrainer(model, num_nodes=2, device="cpu",
+                         adamw=AdamWConfig(), ranks=rep,
+                         consensus=ConsensusConfig(shard_consensus=True))
     with pytest.raises(SystemExit):
         train.parse_args(["--mesh", "prod"])
-    assert train.inpod_mesh(train.parse_args(
-        ["--mesh", "debug", "--shard-consensus"])) == (2, 2)
+    for extra in ([], ["--shard-consensus"]):
+        assert train.inpod_mesh(train.parse_args(
+            ["--mesh", "debug"] + extra)) == (2, 2)
     assert train.inpod_mesh(train.parse_args([])) is None
+
+
+# ----------------------------------------- (f) replicated in-pod state ----
+@pytest.fixture(scope="module")
+def rep_one_process():
+    return cases.run_consensus(trivial_grid(2, "cpu",
+                                            mesh=cases.RANKS_CONS_MESH),
+                               obs=True, shard=False)
+
+
+def test_replicated_ranks_equal_one_process(ranks, rep_one_process):
+    """The flat rows replicated in-pod on 4 ranks (J 2, data 1 x model 2 a
+    node): every rank's losses, round metrics, its pod's whole flat rows,
+    the replicated leaves (the penalties, the step, the topology state and
+    the rings) and its parameter and moment shards equal one process on
+    ``trivial_grid(2, mesh=(1, 2))`` bit for bit."""
+    cases.assert_rep_ranks_equal(ranks, rep_one_process)
+
+
+def test_inpod_twins_hold_identical_bits(ranks):
+    """The two in-pod ranks of each pod hold the same bits of lam,
+    theta_bar_prev, the ledger rows and every replicated leaf, in the
+    consensus trainer's run and in each of the launcher's paths."""
+    for pod in range(2):
+        a, b = ranks[2 * pod], ranks[2 * pod + 1]
+        runs = [(a["rep"], b["rep"])] + [(a["paths"][n], b["paths"][n])
+                                         for n in cases.PATH_RUNS]
+        for x, y in runs:
+            for name in ("lam", "bar"):
+                assert torch.equal(x[name], y[name]), (pod, name)
+            if x.get("ledger") is not None:
+                assert torch.equal(x["ledger"], y["ledger"]), pod
+            assert len(x["replicated"]) == len(y["replicated"]) > 0
+            for u, v in zip(x["replicated"], y["replicated"]):
+                assert torch.equal(u, v), pod
+
+
+@pytest.mark.parametrize("name", list(cases.PATH_RUNS))
+def test_replicated_paths_ranks_equal_one_process(ranks, name, tmp_path):
+    """The launcher on the replicated in-pod grid with the async executor
+    (pipelined, int8 wire, a slow node) and with the dynamic gated round
+    (fp8 wire), obs rings on: every rank's losses and round metrics, its
+    pod's flat and ledger rows and the replicated leaves equal one process
+    on ``trivial_grid(2, mesh=(1, 2))`` bit for bit."""
+    record, state = cases.traced_run(
+        cases.cfg(cases.PATH_ARCH),
+        cases.path_args(name, "cpu", str(tmp_path / "obs")),
+        trivial_grid(2, "cpu", mesh=cases.RANKS_CONS_MESH))
+    want = dict(cases.record_numbers(record), **cases.state_rows(state))
+    assert want["rounds"] and want["replicated"]
+    for rank, r in enumerate(ranks):
+        got, pod = r["paths"][name], rank // 2
+        assert got["losses"] == want["losses"], rank
+        assert got["rounds"] == want["rounds"], rank
+        for key in ("lam", "bar"):
+            assert torch.equal(got[key], want[key][pod:pod + 1]), key
+        if want["ledger"] is not None:
+            assert torch.equal(got["ledger"], want["ledger"][:, pod:pod + 1])
+        for u, v in zip(got["replicated"], want["replicated"], strict=True):
+            assert torch.equal(u, v), rank
+
+
+def test_launcher_mesh_debug_without_shard_consensus_under_torchrun(capsys):
+    """The launcher's ``--mesh debug`` with the flat rows replicated
+    in-pod (no ``--shard-consensus``) on J 2 x data 2 x model 2 = 8 gloo
+    ranks under torchrun prints the same losses and round metrics as one
+    process computing the run whole; rank 0 alone prints."""
+    import re
+    import subprocess
+    import sys
+
+    from repro_torch.launch.train import main
+    from torch_round_cases import SRC
+    argv = ["--arch", "moonshot-v1-16b-a3b", "--reduced", "--nodes", "2",
+            "--mesh", "debug", "--steps", "4", "--local-steps", "2",
+            "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "8", "-m", "repro_torch.launch.train"] + argv,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert main(argv) == 0
+    one = capsys.readouterr().out
+    line = re.compile(r"^step +\d+ loss \S+(?: \| consensus r=\S+ "
+                      r"eta=\S+)?", re.M)
+    ranked = line.findall(proc.stdout)
+    assert ranked == line.findall(one) and len(ranked) == 4
+    assert sum("consensus r=" in x for x in ranked) == 2
+    assert proc.stdout.count("done: 4 steps") == 1

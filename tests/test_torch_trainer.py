@@ -172,10 +172,16 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch.train import parse_args
-    for flag in (["--ckpt-dir", "x"], ["--mesh", "debug"],
+    for flag in (["--no-async-collectives"], ["--multi-pod"],
+                 ["--mesh", "prod"],
                  ["--health"]):      # --health needs --obs-dir
         with pytest.raises(SystemExit):
             parse_args(flag)
+    # the checkpoint flags (the reference's defaults) and --mesh debug
+    # without --shard-consensus are ported
+    args = parse_args(["--ckpt-dir", "x", "--mesh", "debug"])
+    assert (args.ckpt_dir, args.ckpt_every, args.mesh) == ("x", 10, "debug")
+    assert parse_args([]).ckpt_dir == ""
     # the obs flags are ported
     args = parse_args(["--obs-dir", "x", "--health", "--obs-ring-cap", "4",
                        "--obs-drain-every", "2", "--no-node-ring",
