@@ -9,7 +9,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
   1. card   — print the card's name and power limit; TF32 off.
   2. build  — compile the paths' CUDA kernels from src/repro_torch (one
-              nvcc per source, all started together), then count each
+              nvcc per source, all started together, on a thread of their
+              own while phases 13-15 run on the card), then count each
               kernel's tensor-core (HGMMA, HMMA), asynchronous-copy
               (UTMALDG, LDGSTS) and mbarrier (SYNCS) instructions in
               ``cuobjdump -sass``: each of the bf16 flash kernel's four
@@ -87,9 +88,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
               thousands of small launches, are timed by events around each
               call.
  11. serve  — ``launch.serve.run`` on qwen3-4b and then rwkv6-7b at full
-              width and full depth (36 and 32 layers, random weights from a
-              seed), batch 4, prompt 512, 32 generated tokens, the memory
-              freed between the two. Every counter is set to 0 before each
+              width, 12 of 36 and 8 of 32 layers (cut for the script's
+              time: the replay is an eager decode step a prompt token
+              through every layer), random weights from a seed), batch
+              4, prompt 512, 32 generated tokens, the memory freed
+              between the two. Every counter is set to 0 before each
               run: the prefill must launch the arch's kernel once per
               layer and nothing else (qwen3-4b: every flash launch on the
               tensor-core kernel), the decode no kernel. qwen3-4b: the
@@ -116,7 +119,9 @@ run in float64. The card side runs in this process; the port's CPU side
 of phases 13-15 runs in four worker processes started together with it,
 from the same inits (drawn on the CPU by a torch.Generator and copied).
 Each phase prints its seconds and ms per iteration (host clock around
-``run``, synchronized):
+``run``, synchronized). Phases 13-15 run first, beside the kernel build
+(they need no kernel of the port; the build's compilers share the host's
+cores with them), phases 16 and 17 last, with the card to themselves:
 
  13. paper_fig2 — D-PPCA on §5.1's subspace data (500 x 20, M 5, noise
               0.2 I, 20 nodes), complete / ring / cluster x the six
@@ -162,9 +167,10 @@ The async slice (after phase 8; the edge-gated round kernel on new inputs):
               launcher run on the CPU at reduced size. Prints the local and
               round seconds, the kernel's ms per round from the trace, the
               device's idle share, the peak memory and async_elapsed_s.
-              The same run again without the profiler checks that node 0's
-              parameter, lam and theta_bar_prev rows are bit-identical
-              across every round it does not advance (host copies).
+              The same run again, cut to 8 steps, without the profiler
+              checks that node 0's parameter, lam and theta_bar_prev rows
+              are bit-identical across every round it does not advance
+              (host copies).
  18b. aagree — the reduced float32 async trainer on the card against the
               CPU (J=4, ring, node 0 2x slow, max_staleness 1) with the
               native and the fp8_e5m2 wire; and max_staleness 0 through the
@@ -180,7 +186,7 @@ with the obs rings appended in each round):
 
  19. obs dyn — ``launch.train.run`` on qwen3-4b at full width, 1 layer, 3
               nodes on a ring, nap, the budget scheduler, node 1 dropped
-              after step 3, 1 local step, 12 steps, 4 x 512 tokens per
+              after step 3, 1 local step, 8 steps, 4 x 512 tokens per
               node, lr 3e-4, four times in turns: obs off, obs on
               (``--obs-dir`` in a temporary directory, ring cap 4, drain
               every 4, ``--health``, ``--profile-rounds 2``), obs on
@@ -199,7 +205,8 @@ with the obs rings appended in each round):
               obs-on/obs-off ratio of the step medians (fails above
               1.10), the rings' bytes, each drain's ms and the kernel's
               ms in the profiled rounds.
- 19b. obs async — the same with the async slice's arguments (phase 18):
+ 19b. obs async — the same with the async slice's arguments (phase 18)
+              cut to 8 steps:
               the round clock's Perfetto trace present and valid, and the
               node ring's advance column showing node 0 on one tick in
               four.
@@ -250,8 +257,8 @@ seconds):
               (``ZOO_TRAIN_LAYERS``: glm4-9b, qwen2-7b and moonshot 1
               layer, llava 4, stablelm-3b and musicgen 8, hymba 2,
               rwkv6-7b 2): 2 nodes, ring, nap, eta0 0.1, native wire, lr
-              3e-4, 4 x 512 tokens a node, 4 steps with a round after
-              every second one (the frontend stubs train on embeddings).
+              3e-4, 4 x 512 tokens a node, 2 steps with a round after
+              the second (the frontend stubs train on embeddings).
               Every round launches the ungated kernel once, no other
               kernel runs; its device time per round (CUDA events around
               the launch) is printed beside its byte bound, with the step
@@ -264,14 +271,19 @@ seconds):
               step and one round: loss, r_max and eta to 1e-3, the duals
               to 5e-3 of their norm.
 
-The ranks slice (after phase 19c; the consensus trainer over
-torch.distributed, each rank holding a block of the nodes; the ranks are
-``chip_smoke.py --ranks-worker SPEC`` processes under ``torchrun
---standalone``, each returning digests of its rows, computed on the card):
+The ranks slice (the consensus trainer over torch.distributed, each rank
+holding a block of the nodes; the ranks are ``chip_smoke.py --ranks-worker
+SPEC`` processes under ``torchrun --standalone``, each returning digests
+of its rows, computed on the card). Phases of one world size share a
+torchrun call (``together``): each runs its one-process part, then the
+ranks run every phase's part in turn over one process group, so that the
+call's start and each rank's first warm step are paid once. Phases 24 and
+27 (three ranks) run after phase 19c, then phase 25; phases 26, 29 and 30a
+(four ranks, 30a's part first) after phase 28:
 
  24. ranks  — ``launch.train.run`` on qwen3-4b at full width, 1 layer, 3
               nodes on a ring, nap, eta0 0.1, the budget scheduler, node 1
-              dropped after step 3, 1 local step, 6 steps, 4 x 512 tokens
+              dropped after step 2, 1 local step, 4 steps, 4 x 512 tokens
               a node, lr 3e-4: first as one process, then as three ranks
               of one node each sharing the card over gloo
               (``--dist-backend gloo``: rows staged through pinned host
@@ -291,14 +303,13 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               state and per-round metrics equal to phase 4's run bit for
               bit.
  26. sharded — the consensus state sharded in-pod
-              (``--shard-consensus``): stablelm-3b at full width, 2
-              layers (4 before phase 30 paid for its time), 2 nodes on a
-              ring, nap, eta0 0.1, 4 x 512 tokens a
-              node, lr 3e-4, 4 steps with a round every 2, on the native
-              and then the fp8_e4m3 wire: first each as one process
-              computing the 2-way sharded run whole (on
-              ``trivial_grid(2, shards=2)``), then
-              both in one torchrun call as J 2 x S 2 gloo ranks sharing
+              (``--shard-consensus``): stablelm-3b at full width, 1
+              layer (for the script's time), 2 nodes on a ring, nap,
+              eta0 0.1, 4 x 512 tokens a node, lr 3e-4, 4 steps with a
+              round every 2, on the native and then the fp8_e4m3 wire:
+              first each as one process computing the 2-way sharded run
+              whole (on ``trivial_grid(2, shards=2)``), then in the
+              four-rank torchrun call as J 2 x S 2 gloo ranks sharing
               the card, rank r holding node r // 2 whole and slab r % 2 of
               its flat rows (lam and theta_bar_prev ``[1, total / 2]``).
               Every node's parameters, its lam and theta_bar_prev rows
@@ -312,20 +323,22 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               slab's byte bound, and the exchange's and the in-pod
               gathers' seconds a round. The pod's NCCL path (a card a
               rank) does not run on one card.
- 26b. sharded async — a third run in phase 26's torchrun call: fp8_e4m3,
+ 26b. sharded async — a third run in phase 26's part: fp8_e4m3,
               ``--async``, ``max_staleness`` 1, node 0 4x slow, a round
               after each of 4 steps; each slab rank holds its slab of its
               node's wire ledger rows. Bit for bit against one process,
               the ledger slabs (joined) and w_prev included; every round
               launches the gated per-block kernel on each slab.
  27. pipe   — the round pipeline and the async executor across ranks:
-              stablelm-3b at full width, 2 layers (4 before phase 30),
-              3 nodes on a ring (offsets 1, 2), nap, eta0 0.1, 4 x 512 tokens a node, lr
+              stablelm-3b at full width, 1 layer (for the script's
+              time), 3 nodes on a ring (offsets 1, 2),
+              nap, eta0 0.1, 4 x 512 tokens a node, lr
               3e-4; (a) synchronous static native rounds, 4 steps with a
               round every 2; (b) ``--async``, ``max_staleness`` 1, node 0
               4x slow, fp8_e4m3, a round after each of 6 steps. Each first
-              as one process at ``pipeline_offsets`` 1, then both in one
-              torchrun call as three gloo ranks sharing the card at
+              as one process at ``pipeline_offsets`` 1, then both in the
+              three-rank torchrun call as three gloo ranks sharing the
+              card at
               ``pipeline_offsets`` 2 (two offsets' exchanges in flight
               ahead of the probes): every node's rows, eta, the mask, the
               ledger's rows and w_prev and every round metric equal bit
@@ -368,10 +381,11 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               its shards of the parameters and AdamW moments (a quarter,
               but for the norms and the router); (b) the consensus trainer,
               J 2 ring, nap, native wire, ``shard_consensus``, data 1 x
-              model 2 a node (4 ranks), 4 steps of 4 x 256 tokens a node
-              with a round after every second. Each first as one process
-              (``local_mesh``, ``trivial_grid(2, mesh=(1, 2))``), then as 4
-              gloo ranks sharing the card in one torchrun call (29a on
+              model 2 a node (4 ranks), 2 steps of 4 x 256 tokens a node
+              with a round after the second (for the script's time).
+              Each first as one process (``local_mesh``,
+              ``trivial_grid(2, mesh=(1, 2))``), then as 4 gloo ranks
+              sharing the card in the four-rank torchrun call (29a on
               ``init_mesh``, then 29b on ``init_ranks(mesh=)`` over the
               same process group). Checks: every rank's losses, grad
               norms, round metrics and eta, and the digests of its
@@ -392,7 +406,7 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               across cards does not run on one card.
  30. replicated — the reference launcher's own command: stablelm-3b at
               full width (d 2560, 32 heads of 80, the tensor-core flash
-              route), 2 of 32 layers (416 M parameters a node), bf16, J 2
+              route), 1 of 32 layers (for the script's time), bf16, J 2
               ring, nap, native wire, 4 steps of 4 x 256 tokens a node
               with a round after every second, through
               ``launch.train.run``. (a) The consensus state replicated
@@ -401,7 +415,8 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               2))``), then as 4 gloo ranks sharing the card, each holding
               its shards of its node's parameters and moments and the
               node's whole flat rows; then the same ranks with
-              ``--shard-consensus``. Checks: every rank's round metrics,
+              ``--shard-consensus``, all in the four-rank torchrun call.
+              Checks: every rank's round metrics,
               eta, mask, the digests of its shards and of its pod's whole
               lam and theta_bar_prev equal the one process's bit for bit,
               the two ranks of a pod hold the same row digests, and the
@@ -410,7 +425,7 @@ torch.distributed, each rank holding a block of the nodes; the ranks are
               and means within 1e-5 and the residual metrics within 5e-4
               relative. (b) Checkpoint and resume through the launcher on
               the same ranks: the run to step 2 with ``--ckpt-dir`` and
-              ``--ckpt-every 2`` in the same torchrun call, then a fresh
+              ``--ckpt-every 2`` in the same call, then a fresh
               torchrun that resumes to step 4; every rank's final digests
               equal the uninterrupted run's (a). The free disk space is
               checked first and the directory removed after. Prints each
@@ -479,10 +494,19 @@ ASYNC_LAYERS = 1
 OBS_LAYERS = 1
 OBS_DYN_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
                 "--topo-scheduler", "budget", "--drop-node", "3:1",
-                "--local-steps", "1", "--steps", "12", "--batch-per-node",
+                "--local-steps", "1", "--steps", "8", "--batch-per-node",
                 "4", "--seq", "512", "--lr", "3e-4", "--device", DEV]
+# phase 18's checked run and 19b: the async path's arguments cut to 8
+# steps for the script's time
+OBS_ASYNC_ARGS = ASYNC_ARGS[:ASYNC_ARGS.index("--steps") + 1] + ["8"] + \
+    ASYNC_ARGS[ASYNC_ARGS.index("--steps") + 2:]
+ASYNC_CHECK_ARGS = OBS_ASYNC_ARGS
 SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen-len", "32",
               "--device", DEV]
+# phase 11's depths, cut for the script's time: the prompt's replay is 512
+# eager decode steps through every layer (at full depth, 36 and 32 layers,
+# each arch's phase took 42-43 s on an H100, most of it the replay)
+SERVE_LAYERS = {"qwen3-4b": 12, "rwkv6-7b": 8}
 # the model zoo (phases 20-23): the archs beyond qwen3-4b and rwkv6-7b
 ZOO = ("glm4-9b", "qwen2-7b", "stablelm-3b", "moonshot-v1-16b-a3b",
        "kimi-k2-1t-a32b", "musicgen-large", "hymba-1.5b",
@@ -535,7 +559,7 @@ ZOO_TRAIN_LAYERS = {"glm4-9b": 1, "qwen2-7b": 1, "moonshot-v1-16b-a3b": 1,
                     "rwkv6-7b": 2, "musicgen-large": 8, "hymba-1.5b": 2}
 ZOO_TRAIN_ARGS = ["--nodes", "2", "--scheme", "nap", "--topology", "ring",
                   "--eta0", "0.1", "--wire-codec", "native",
-                  "--local-steps", "2", "--steps", "4", "--batch-per-node",
+                  "--local-steps", "2", "--steps", "2", "--batch-per-node",
                   "4", "--seq", "512", "--lr", "3e-4", "--device", DEV]
 SOURCES = ("consensus_round", "consensus_update", "flash_attention",
            "flash_attention_tc", "rwkv6_scan")
@@ -1243,7 +1267,7 @@ def async_checked(full):
     from repro_torch.launch import train as train_lib
     from repro_torch.optim import consensus as cons_lib
     cfg = dataclasses.replace(full, n_layers=ASYNC_LAYERS)
-    args = train_lib.parse_args(ASYNC_ARGS)
+    args = train_lib.parse_args(ASYNC_CHECK_ARGS)
     orig_step = cons_lib.ConsensusTrainer.consensus_step_async
     orig_launch = ops._cu.launch
     frozen, numbers, pool = [], {}, {}
@@ -1351,7 +1375,9 @@ def async_checked(full):
         cons_lib.ConsensusTrainer.consensus_step_async = orig_step
         ops._cu.launch = orig_launch
     n_frozen = sum(not r["advance"][0] for r in record["rounds"])
-    check(len(frozen) == n_frozen == 9 and all(frozen),
+    # node 0, 4x slow, advances on every fourth tick
+    want_frozen = sum(t % 4 != 3 for t in range(args.steps))
+    check(len(frozen) == n_frozen == want_frozen and all(frozen),
           f"node 0's rows moved in a round it did not advance: {frozen}")
     check(bool(numbers), "no round carried a staleness kick")
     print(f"async frozen rows: node 0 bit-identical across all {n_frozen} "
@@ -2116,17 +2142,17 @@ def scan_case(dtype, card_line, *, seed=0, b=4, t=512, h=64, hd=64,
 
 
 def serve_slice(arch, card_line):
-    """Phase 11: ``launch.serve.run`` at full width and depth (every
-    counter from 0), then one more prefill and 8 decode steps of the same
-    model under the profiler (the profiler's own host cost would inflate
-    the served run's times). Returns the kernel's launches and its median
-    time per launch in the traced prefill."""
+    """Phase 11: ``launch.serve.run`` at full width, ``SERVE_LAYERS``
+    deep (every counter from 0), then one more prefill and 8 decode steps
+    of the same model under the profiler (the profiler's own host cost
+    would inflate the served run's times). Returns the kernel's launches
+    and its median time per launch in the traced prefill."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=SERVE_LAYERS[arch])
     args = serve.parse_args(["--arch", arch] + SERVE_ARGS)
     # the path's kernel: bf16 attention at hd 128 is the tensor-core one
     kernel, trace_name = (("rwkv6_scan", SCAN_NAME) if cfg.rwkv
@@ -2527,7 +2553,7 @@ def static_slice(full, card_line, codec):
 # -- the ranks slice: the trainer over torch.distributed -------------------
 RANKS_ARGS = ["--nodes", "3", "--scheme", "nap", "--topology", "ring",
               "--eta0", "0.1", "--topo-scheduler", "budget", "--drop-node",
-              "3:1", "--local-steps", "1", "--steps", "6",
+              "2:1", "--local-steps", "1", "--steps", "4",
               "--batch-per-node", "4", "--seq", "512", "--lr", "3e-4",
               "--device", DEV]
 RANKS_LAYERS = 1
@@ -2535,7 +2561,7 @@ RANKS_PROCS = 3
 RANKS_TIMEOUT_S = 480           # one torchrun call, start to end
 # phase 26: the sharded consensus state, J 2 x S 2 gloo ranks on the card
 SHARD_ARCH = "stablelm-3b"
-SHARD_LAYERS = 2                # 4 until phase 30 needed the time
+SHARD_LAYERS = 1                # for the script's time
 SHARD_NODES, SHARD_S = 2, 2
 SHARD_ARGS = ["--arch", SHARD_ARCH, "--nodes", str(SHARD_NODES), "--scheme",
               "nap", "--topology", "ring", "--eta0", "0.1", "--local-steps",
@@ -2549,7 +2575,7 @@ SHARD_RUNS = {"native": ("native", []), "fp8_e4m3": ("fp8_e4m3", []),
 # phase 27: the round pipeline and the async executor across ranks, J 3 on
 # a ring (offsets 1, 2), three gloo ranks sharing the card, a node a rank
 PIPE_ARCH = "stablelm-3b"
-PIPE_LAYERS = 2                 # 4 until phase 30 needed the time
+PIPE_LAYERS = 1                 # for the script's time
 PIPE_NODES = 3
 PIPE_DEPTH = 2
 PIPE_ARGS = ["--arch", PIPE_ARCH, "--nodes", str(PIPE_NODES), "--scheme",
@@ -2775,24 +2801,61 @@ def traced_train(cfg, args, grid=None, extra=None):
 
 def ranks_worker(spec_path) -> int:
     """One rank of a torchrun call (``chip_smoke.py --ranks-worker
-    SPEC``): ``traced_train`` on the spec's arguments and depth, then this
-    rank's digests and numbers into ``rank<r>.json`` beside the spec."""
+    SPEC``): each part of the spec's chain in turn (``rank_part``), its
+    results under ``part<i>/``; then this rank's seconds in each part into
+    ``seconds<r>.json``. The parts share one process group (each grid's
+    ``close`` waits for the chain's end: a group made again would find the
+    first one's addresses in torchrun's store); between parts the device's
+    and the host's cached blocks are let go."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import grid as grid_lib
+    from repro_torch.distributed.exchange import empty_host_cache
+    with open(spec_path) as f:
+        chain = json.load(f)["chain"]
+    rank = int(os.environ["RANK"])
+    top = os.path.dirname(spec_path)
+    seconds = []
+    close = grid_lib.RankGrid.close
+    grid_lib.RankGrid.close = lambda self: None
+    try:
+        for n, part in enumerate(chain):
+            t0 = time.perf_counter()
+            out_dir = os.path.join(top, f"part{n}")
+            os.makedirs(out_dir, exist_ok=True)
+            rc = rank_part(part, rank, out_dir)
+            if rc:
+                return rc
+            gc.collect()
+            torch.cuda.empty_cache()
+            empty_host_cache()
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        grid_lib.RankGrid.close = close
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(top, f"seconds{rank}.json"), "w") as f:
+        json.dump(seconds, f)
+    return 0
+
+
+def rank_part(spec, rank, out_dir) -> int:
+    """One part of a rank's chain: ``traced_train`` on the spec's
+    arguments and depth (or the phase's own worker), then this rank's
+    digests and numbers into ``out_dir/rank<r>.json``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_lib
-    with open(spec_path) as f:
-        spec = json.load(f)
-    rank = int(os.environ["RANK"])
     cfg = dataclasses.replace(get_config(spec.get("arch", "qwen3-4b")),
                               n_layers=spec["layers"])
     if "runs" in spec:
-        return runs_worker(spec, cfg, rank, os.path.dirname(spec_path))
+        return runs_worker(spec, cfg, rank, out_dir)
     if spec.get("ep"):
-        return ep_worker(spec, cfg, rank, os.path.dirname(spec_path))
+        return ep_worker(spec, cfg, rank, out_dir)
     if spec.get("inpod"):
-        return inpod_worker(spec, cfg, rank, os.path.dirname(spec_path))
+        return inpod_worker(spec, cfg, rank, out_dir)
     if spec.get("rep"):
-        return rep_worker(spec, cfg, rank, os.path.dirname(spec_path))
+        return rep_worker(spec, cfg, rank, out_dir)
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -2806,24 +2869,34 @@ def ranks_worker(spec_path) -> int:
                device=str(state.lam.device),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
-    with open(os.path.join(os.path.dirname(spec_path),
-                           f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
 
 def launch_ranks(tag, nproc, args_list, layers, **more):
-    """``chip_smoke.py --ranks-worker`` under ``torchrun --standalone
-    --nproc-per-node nproc`` (its own process group, killed whole at the
-    time limit); fails unless every rank ends with 0. ``more`` goes into
-    the workers' spec beside the arguments and the depth. Returns the
+    """One part alone in a torchrun call (``launch_chain``): ``more`` goes
+    into the workers' spec beside the arguments and the depth. Returns the
     ranks' records and the call's seconds."""
+    ranks, seconds, _ = launch_chain(tag, nproc, [(args_list, layers, more)])
+    return ranks[0], seconds
+
+
+def launch_chain(tag, nproc, parts, timeout=RANKS_TIMEOUT_S):
+    """``chip_smoke.py --ranks-worker`` under ``torchrun --standalone
+    --nproc-per-node nproc`` (its own process group, killed whole at
+    ``timeout``): each rank runs the ``parts`` ((arguments, depth, more)
+    each) in turn, so that the call's start and each rank process's first
+    warm step are paid once for all of them; fails unless every rank ends
+    with 0. Returns each part's ranks' records, the call's seconds and
+    rank 0's seconds in each part."""
     import signal
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         spec = os.path.join(tmp, "spec.json")
         with open(spec, "w") as f:
-            json.dump({"args": args_list, "layers": layers, **more}, f)
+            json.dump({"chain": [{"args": a, "layers": n, **m}
+                                 for a, n, m in parts]}, f)
         env = dict(os.environ)
         # one host: the ranks' sockets stay on the loopback interface
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -2841,9 +2914,9 @@ def launch_ranks(tag, nproc, args_list, layers, **more):
                  spec], stdout=out, stderr=subprocess.STDOUT, env=env,
                 start_new_session=True)
             try:
-                rc = proc.wait(timeout=RANKS_TIMEOUT_S)
+                rc = proc.wait(timeout=timeout)
             except subprocess.TimeoutExpired:
-                rc = f"none: killed at its {RANKS_TIMEOUT_S} s limit"
+                rc = f"none: killed at its {timeout} s limit"
             finally:
                 # the agent and its ranks: nothing outlives the call
                 try:
@@ -2863,10 +2936,47 @@ def launch_ranks(tag, nproc, args_list, layers, **more):
                             if ln.startswith("[rank"))[-12000:], flush=True)
         check(rc == 0, f"{tag}: torchrun exited {rc}:\n{text[-3000:]}")
         ranks = []
-        for r in range(nproc):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    return ranks, seconds
+        for n in range(len(parts)):
+            ranks.append([])
+            for r in range(nproc):
+                with open(os.path.join(tmp, f"part{n}", f"rank{r}.json")) as f:
+                    ranks[-1].append(json.load(f))
+        with open(os.path.join(tmp, "seconds0.json")) as f:
+            part_s = json.load(f)
+    return ranks, seconds, part_s
+
+
+def together(tag, slices, chain=None):
+    """Phases whose ranks share one torchrun call. Each of ``slices`` (a
+    generator) runs its one-process part up to the ranks it asks for,
+    ``(tag, nproc, arguments, depth, more)``, all of one world size; the
+    ranks run every request in turn (in the order ``chain`` gives, by
+    index), and each slice gets its ranks' records and its part's seconds
+    on rank 0 and runs on to its end; a further request of a slice is
+    launched alone. Returns the slices' results."""
+    reqs = [next(g) for g in slices]
+    nproc = {r[1] for r in reqs}
+    check(len(nproc) == 1, f"{tag}: world sizes {nproc} in one call")
+    order = list(chain or range(len(slices)))
+    ranks, seconds, part_s = launch_chain(
+        tag, nproc.pop(), [reqs[i][2:] for i in order],
+        timeout=RANKS_TIMEOUT_S)
+    print(f"{tag}: one torchrun call of {seconds:.1f} s; rank 0's seconds "
+          "in each part: " + ", ".join(f"{reqs[i][0]} {t:.1f}"
+                                        for i, t in zip(order, part_s)),
+          flush=True)
+    got = {i: (ranks[n], part_s[n]) for n, i in enumerate(order)}
+    out = []
+    for i, g in enumerate(slices):
+        reply = got[i]
+        while True:
+            try:
+                req = g.send(reply)
+            except StopIteration as stop:
+                out.append(stop.value)
+                break
+            reply = launch_ranks(req[0], req[1], req[2], req[3], **req[4])
+    return out
 
 
 def same_run(tag, ranks, nodes, rep, rounds):
@@ -2914,9 +3024,9 @@ def ranks_slice(full, card_line):
     check(record["counts"] == {"launches": 0, "masked_launches": n_rounds,
                                "per_block_launches": 0},
           f"ranks one process: launches {record['counts']}")
-    ranks, call_s = launch_ranks(
-        "ranks", RANKS_PROCS, RANKS_ARGS + ["--dist-backend", "gloo"],
-        RANKS_LAYERS)
+    ranks, call_s = yield ("phase 24", RANKS_PROCS,
+                           RANKS_ARGS + ["--dist-backend", "gloo"],
+                           RANKS_LAYERS, {})
     same_run("ranks", ranks, nodes, rep, record["rounds"])
     for r in ranks:
         check(r["counts"] == {"launches": 0, "masked_launches": n_rounds,
@@ -3179,9 +3289,10 @@ def sharded_slice(card_line):
                       f"{r['resident'] / 1e9:.2f}, local step "
                       f"{r['local'] / 1e9:.2f}, round {r['round'] / 1e9:.2f})"
                       for c, r in reckoned.items()), flush=True)
-    ranks, call_s = launch_ranks(
-        "sharded", procs, None, SHARD_LAYERS, arch=SHARD_ARCH, shard=True,
-        runs=[a + ["--dist-backend", "gloo"] for a in runs.values()])
+    ranks, call_s = yield (
+        "phase 26", procs, None, SHARD_LAYERS, dict(
+            arch=SHARD_ARCH, shard=True,
+            runs=[a + ["--dist-backend", "gloo"] for a in runs.values()]))
     out = {}
     for n, (tag_, (codec, extra)) in enumerate(SHARD_RUNS.items()):
         one = ones[tag_]
@@ -3334,10 +3445,11 @@ def pipe_slice(card_line):
     # same ranks: what the depth changes in its exposed wait
     rank_runs = [(tag, a, PIPE_DEPTH) for tag, a in runs.items()] + [
         ("sync native", runs["sync native"], 1)]
-    ranks, call_s = launch_ranks(
-        "pipe", PIPE_NODES, None, PIPE_LAYERS, arch=PIPE_ARCH,
-        runs=[a + ["--pipeline-offsets", str(dep), "--dist-backend", "gloo"]
-              for _, a, dep in rank_runs])
+    ranks, call_s = yield (
+        "phase 27", PIPE_NODES, None, PIPE_LAYERS, dict(
+            arch=PIPE_ARCH,
+            runs=[a + ["--pipeline-offsets", str(dep), "--dist-backend",
+                       "gloo"] for _, a, dep in rank_runs]))
     out = {"seconds": one_s + call_s}
     for n, (tag, args_list, dep) in enumerate(rank_runs):
         one = ones[tag]
@@ -4509,7 +4621,7 @@ INPOD_NODES = 2
 # 29b's batch a node: 4 x 256 tokens, so that four ranks' round and probe
 # transients fit the card beside each other (PERF.md)
 INPOD_CONS_SEQ = 256
-INPOD_CONS_STEPS, INPOD_LOCAL = 4, 2
+INPOD_CONS_STEPS, INPOD_LOCAL = 2, 2     # one round, for the script's time
 INPOD_SEED = 29
 INPOD_LR = 3e-4
 
@@ -4942,8 +5054,8 @@ def inpod_slice(card_line):
     host_after = host_gb()
     t2 = time.perf_counter()
     world = INPOD_TRAIN_MESH[0] * INPOD_TRAIN_MESH[1]
-    ranks, seconds = launch_ranks("phase 29", world, [], INPOD_LAYERS,
-                                  arch=INPOD_ARCH, inpod=True)
+    ranks, seconds = yield ("phase 29", world, [], INPOD_LAYERS,
+                            dict(arch=INPOD_ARCH, inpod=True))
     rank_mesh_a = local_mesh(*INPOD_TRAIN_MESH, DEV)
     rank_mesh_b = local_mesh(*INPOD_CONS_MESH, DEV)
     reck_a = reckon_inpod_peak(cfg, rank_mesh_a,
@@ -4990,9 +5102,9 @@ def inpod_slice(card_line):
     gb = 1e9
     print(f"phase 29: moonshot-v1-16b-a3b at full width, {cfg.n_layers} "
           f"layer, {count / 1e9:.3f} B parameters a node, bf16; "
-          f"{time.perf_counter() - t0:.1f} s (one process 29a "
-          f"{t1 - t0:.1f} s, 29b {t2 - t1:.1f} s, ranks {seconds:.1f} s) "
-          f"[{card_line}]", flush=True)
+          f"{t2 - t0 + seconds:.1f} s (one process 29a {t1 - t0:.1f} s, "
+          f"29b {t2 - t1:.1f} s, ranks {seconds:.1f} s in a torchrun call "
+          f"shared with phases 26 and 30a) [{card_line}]", flush=True)
     print(f"phase 29a one process (local_mesh{INPOD_TRAIN_MESH}): losses "
           f"{a['loss']}, grad norms {a['grad_norm']}, drops by step and "
           f"shard {a['dropped']} (of {INPOD_BATCH // INPOD_TRAIN_MESH[0] * INPOD_SEQ // INPOD_TRAIN_MESH[1] * cfg.moe.top_k} "
@@ -5080,7 +5192,7 @@ def inpod_slice(card_line):
 # state replicated in-pod (stablelm-3b at full width, 2 of 32 layers, J 2 x
 # data 1 x model 2 on 4 gloo ranks sharing the card), and checkpoint/resume
 REP_ARCH = "stablelm-3b"
-REP_LAYERS = 2
+REP_LAYERS = 1                  # for the script's time
 REP_NODES = 2
 REP_MESH = (1, 2)
 REP_ARGS = ["--arch", REP_ARCH, "--nodes", str(REP_NODES), "--scheme",
@@ -5316,13 +5428,11 @@ def replicated_slice(card_line):
     check(free >= need, f"phase 30b: {free / 1e9:.1f} GB free under "
           f"{ckpt}, the checkpoint needs {need / 1e9:.1f}")
     try:
-        t1 = time.perf_counter()
-        ranks, call_a = launch_ranks("phase 30", 4, [], REP_LAYERS,
-                                     arch=REP_ARCH, rep=True, ckpt=ckpt)
-        resumed, call_b = launch_ranks("phase 30b", 4, [], REP_LAYERS,
-                                       arch=REP_ARCH, rep=True, ckpt=ckpt,
-                                       resume=True)
-        t_ranks = time.perf_counter() - t1
+        ranks, call_a = yield ("phase 30", 4, [], REP_LAYERS,
+                               dict(arch=REP_ARCH, rep=True, ckpt=ckpt))
+        resumed, call_b = yield ("phase 30b", 4, [], REP_LAYERS,
+                                 dict(arch=REP_ARCH, rep=True, ckpt=ckpt,
+                                      resume=True))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     rec, rec_sh = one["record"], one_sh["record"]
@@ -5374,8 +5484,9 @@ def replicated_slice(card_line):
     print(f"phase 30: {REP_ARCH} at full width, {REP_LAYERS} of 32 layers, "
           f"{count / 1e6:.1f} M parameters a node, {total} elements a row, "
           f"bf16; J {REP_NODES} x data {REP_MESH[0]} x model {REP_MESH[1]}; "
-          f"{time.perf_counter() - t0:.1f} s (one process {t_one:.1f} s, "
-          f"torchrun {call_a:.1f} + {call_b:.1f} s of {t_ranks:.1f} s) "
+          f"{t_one + call_a + call_b:.1f} s (one process {t_one:.1f} s, "
+          f"30a's ranks {call_a:.1f} s in a torchrun call shared with "
+          f"phases 26 and 29, 30b's torchrun call {call_b:.1f} s) "
           f"[{card_line}]", flush=True)
     for tag, o in runs.items():
         print(f"phase 30a one process {tag}: losses {o['record']['losses']}, "
@@ -5434,10 +5545,40 @@ def replicated_slice(card_line):
                 seconds=time.perf_counter() - t0)
 
 
-def build_phase():
-    """Phase 2: build every source (one nvcc each, all started together),
-    print each kernel's registers and spills (nvcc's -Xptxas -v) and its
-    SASS instruction counts; each instantiation of the bf16 flash kernel
+def sass_of(name):
+    """Kernel ``name``'s SASS instruction counts (in a worker process)."""
+    from repro_torch.kernels import build
+    return build.sass_counts(build.sass(name))
+
+
+def start_build():
+    """Phase 2's work on a thread of its own, so that the paper slice, which
+    launches no kernel of the port, runs on the card meanwhile: every source
+    built (one nvcc each, all started together), then every library's
+    ``cuobjdump -sass`` counted, one spawned process a source. Returns the
+    future of (the build records, their seconds, {source: SASS counts})."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    def work():
+        from repro_torch.kernels import build
+        t0 = time.perf_counter()
+        built = build.build_all(SOURCES)
+        seconds = time.perf_counter() - t0
+        with cf.ProcessPoolExecutor(
+                len(SOURCES), mp_context=mp.get_context("spawn")) as pool:
+            counts = dict(zip(SOURCES, pool.map(sass_of, SOURCES)))
+        return built, seconds, counts
+    ex = cf.ThreadPoolExecutor(1)
+    fut = ex.submit(work)
+    ex.shutdown(wait=False)
+    return fut
+
+
+def build_phase(building):
+    """Phase 2: wait for ``start_build``'s work, then print each kernel's
+    registers and spills (nvcc's -Xptxas -v) and its SASS instruction
+    counts; each instantiation of the bf16 flash kernel
     (hd 64, 80, 112, 128) must have wgmma, TMA and mbarrier instructions
     and no spills, and each of the cc flash kernel's twelve (f32 and bf16
     at every head dim) mma.sync (HMMA) and cp.async (LDGSTS) instructions
@@ -5449,10 +5590,8 @@ def build_phase():
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import TC_HEAD_DIMS
-    t0 = time.perf_counter()
-    built = build.build_all(SOURCES)
-    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    built, seconds, sass_by_source = building.result()
+    print(f"build: {', '.join(SOURCES)} in {seconds:.2f} s", flush=True)
     tc_regs, spilled_kernels = {}, set()
     for name, rec in built.items():
         regs, spills, kern, kern_regs = [], [], None, {}
@@ -5489,7 +5628,7 @@ def build_phase():
     # copies and mbarrier operations, counted in each kernel's SASS
     sass = {}
     for name in SOURCES:
-        counts = build.sass_counts(build.sass(name))
+        counts = sass_by_source[name]
         sass.update(counts)
         total = {fam: sum(c[fam] for c in counts.values())
                  for fam in build.SASS_FAMILIES}
@@ -5540,6 +5679,19 @@ def kernel_entry(name, source, replaces, launches, numbers, **extra):
             "library_ms": None, **extra}
 
 
+class Laps:
+    """The seconds of each part of ``main``, printed as it ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"timing: {label} {now - self.last:.1f} s (at "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5549,7 +5701,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ranks-worker":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return ranks_worker(sys.argv[2])
+        rc = ranks_worker(sys.argv[2])
+        # the results are on disk: end here, without the interpreter's
+        # teardown of the rank's CUDA context and pinned host blocks
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import stacked_defs
     from repro_torch.optim.flatten import FlatLayout
@@ -5558,6 +5715,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
+    lap = Laps()
     card_line = smi[0].strip()
     print(card_line, flush=True)
     print_clocks("start")
@@ -5566,8 +5724,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build: one nvcc per source, all started together ---------------
-    sass, tc_sass, tc_regs, cc_kernel = build_phase()
+    # -- 2. build: one nvcc per source, all started together; meanwhile
+    # 13-15, the paper slice's runs, which launch no kernel of the port ----
+    building = start_build()
+    t0 = time.perf_counter()
+    paper_phases(card_line)
+    print(f"paper slice: phases 13-15 {time.perf_counter() - t0:.1f} s, "
+          "beside the kernel build", flush=True)
+    lap("paper 13-15 beside the build")
+    sass, tc_sass, tc_regs, cc_kernel = build_phase(building)
+    lap("build")
 
     # -- 9. flash attention vs its plain version and the library ----------
     flash = flash_case("path", card_line, seed=31, model_layout=True)
@@ -5582,12 +5748,14 @@ def main() -> int:
     check(all(r["route"] == "cc" for r in flash_cc_bf16.values()),
           "flash bf16 at hd 16 and 32: routed to "
           + str({k: r["route"] for k, r in flash_cc_bf16.items()}))
+    lap("flash cases")
 
     # -- 10. the RWKV6 scan vs its plain version ------------------------------
     scan_f32 = scan_case("float32", card_line, seed=41)
     scan = scan_case("bfloat16", card_line, seed=42)
     print(f"  sass {SCAN_PATH}: " + ", ".join(
         f"{fam} {n}" for fam, n in sass[SCAN_PATH].items()), flush=True)
+    lap("scan cases")
 
     # -- 3. kernel vs plain version at three shapes -------------------------
     full = get_config("qwen3-4b")
@@ -5604,6 +5772,7 @@ def main() -> int:
     kernel_case("J4/deg2", lay_attn, 4, [1, 3], torch.bfloat16, "native",
                 seed=3)
     torch.cuda.empty_cache()
+    lap("kernel cases")
 
     # -- 6. the gated kernel vs its plain version ---------------------------
     for n, (codec, variant) in enumerate((("native", "kick"),
@@ -5612,6 +5781,7 @@ def main() -> int:
         exact_case(f"masked bf16/{codec}/{variant}", lay_layer, 4, [1, 2, 3],
                    torch.bfloat16, codec, variant, seed=11 + n)
         torch.cuda.empty_cache()
+    lap("masked cases")
 
     # -- (a) the per-block (fp8) round vs its plain version, one layer ------
     seed = 21
@@ -5623,49 +5793,63 @@ def main() -> int:
                            seed=seed)
                 seed += 1
                 torch.cuda.empty_cache()
+    lap("per-block cases")
 
     # -- 4. the slice; (c) the same slice with the fp8_e4m3 wire -----------
     static = static_slice(full, card_line, "native")
+    lap("slice native")
     fp8 = static_slice(full, card_line, "fp8_e4m3")
+    lap("slice fp8")
     layout = static["layout"]
 
     # -- 4b. the same trainer on the card and on the CPU -------------------
     agree_with_cpu()
+    lap("agree")
 
     # -- 7. the dynamic-topology slice --------------------------------------
     dyn = dynamic_slice(full, card_line)
     torch.cuda.empty_cache()
+    lap("dyn")
 
     # -- 7b, (d). the dynamic trainer on the card and on the CPU -----------
     agree_dynamic_with_cpu()
+    lap("dagree native")
     agree_dynamic_with_cpu(codec="fp8_e5m2", rtol=1e-4)
+    lap("dagree e5m2")
 
     # -- 5. the kernel at the slice's own shape ---------------------------
     full_numbers = full_shape_check(layout, 2, offsets=[1])
+    lap("full native")
 
     # -- (b) the per-block round at the slice's own shape -------------------
     fp8_full = full_shape_check(layout, 2, offsets=[1], seed=6,
                                 codec_name="fp8_e4m3")
+    lap("full fp8")
 
     # -- 8. the gated kernel at the dynamic slice's own shape --------------
     dyn_full = full_shape_check(dyn["layout"], 3, offsets=[1, 2],
                                 gated=True, seed=8)
+    lap("dfull")
 
     # -- 18, 18c. the async slice; its frozen rows and a captured round -----
     t0 = time.perf_counter()
     asy = async_slice(full, card_line)
     t1 = time.perf_counter()
     afull = async_checked(full)
+    lap("async 18 and 18c")
     t2 = time.perf_counter()
 
     # -- 18b. the async trainer on the card and on the CPU ------------------
     agree_async_with_cpu()
+    lap("aagree native")
     # not phase 7b's 1e-4 for fp8_e5m2: card and CPU round their float32
     # matmuls apart, which flips some e5m2 codes of the wire, and the
     # probes of the flipped payloads move the NAP penalties (2.6e-4 of
     # eta_mean on an H100, where the native wire agrees to 5e-6)
     agree_async_with_cpu(codec="fp8_e5m2", rtol=1e-3)
+    lap("aagree e5m2")
     async_zero_is_sync()
+    lap("async zero")
     print(f"async slice: phase 18 {t1 - t0:.1f} s, its checked run and 18c "
           f"{t2 - t1:.1f} s, 18b {time.perf_counter() - t2:.1f} s",
           flush=True)
@@ -5674,66 +5858,76 @@ def main() -> int:
     t0 = time.perf_counter()
     obs_dyn = obs_slice("obs dyn", full, OBS_DYN_ARGS, card_line,
                         dyn["in_round_ms"])
-    obs_async = obs_slice("obs async", full, ASYNC_ARGS, card_line,
+    lap("obs dyn")
+    obs_async = obs_slice("obs async", full, OBS_ASYNC_ARGS, card_line,
                           asy["in_round_ms"])
+    lap("obs async")
     t1 = time.perf_counter()
     agree_obs_with_cpu("dynamic")
+    lap("oagree dynamic")
     agree_obs_with_cpu("async")
+    lap("oagree async")
     # e5m2 keeps two mantissa bits: card and CPU round their float32
     # matmuls apart, some wire codes flip, the probes of the flipped
     # payloads move the NAP penalties, and over free-running rounds this
     # compounds (PERF.md section 7); each round starts from the card's state
     agree_obs_with_cpu("async", codec="fp8_e5m2", shared=True)
+    lap("oagree e5m2")
     print(f"obs slice: phases 19 and 19b {t1 - t0:.1f} s, 19c "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
 
-    # -- 24, 25. the ranks slice: three gloo ranks sharing the card against
-    # one process; one NCCL rank against the static slice ----------------
+    # -- 24, 27. three gloo ranks sharing the card, in one torchrun call:
+    # the ranks slice against one process; the round pipeline and the async
+    # executor across ranks; 25. one NCCL rank against the static slice ---
     t0 = time.perf_counter()
-    ranks = ranks_slice(full, card_line)
+    ranks, pipe = together("phases 24 and 27",
+                           [ranks_slice(full, card_line),
+                            pipe_slice(card_line)])
+    lap("ranks 24 and pipe 27")
     t1 = time.perf_counter()
     nccl1 = nccl1_slice(static, card_line)
-    t2 = time.perf_counter()
-    # -- 26, 26b. the sharded consensus state: J 2 x S 2 gloo ranks, sync
-    # and async rounds ------------------------------------------------------
-    sharded = sharded_slice(card_line)
-    t3 = time.perf_counter()
-    # -- 27. the round pipeline and the async executor across three ranks --
-    pipe = pipe_slice(card_line)
-    print(f"ranks slice: phase 24 {t1 - t0:.1f} s, 25 {t2 - t1:.1f} s, 26 "
-          f"and 26b {t3 - t2:.1f} s, 27 {time.perf_counter() - t3:.1f} s",
-          flush=True)
+    lap("nccl1 25")
+    print(f"ranks slice: phases 24 and 27 {t1 - t0:.1f} s, 25 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
 
     # -- (e) the flat update: one f32 row at the slice's size, and an N that
     # is not a block multiple
     flat = flat_update_check(layout.total, card_line)
     flat_update_check(layout.total - 12_345, card_line)
+    lap("flat")
 
-    # -- 11. serving at full width and depth, one arch after the other ----
+    # -- 11. serving at full width, one arch after the other -------------
     serve_qwen = serve_slice("qwen3-4b", card_line)
+    lap("serve qwen")
     serve_rwkv = serve_slice("rwkv6-7b", card_line)
+    lap("serve rwkv")
 
     # -- 12. reduced serving, card against CPU ------------------------------
     for arch in ("qwen3-4b", "rwkv6-7b"):
         agree_serve_with_cpu(arch)
+        lap(f"sagree {arch}")
 
     # -- 20-23. the model zoo ----------------------------------------------
     t0 = time.perf_counter()
     zflash = zoo_flash(card_line)
+    lap("zoo flash")
     t1 = time.perf_counter()
     zserve = {arch: zoo_serve(arch, card_line) for arch in ZOO}
+    lap("zoo serve")
     check(all(z["route"] == "tc" for z in zserve.values()),
           "zoo serve: flash routes " + str({a: z["route"]
                                             for a, z in zserve.items()})
           + ", want the tensor-core kernel for every arch")
     t2 = time.perf_counter()
     ztrain = {arch: zoo_train(arch, card_line) for arch in ZOO_TRAIN_LAYERS}
+    lap("zoo train")
     print("zoo train kimi-k2-1t-a32b: not on the card (its embedding and "
           "one layer are 19.4 B parameters a node, about 450 GB of training "
           "state); it trains at reduced size on the CPU only", flush=True)
     t3 = time.perf_counter()
     for arch in ZOO + ("rwkv6-7b",):
         zoo_agree(arch)
+        lap(f"zoo agree {arch}")
     print(f"zoo: phase 20 {t1 - t0:.1f} s, 21 {t2 - t1:.1f} s, 22 "
           f"{t3 - t2:.1f} s, 23 {time.perf_counter() - t3:.1f} s",
           flush=True)
@@ -5741,29 +5935,36 @@ def main() -> int:
     # -- 28. expert-parallel serving: one process, then two gloo ranks -----
     t0 = time.perf_counter()
     ep = ep_slice(card_line)
+    lap("ep 28")
     print(f"ep slice: phase 28 {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # -- 29. the in-pod sharded local step: one process, then 4 gloo ranks -
+    # -- 26, 29, 30. four gloo ranks sharing the card, in one torchrun call
+    # (30a's part first: its host peak is the checkpoint's): 26 and 26b, the
+    # sharded consensus state, sync and async rounds; 29, the in-pod
+    # sharded local step; 30, the reference launcher's command, the
+    # consensus state replicated in-pod, then (30b) a fresh torchrun call
+    # resuming its checkpoint ------------------------------------------------
     t0 = time.perf_counter()
-    inpod = inpod_slice(card_line)
-    print(f"inpod slice: phase 29 {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    sharded, inpod, rep = together(
+        "phases 26, 29 and 30", [sharded_slice(card_line),
+                                 inpod_slice(card_line),
+                                 replicated_slice(card_line)],
+        chain=(2, 0, 1))
+    lap("sharded 26, inpod 29, replicated 30")
+    print(f"four-rank slices: phases 26, 29 and 30 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 30. the reference launcher's command: the consensus state
-    # replicated in-pod, and checkpoint/resume on the same 4 ranks ---------
+    # -- 16, 17. the paper slice's timed solves, with the card to itself ----
     t0 = time.perf_counter()
-    rep = replicated_slice(card_line)
-    print(f"replicated slice: phase 30 {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    # -- 13-17. the paper slice: D-PPCA and ConsensusADMM ------------------
-    t0 = time.perf_counter()
-    paper_phases(card_line)
     solve_graph_check(card_line)
+    lap("paper graph")
     scale_lsq(card_line)
+    lap("scale lsq")
     scale_sfm(card_line)
-    print(f"paper slice: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("scale sfm")
+    print(f"paper slice: phases 16 and 17 {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     src = "src/repro_torch/kernels/csrc/"
     ref_file = "src/repro/kernels/consensus_update.py"
