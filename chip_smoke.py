@@ -278,8 +278,8 @@ of its rows, computed on the card). Phases of one world size share a
 torchrun call (``together``): each runs its one-process part, then the
 ranks run every phase's part in turn over one process group, so that the
 call's start and each rank's first warm step are paid once. Phases 24 and
-27 (three ranks) run after phase 19c, then phase 25; phases 26, 29 and 30a
-(four ranks, 30a's part first) after phase 28:
+27 (three ranks) run after phase 19c, then phase 25; phases 26, 29, 30a
+and 31 (four ranks, 30a's part first) after phase 28:
 
  24. ranks  — ``launch.train.run`` on qwen3-4b at full width, 1 layer, 3
               nodes on a ring, nap, eta0 0.1, the budget scheduler, node 1
@@ -359,7 +359,9 @@ call's start and each rank's first warm step are paid once. Phases 24 and
               tokens. First as one process computing both model shards
               (``local_mesh``), then as two gloo ranks sharing the card
               under torchrun (all-to-all staged through pinned host
-              buffers), each holding its 32 experts only. Checks: every
+              buffers), each holding its shards only (since PR 29: its 32
+              experts, 8 of the 16 heads and half the vocab, the
+              attention tensor parallel). Checks: every
               prefill and decode logit of both ranks equals the one
               process's bit for bit, and so do the drop counts; layer 0's
               MoE at capacity factor 2.0 (nothing drops at ep 2) is within
@@ -367,7 +369,9 @@ call's start and each rank's first warm step are paid once. Phases 24 and
               positions 0-15 match the prefill's within the serve bound
               (layers x 2^-8 of max|logit|) on every row none of whose
               first 16 tokens lost a pair; each rank launches the flash
-              kernel once a layer. Prints each rank's peak beside the
+              kernel once a layer (the one process once a layer for each
+              model shard) and holds its shards' parameter bytes. Prints
+              each rank's peak beside the
               reckoned parameter bytes and the one process's, prefill ms,
               decode ms a token and the all-to-all seconds (host clock,
               synchronized), and whether gloo takes CUDA tensors for
@@ -435,6 +439,30 @@ call's start and each rank's first warm step are paid once. Phases 24 and
               bound; the bytes each rank wrote, the save and restore
               seconds and the host peak. NCCL across cards does not run
               on one card.
+
+ 31. tp     — tensor-parallel serving from sharded parameters
+              (``launch.steps.make_serve_fns`` with ``decode_state_specs``):
+              qwen3-4b at full width, 4 of 36 layers, then rwkv6-7b, 2 of
+              32, bf16, on a data 2 x model 2 mesh; a prefill of 4 x 512
+              tokens with ``use_kernel``, then 8 decode steps from an
+              empty state fed the prompt's first 8 tokens. First as one
+              process (``local_mesh(2, 2)``, every shard in turn), then as
+              4 gloo ranks sharing the card in the four-rank torchrun call
+              (after 30a, 26 and 29), each holding its shards of the
+              parameters (FSDP over data; heads, d_ff and vocab over
+              model) and of the decode state only. Checks: every prefill
+              and decode logit of every rank equals the one process's bit
+              for bit; the sharded prefill is within the serve bound
+              (layers x 2^-8 of max|logit|) of the unsharded one; each
+              rank launches the flash kernel (the scan) once a layer, on
+              16 of 32 heads (32 of 64), and the decode none; a rank's
+              parameter bytes equal ``fsdp.shard_bytes`` and its decode
+              state's those of its shard shapes. Prints each rank's peak
+              beside ``reckon_tp_peak`` and the whole-parameter layout's,
+              prefill ms and decode ms a token (no stats), and from the
+              stats-on pass the seconds of the model sums and the data
+              gathers (host clock, staged gloo). NCCL across cards does
+              not run on one card.
 
 The second-to-last line holds every kernel's numbers as JSON; the last line
 is the run's verdict.
@@ -2297,16 +2325,18 @@ def layer_check(cfg, params, prompts) -> None:
         for layer in range(cfg.n_layers):
             lp = _layer(params, layer)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y_k, s_k, _ = rwkv6.time_mix(cfg, lp["rwkv"], h, None,
-                                         use_kernel=True)
-            y_p, s_p, _ = rwkv6.time_mix(cfg, lp["rwkv"], h, None)
+            y_k, (s_k,), _ = rwkv6.time_mix(cfg, None, [lp["rwkv"]], h,
+                                            None, use_kernel=True)
+            y_p, (s_p,), _ = rwkv6.time_mix(cfg, None, [lp["rwkv"]], h,
+                                            None)
             dy = float((y_k.float() - y_p.float()).abs().max()) \
                 / float(y_p.float().abs().max())
             ds = float((s_k - s_p).abs().max()) / float(s_p.abs().max())
             worst_y, worst_s = max(worst_y, dy), max(worst_s, ds)
             x = x + y_k
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + rwkv6.channel_mix(cfg, lp["rwkv"], h2, None)[0]
+            x = x + rwkv6.channel_mix(cfg, None, [lp["rwkv"]], h2,
+                                      None)[0]
     check(worst_y <= 4 * 2.0 ** -8 and worst_s <= 1e-3,
           f"serve {cfg.arch_id}: a layer's time-mix with the kernel differs "
           f"from the plain recurrence by {worst_y:.3g} (y) and {worst_s:.3g}"
@@ -2856,6 +2886,8 @@ def rank_part(spec, rank, out_dir) -> int:
         return inpod_worker(spec, cfg, rank, out_dir)
     if spec.get("rep"):
         return rep_worker(spec, cfg, rank, out_dir)
+    if spec.get("tp"):
+        return tp_worker(spec, cfg, rank, out_dir)
     args = train_lib.parse_args(spec["args"])
     torch.cuda.reset_peak_memory_stats()
     record, state, ms, spans, ex = traced_train(cfg, args)
@@ -4309,8 +4341,7 @@ def ep_serve(cfg, mesh, params):
         prefill_ms = (time.perf_counter() - t0) * 1e3
         counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
                   for obj, attr in all_counters()}
-        rows = EP_BATCH // (1 if mesh.local else mesh.data)
-        state = model.init_decode_state(rows, EP_PROMPT, DEV)
+        state = model.init_decode_state(EP_BATCH, EP_PROMPT, DEV, mesh=mesh)
         steps = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4354,17 +4385,20 @@ def gloo_cuda_all_to_all(mesh) -> str:
 def ep_worker(spec, cfg, rank, out_dir) -> int:
     """One rank of phase 28 (``chip_smoke.py --ranks-worker SPEC`` with
     ``"ep"`` in the spec): its mesh (``init_mesh``, gloo on the card), its
-    experts only (drawn leaf by leaf from the one process's seed), the
-    served run; its digests and numbers into ``rank<r>.json``."""
+    shards only (its experts, heads and vocab rows, drawn leaf by leaf
+    from the one process's seed), the served run; its digests and numbers
+    into ``rank<r>.json``."""
     import torch
-    from repro_torch.distributed import MeshStats
+    from repro_torch.distributed import MeshStats, fsdp
     from repro_torch.launch.mesh import init_mesh
     from repro_torch.models import build_model
     mesh = init_mesh(*EP_MESH, DEV, backend="gloo", stats=MeshStats())
     try:
         torch.cuda.reset_peak_memory_stats()
-        params = build_model(cfg).init(
-            torch.Generator(DEV).manual_seed(EP_SEED), DEV, mesh=mesh)
+        model = build_model(cfg)
+        params = model.init(
+            torch.Generator(DEV).manual_seed(EP_SEED), DEV, mesh=mesh,
+            specs=fsdp.specs_for(model, mesh)[0])
         torch.cuda.synchronize()
         init_peak = torch.cuda.max_memory_allocated() / 1e9
         params_gb = torch.cuda.memory_allocated() / 1e9
@@ -4378,7 +4412,9 @@ def ep_worker(spec, cfg, rank, out_dir) -> int:
                    decode_ms=run["decode_ms"], counts=run["counts"],
                    a2a_s=run["a2a_s"], a2a_calls=run["a2a_calls"],
                    peak_gb=run["peak_gb"], init_peak_gb=init_peak,
-                   params_gb=params_gb,
+                   params_gb=params_gb, param_bytes=tree_bytes(params),
+                   reckoned=fsdp.shard_bytes(model, mesh)["params"],
+                   heads=params["blocks"]["attn"]["wq"].shape[2],
                    experts=params["blocks"]["moe"]["wg"].shape[1])
     finally:
         mesh.close()
@@ -4406,7 +4442,7 @@ def ep_layer_check(cfg, params, prompts) -> float:
         lp = _layer(params, 0)
         x = embed_tokens(params, prompts).to(lp["ln1"].dtype)
         cos, sin = attn_lib.make_rope(cfg, x.shape[1], device=x.device)
-        x = x + attn_lib.attention(cfg, lp["attn"],
+        x = x + attn_lib.attention(cfg, None, [lp["attn"]],
                                    rms_norm(x, lp["ln1"], cfg.norm_eps),
                                    cos, sin)
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -4511,14 +4547,14 @@ def ep_slice(card_line):
     """Phase 28: expert-parallel serving, one process against two gloo
     ranks sharing the card. Returns the flash launches of its prefills."""
     import torch
-    from repro_torch.distributed import MeshStats, local_mesh
+    from repro_torch.distributed import MeshStats, fsdp, local_mesh
     from repro_torch.models import build_model
     cfg = zoo_config(EP_ARCH, EP_LAYERS)
     n, e = cfg.n_layers, cfg.moe.num_experts
     model = build_model(cfg)
     count = model.param_count()
-    experts = n * 3 * e * cfg.d_model * cfg.moe.expert_d_ff
-    per_rank = count - experts + experts // EP_MESH[1]
+    per_rank = fsdp.shard_bytes(model, local_mesh(*EP_MESH, DEV))[
+        "params"] // 2
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4526,10 +4562,15 @@ def ep_slice(card_line):
     params = model.init(torch.Generator(DEV).manual_seed(EP_SEED), DEV)
     one = ep_serve(cfg, mesh, params)
     t1 = time.perf_counter()
+    # the one process launches the kernel on each model shard's heads
     want = dict.fromkeys(one["counts"], 0)
-    want["flash_attention.launches"] = want["flash_attention.tc_launches"] = n
+    want["flash_attention.launches"] = want["flash_attention.tc_launches"] \
+        = n * EP_MESH[0] * EP_MESH[1]
     check(one["counts"] == want, f"phase 28: one process's launches "
           f"{one['counts']}, want {want}")
+    want_rank = dict(want)
+    want_rank["flash_attention.launches"] = \
+        want_rank["flash_attention.tc_launches"] = n
     logits, dec = one["logits"], one["decode"]
     v = cfg.vocab
     check(tuple(logits.shape) == (EP_BATCH, EP_PROMPT, v)
@@ -4560,10 +4601,15 @@ def ep_slice(card_line):
         check(r["dropped"] == [[layer[m]] for layer in one["dropped"]],
               f"{tag}: drops {r['dropped']} differ from the one process's "
               f"shard {m}")
-        check(r["counts"] == want, f"{tag}: launches {r['counts']}, want "
-              f"{want}")
-        check(r["experts"] == e // EP_MESH[1], f"{tag}: holds "
-              f"{r['experts']} experts, want {e // EP_MESH[1]}")
+        check(r["counts"] == want_rank, f"{tag}: launches {r['counts']}, "
+              f"want {want_rank}")
+        check(r["experts"] == e // EP_MESH[1]
+              and r["heads"] == cfg.n_heads // EP_MESH[1]
+              and r["param_bytes"] == r["reckoned"], f"{tag}: holds "
+              f"{r['experts']} experts, {r['heads']} heads, "
+              f"{r['param_bytes']} parameter bytes; want "
+              f"{e // EP_MESH[1]}, {cfg.n_heads // EP_MESH[1]}, its shards' "
+              f"{r['reckoned']}")
     s_loc = EP_PROMPT // EP_MESH[1]
     print(f"phase 28 drops by layer (shard 0, shard 1 of "
           f"{EP_BATCH * s_loc * cfg.moe.top_k} pairs each): "
@@ -4579,8 +4625,8 @@ def ep_slice(card_line):
           f"[{card_line}]", flush=True)
     for r in ranks:
         print(f"phase 28 rank {r['rank']} {tuple(r['coords'])} on "
-              f"{r['device']}: {r['experts']} experts "
-              f"({per_rank / 1e9:.2f} B parameters, "
+              f"{r['device']}: {r['experts']} experts and {r['heads']} "
+              f"heads ({per_rank / 1e9:.2f} B parameters, "
               f"{2 * per_rank / 1e9:.2f} GB reckoned; "
               f"{r['params_gb']:.2f} GB allocated after the draw, peak "
               f"{r['init_peak_gb']:.2f} GB while drawing); serving peak "
@@ -4596,8 +4642,9 @@ def ep_slice(card_line):
           "ranks share one card, over gloo", flush=True)
     print(f"phase 28: one process {t1 - t0:.1f} s, checks "
           f"{t2 - t1:.1f} s, ranks {seconds:.1f} s", flush=True)
-    return dict(launches=n + sum(r["counts"]["flash_attention.launches"]
-                                 for r in ranks),
+    return dict(launches=want["flash_attention.launches"]
+                + sum(r["counts"]["flash_attention.launches"]
+                      for r in ranks),
                 one_process=dict(prefill_ms=one["prefill_ms"],
                                  decode_ms=one["decode_ms"],
                                  peak_gb=one_peak, dropped=one["dropped"],
@@ -5545,6 +5592,437 @@ def replicated_slice(card_line):
                 seconds=time.perf_counter() - t0)
 
 
+# phase 31: tensor-parallel serving from sharded parameters
+# (launch.steps.make_serve_fns on a data 2 x model 2 mesh): qwen3-4b at full
+# width, 4 of 36 layers, then rwkv6-7b, 2 of 32, bf16: one process, then 4
+# gloo ranks sharing the card, each holding its shards only
+TP_MESH = (2, 2)
+TP_ARCHS = (("qwen3-4b", 4), ("rwkv6-7b", 2))
+TP_BATCH, TP_PROMPT, TP_DECODE = 4, 512, 8
+TP_STATS_DECODE = 1             # decode steps of the stats-on run
+TP_SEED = 31
+# the bf16 sharded rwkv6-7b prefill's distance from the float32 unsharded
+# one, at most this many times the bf16 unsharded prefill's: both round
+# the same products once in bf16, and the split adds one bf16 rounding of
+# each row-parallel partial before its float32 sum
+TP_BF16_MARGIN = 2.0
+
+
+def tp_prompts(cfg):
+    """Phase 31's seeded prompts [4, 512] (the same in every process)."""
+    import torch
+    return torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT), device=DEV,
+                         generator=torch.Generator(DEV).manual_seed(
+                             TP_SEED + 1))
+
+
+class LaunchHeads:
+    """The head count of every flash and scan kernel launch made inside
+    (``kernels.flash_attention.launch``'s q and ``kernels.rwkv6_scan
+    .launch``'s r, [B, S, H, hd])."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rwkv6_scan as rw
+        self.flash, self.scan = [], []
+        self.mods = (fa, rw)
+        self.saved = (fa.launch, rw.launch)
+
+        def flash(q, *a, **kw):
+            self.flash.append(int(q.shape[2]))
+            return self.saved[0](q, *a, **kw)
+
+        def scan(r, *a, **kw):
+            self.scan.append(int(r.shape[2]))
+            return self.saved[1](r, *a, **kw)
+        fa.launch, rw.launch = flash, scan
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].launch, self.mods[1].launch = self.saved
+        return False
+
+
+def state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size()
+               for entry in state.cache.values() for t in entry)
+
+
+def reckon_tp_peak(cfg, mesh) -> dict:
+    """Phase 31's peak device bytes a rank, reckoned from the code before
+    the run (PERF.md): resident, its parameter shards
+    (``fsdp.shard_bytes``) and its shard of the decode state
+    (``decode_shard_shapes``); transient, the larger of one layer's
+    leaves gathered over ``data`` (the layer's bytes over ``model``) and
+    the head's: the LM head's vocab columns gathered over ``data`` (2 B x
+    D x V / model) and the prefill's logits (2 B an element: this rank's
+    rows and vocab columns; those gathered over ``model`` and
+    concatenated, twice its rows' whole vocab; the same over ``data`` for
+    the global batch). ``whole`` is the whole-parameter layout: every
+    parameter on every rank (2 B each) with the same state and head,
+    nothing gathered."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.steps import decode_shard_shapes
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    n = model.param_count()
+    params = fsdp.shard_bytes(model, mesh)["params"]
+    shapes = decode_shard_shapes(cfg, mesh, TP_BATCH, TP_PROMPT)
+    itemsize = {"s": 4, "pos": 4}
+    state = sum(math.prod(shape) * itemsize.get(f, 2)
+                for fam in shapes.values() for f, shape in fam.items())
+    rows = TP_BATCH // mesh.data
+    v, d = cfg.vocab, cfg.d_model
+    layer = 2 * (n - 2 * v * d - d) // cfg.n_layers // mesh.model
+    logits = 2 * TP_PROMPT * (rows * v // mesh.model + 2 * rows * v
+                              + 2 * TP_BATCH * v)
+    head = 2 * d * v // mesh.model + logits
+    return dict(params=params, state=state, peak=params + state
+                + max(layer, head),
+                whole=2 * n + state + logits)
+
+
+def tp_serve(cfg, mesh, params, prompts):
+    """Phase 31's served run on ``mesh`` (the one-process mesh or a
+    rank's): a prefill with ``use_kernel`` and ``TP_STATS_DECODE`` decode
+    steps with ``mesh.stats`` on, for the model sums' and the data
+    gathers' seconds (each collective between two synchronisations of the
+    device, so not timed; this pass also warms up); then, with every
+    counter from 0 and the stats off, the timed prefill and ``TP_DECODE``
+    decode steps from an empty state fed the prompt's first tokens, host
+    clock between synchronisations. The timed prefill's logits must equal
+    the instrumented one's bit for bit."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import make_serve_fns
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    cell = ShapeCell("tp", TP_PROMPT, TP_BATCH, "prefill")
+    stats = mesh.stats
+    prefill_fn, decode_fn = make_serve_fns(
+        model, dataclasses.replace(mesh, stats=None), cell)
+    s_prefill, s_decode = make_serve_fns(model, mesh, cell)
+    with torch.inference_mode():
+        stats.clear()
+        traced = digest(s_prefill(params, {"tokens": prompts},
+                                  use_kernel=True))
+        prefill_coll = coll_seconds(stats)
+        stats.clear()
+        state = model.init_decode_state(TP_BATCH, TP_PROMPT, DEV, mesh=mesh)
+        for i in range(TP_STATS_DECODE):
+            s_decode(params, state, {"token": prompts[:, i]})
+        decode_coll = {k: v / TP_STATS_DECODE
+                       for k, v in coll_seconds(stats).items()}
+        del state
+    for obj, attr in all_counters():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), LaunchHeads() as heads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill_fn(params, {"tokens": prompts}, use_kernel=True)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = {f"{obj.__name__}.{attr}": getattr(obj, attr)
+                  for obj, attr in all_counters()}
+        prefill_heads = dict(flash=list(heads.flash), scan=list(heads.scan))
+        state = model.init_decode_state(TP_BATCH, TP_PROMPT, DEV, mesh=mesh)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TP_DECODE):
+            lg, state = decode_fn(params, state, {"token": prompts[:, i]})
+            steps.append(lg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / TP_DECODE
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(digest(logits) == traced, "phase 31: the prefill with the model "
+          "sums and gathers timed differs from the timed prefill")
+    check(len(heads.flash) + len(heads.scan)
+          == len(prefill_heads["flash"]) + len(prefill_heads["scan"]),
+          "phase 31: the decode steps launched a kernel")
+    return dict(logits=logits, decode=torch.stack(steps),
+                prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
+                heads=prefill_heads, prefill_coll=prefill_coll,
+                decode_coll=decode_coll, state_bytes=state_bytes(state),
+                peak_gb=peak_gb)
+
+
+def tp_worker(spec, cfg, rank, out_dir) -> int:
+    """One rank of phase 31 (``chip_smoke.py --ranks-worker SPEC`` with
+    ``"tp"`` in the spec): its mesh (``init_mesh``, gloo on the card, on
+    the chain's process group), then for each arch its shards drawn from
+    the one process's seed (``Model.init(mesh=, specs=)``) and the served
+    run; its digests and numbers into ``rank<r>.json``."""
+    import torch
+    from repro_torch.distributed import MeshStats, fsdp
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.launch.steps import decode_shard_shapes
+    from repro_torch.models import build_model
+    mesh = init_mesh(*TP_MESH, DEV, backend="gloo", stats=MeshStats())
+    out = dict(rank=rank, coords=list(mesh.coords), device=str(mesh.device),
+               archs={})
+    for arch, layers in TP_ARCHS:
+        c = zoo_config(arch, layers)
+        model = build_model(c)
+        specs, _ = fsdp.specs_for(model, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(DEV).manual_seed(TP_SEED), DEV,
+                            mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        run = tp_serve(c, mesh, params, tp_prompts(c))
+        shapes = decode_shard_shapes(c, mesh, TP_BATCH, TP_PROMPT)
+        want_state = model.init_decode_state(TP_BATCH, TP_PROMPT, "meta",
+                                             mesh=mesh)
+        out["archs"][arch] = dict(
+            logits=digest(run["logits"]),
+            decode=[digest(t) for t in run["decode"]],
+            param_bytes=tree_bytes(params),
+            reckoned=fsdp.shard_bytes(model, mesh)["params"],
+            state_bytes=run["state_bytes"],
+            state_reckoned=state_bytes(want_state),
+            state_shapes={f"{n}/{f}": list(s) for n, fam in shapes.items()
+                          for f, s in fam.items()},
+            counts=run["counts"], heads=run["heads"],
+            prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
+            prefill_coll=run["prefill_coll"],
+            decode_coll=run["decode_coll"], peak_gb=run["peak_gb"],
+            init_peak_gb=init_peak,
+            staging=pinned_bytes(mesh.staging), host_gb=host_gb())
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        empty_host_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def uncounted_prefill(model, params, prompts, mesh=None, use_kernel=True):
+    """The prefill on ``mesh`` (None: without one, whole parameters), its
+    launches not counted."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import make_serve_fns
+    before = [getattr(o, a) for o, a in all_counters()]
+    with torch.inference_mode():
+        out = make_serve_fns(model, mesh, ShapeCell(
+            "tp", TP_PROMPT, TP_BATCH, "prefill"))[0](
+                params, {"tokens": prompts}, use_kernel=use_kernel)
+    for (o, a), v in zip(all_counters(), before):
+        setattr(o, a, v)
+    return out.float()
+
+
+def tp_against_unsharded(cfg, model, params, prompts, logits) -> dict:
+    """Phase 31's checks of the sharded prefill (``logits``, one process,
+    the kernel on each shard's heads), with the serve bound of layers x
+    2^-8 of max|logit|: against the unsharded prefill with the kernel, and
+    against the same sharded prefill without it (the kernel held against
+    its plain version at the shards' head counts, 16 of 32 or 32 of 64).
+
+    rwkv6-7b's random weights magnify round-off (phase 11): in bf16 its
+    unsharded kernel and plain prefills are further apart than that bound
+    at 2 layers, and the sharded prefill, whose column-split products
+    round r, k, v, g and both row-parallel outputs apart, further still.
+    So both bounds are held in float32 at full width (the same seed drawn
+    in float32, the sharded prefills on the one-process mesh), where the
+    split's round-off stays far below them and a wrong head, decay or
+    state slice would not; and the bf16 sharded prefill is held against
+    the float32 unsharded one, within ``TP_BF16_MARGIN`` times the bf16
+    unsharded prefill's own distance from it, which a cast or a sum in
+    the wrong type on the split path alone would exceed."""
+    import torch
+    from repro_torch.distributed import local_mesh
+    from repro_torch.models import build_model
+    one = local_mesh(*TP_MESH, DEV)
+    logits = logits.float()
+    whole = uncounted_prefill(model, params, prompts)
+    scale = float(whole.abs().max())
+    out = dict(whole_diff=float((logits - whole).abs().max()),
+               bound=cfg.n_layers * 2.0 ** -8 * scale)
+    if not cfg.rwkv:
+        out["plain_diff"] = float((logits - uncounted_prefill(
+            model, params, prompts, one, use_kernel=False)).abs().max())
+        check(out["whole_diff"] <= out["bound"], f"phase 31 {cfg.arch_id}: "
+              f"the sharded prefill is {out['whole_diff']:.4g} from the "
+              f"unsharded one, bound {out['bound']:.4g}")
+        check(out["plain_diff"] <= out["bound"], f"phase 31 {cfg.arch_id}: "
+              f"the sharded prefill with the kernel is "
+              f"{out['plain_diff']:.4g} from the one with plain attention, "
+              f"bound {out['bound']:.4g}")
+        return out
+    out["witness"] = float((uncounted_prefill(model, params, prompts,
+                                              use_kernel=False)
+                            - whole).abs().max())
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(c32)
+    p32 = m32.init(torch.Generator(DEV).manual_seed(TP_SEED), DEV)
+    whole32 = uncounted_prefill(m32, p32, prompts)
+    tp32 = uncounted_prefill(m32, p32, prompts, one)
+    out["f32_diff"] = float((tp32 - whole32).abs().max())
+    out["f32_plain_diff"] = float((tp32 - uncounted_prefill(
+        m32, p32, prompts, one, use_kernel=False)).abs().max())
+    out["f32_bound"] = cfg.n_layers * 2.0 ** -8 * float(whole32.abs().max())
+    out["bf16_whole_to_f32"] = float((whole - whole32).abs().max())
+    out["bf16_to_f32"] = float((logits - whole32).abs().max())
+    out["bf16_limit"] = TP_BF16_MARGIN * out["bf16_whole_to_f32"]
+    check(out["f32_diff"] <= out["f32_bound"], f"phase 31 "
+          f"{cfg.arch_id}: in float32 the sharded prefill is "
+          f"{out['f32_diff']:.4g} from the unsharded one, bound "
+          f"{out['f32_bound']:.4g}")
+    check(out["f32_plain_diff"] <= out["f32_bound"], f"phase 31 "
+          f"{cfg.arch_id}: in float32 the sharded prefill with the scan "
+          f"kernel is {out['f32_plain_diff']:.4g} from the one with the "
+          f"plain recurrence, bound {out['f32_bound']:.4g}")
+    check(out["bf16_to_f32"] <= out["bf16_limit"], f"phase 31 "
+          f"{cfg.arch_id}: the bf16 sharded prefill is "
+          f"{out['bf16_to_f32']:.4g} from the float32 unsharded one, over "
+          f"{TP_BF16_MARGIN} times the bf16 unsharded prefill's "
+          f"{out['bf16_whole_to_f32']:.4g}")
+    return out
+
+
+def tp_slice(card_line):
+    """Phase 31: tensor-parallel serving from sharded parameters, one
+    process against 4 gloo ranks sharing the card. Returns the flash and
+    scan kernels' launches on its path."""
+    import torch
+    from repro_torch.distributed import MeshStats, local_mesh
+    from repro_torch.distributed.exchange import empty_host_cache
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    one, gb = {}, 1e9
+    n_shards = TP_MESH[0] * TP_MESH[1]
+    for arch, layers in TP_ARCHS:
+        cfg = zoo_config(arch, layers)
+        model = build_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init(torch.Generator(DEV).manual_seed(TP_SEED), DEV)
+        prompts = tp_prompts(cfg)
+        run = tp_serve(cfg, local_mesh(*TP_MESH, DEV, stats=MeshStats()),
+                       params, prompts)
+        kern = "rwkv6_scan" if cfg.rwkv else "flash_attention"
+        want = dict.fromkeys(run["counts"], 0)
+        want[f"{kern}.launches"] = layers * n_shards
+        if not cfg.rwkv:
+            want["flash_attention.tc_launches"] = layers * n_shards
+        check(run["counts"] == want, f"phase 31 {arch}: one process's "
+              f"launches {run['counts']}, want {want}")
+        logits, dec = run["logits"], run["decode"]
+        check(tuple(logits.shape) == (TP_BATCH, TP_PROMPT, cfg.vocab)
+              and tuple(dec.shape) == (TP_DECODE, TP_BATCH, cfg.vocab)
+              and bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(dec).all()),
+              f"phase 31 {arch}: prefill logits {tuple(logits.shape)}, "
+              f"decode {tuple(dec.shape)}, or not finite")
+        held = tp_against_unsharded(cfg, model, params, prompts, logits)
+        one[arch] = dict(
+            logits=digest(logits), decode=[digest(t) for t in dec],
+            prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
+            peak_gb=run["peak_gb"], heads=run["heads"],
+            prefill_coll=run["prefill_coll"], decode_coll=run["decode_coll"],
+            state_bytes=run["state_bytes"], count=model.param_count(),
+            **held)
+        del params, run, logits, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache()
+    t1 = time.perf_counter()
+    ranks, seconds = yield ("phase 31", n_shards, [], TP_ARCHS[0][1],
+                            dict(arch=TP_ARCHS[0][0], tp=True))
+    rank_mesh = local_mesh(*TP_MESH, DEV)
+    launches = {"flash_attention": 0, "rwkv6_scan": 0}
+    for arch, layers in TP_ARCHS:
+        cfg = zoo_config(arch, layers)
+        o = one[arch]
+        kern = "rwkv6_scan" if cfg.rwkv else "flash_attention"
+        launches[kern] += layers * n_shards
+        want = dict.fromkeys(ranks[0]["archs"][arch]["counts"], 0)
+        want[f"{kern}.launches"] = layers
+        if not cfg.rwkv:
+            want["flash_attention.tc_launches"] = layers
+        want_heads = dict(flash=[] if cfg.rwkv else
+                          [cfg.n_heads // TP_MESH[1]] * layers,
+                          scan=[cfg.n_heads // TP_MESH[1]] * layers
+                          if cfg.rwkv else [])
+        reck = reckon_tp_peak(cfg, rank_mesh)
+        for r in ranks:
+            a = r["archs"][arch]
+            tag = f"phase 31 {arch} rank {r['rank']}"
+            check(a["logits"] == o["logits"] and a["decode"] == o["decode"],
+                  f"{tag}: logits differ from the one process's")
+            check(a["counts"] == want, f"{tag}: launches {a['counts']}, "
+                  f"want {want}")
+            check(a["heads"] == want_heads, f"{tag}: kernel launches on "
+                  f"{a['heads']} heads, want {want_heads}")
+            check(a["param_bytes"] == a["reckoned"], f"{tag}: holds "
+                  f"{a['param_bytes']} parameter bytes, its shards are "
+                  f"{a['reckoned']}")
+            check(a["state_bytes"] == a["state_reckoned"],
+                  f"{tag}: decode state {a['state_bytes']} bytes, its shard "
+                  f"shapes {a['state_shapes']} are "
+                  f"{a['state_reckoned']} bytes")
+            launches[kern] += a["counts"][f"{kern}.launches"]
+        print(f"phase 31 {arch} one process ({layers} layers at full width, "
+              f"{o['count'] / gb:.3f} B parameters, {2 * o['count'] / gb:.2f}"
+              f" GB in bf16): prefill {o['prefill_ms']:.2f} ms, decode "
+              f"{o['decode_ms']:.3f} ms a token, peak {o['peak_gb']:.2f} GB, "
+              f"decode state {o['state_bytes'] / gb:.4f} GB; sharded vs "
+              f"unsharded prefill {o['whole_diff']:.4g} (bound "
+              f"{o['bound']:.4g}" + (
+                  f", not held in bf16: the unsharded kernel and plain "
+                  f"prefills {o['witness']:.4g} apart; in float32 "
+                  f"{o['f32_diff']:.4g}, and the sharded scan kernel vs "
+                  f"plain {o['f32_plain_diff']:.4g}, bound "
+                  f"{o['f32_bound']:.4g}; bf16 sharded vs float32 unsharded"
+                  f" {o['bf16_to_f32']:.4g}, limit {o['bf16_limit']:.4g} "
+                  f"({TP_BF16_MARGIN} x the bf16 unsharded prefill's "
+                  f"{o['bf16_whole_to_f32']:.4g}))"
+                  if "witness" in o else
+                  f"; the sharded flash kernel vs plain attention "
+                  f"{o['plain_diff']:.4g})")
+              + f"; kernel launches on heads {o['heads']} [{card_line}]",
+              flush=True)
+        for r in ranks:
+            a = r["archs"][arch]
+            pc, dc = a["prefill_coll"], a["decode_coll"]
+            print(f"phase 31 {arch} rank {r['rank']} {tuple(r['coords'])} "
+                  f"on {r['device']}: parameters {a['param_bytes'] / gb:.4f}"
+                  f" GB (its shards, reckoned {a['reckoned'] / gb:.4f}; "
+                  f"whole {2 * o['count'] / gb:.4f}), decode state "
+                  f"{a['state_bytes'] / gb:.4f} GB (whole "
+                  f"{o['state_bytes'] / gb:.4f}); peak {a['peak_gb']:.2f} "
+                  f"GB (reckoned {reck['peak'] / gb:.2f}; the "
+                  f"whole-parameter layout {reck['whole'] / gb:.2f}), "
+                  f"while drawing {a['init_peak_gb']:.2f} GB; prefill "
+                  f"{a['prefill_ms']:.2f} ms, decode {a['decode_ms']:.3f} "
+                  f"ms a token; stats-on prefill: model sums "
+                  f"{pc['sum_s']:.4f} s in {pc['sum_calls']} calls, data "
+                  f"gathers {pc['gather_s']:.4f} s in {pc['gather_calls']};"
+                  f" a stats-on decode step: sums {dc['sum_s']:.4f} s, "
+                  f"gathers {dc['gather_s']:.4f} s (host clock, staged "
+                  f"gloo); kernel launches on heads {a['heads']} "
+                  f"[{card_line}]", flush=True)
+    print("phase 31: NCCL across cards has not run: the ranks share one "
+          "card, over gloo", flush=True)
+    print(f"phase 31: one process {t1 - t0:.1f} s, ranks {seconds:.1f} s",
+          flush=True)
+    return dict(launches=launches,
+                one_process={a: {k: one[a][k] for k in (
+                    "prefill_ms", "decode_ms", "peak_gb", "whole_diff",
+                    "bound", "plain_diff", "witness", "f32_diff",
+                    "f32_plain_diff", "f32_bound", "bf16_whole_to_f32",
+                    "bf16_to_f32", "bf16_limit")
+                    if k in one[a]} for a in one},
+                ranks=[{a: {k: r["archs"][a][k] for k in (
+                    "prefill_ms", "decode_ms", "peak_gb", "prefill_coll",
+                    "decode_coll")} for a in r["archs"]} for r in ranks])
+
+
 def sass_of(name):
     """Kernel ``name``'s SASS instruction counts (in a worker process)."""
     from repro_torch.kernels import build
@@ -5939,20 +6417,21 @@ def main() -> int:
     print(f"ep slice: phase 28 {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # -- 26, 29, 30. four gloo ranks sharing the card, in one torchrun call
-    # (30a's part first: its host peak is the checkpoint's): 26 and 26b, the
-    # sharded consensus state, sync and async rounds; 29, the in-pod
-    # sharded local step; 30, the reference launcher's command, the
+    # -- 26, 29, 30, 31. four gloo ranks sharing the card, in one torchrun
+    # call (30a's part first: its host peak is the checkpoint's): 26 and
+    # 26b, the sharded consensus state, sync and async rounds; 29, the
+    # in-pod sharded local step; 30, the reference launcher's command, the
     # consensus state replicated in-pod, then (30b) a fresh torchrun call
-    # resuming its checkpoint ------------------------------------------------
+    # resuming its checkpoint; 31, tensor-parallel serving --------------------
     t0 = time.perf_counter()
-    sharded, inpod, rep = together(
-        "phases 26, 29 and 30", [sharded_slice(card_line),
-                                 inpod_slice(card_line),
-                                 replicated_slice(card_line)],
-        chain=(2, 0, 1))
-    lap("sharded 26, inpod 29, replicated 30")
-    print(f"four-rank slices: phases 26, 29 and 30 "
+    sharded, inpod, rep, tp = together(
+        "phases 26, 29, 30 and 31", [sharded_slice(card_line),
+                                     inpod_slice(card_line),
+                                     replicated_slice(card_line),
+                                     tp_slice(card_line)],
+        chain=(2, 0, 1, 3))
+    lap("sharded 26, inpod 29, replicated 30, tp 31")
+    print(f"four-rank slices: phases 26, 29, 30 and 31 "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 16, 17. the paper slice's timed solves, with the card to itself ----
@@ -6031,7 +6510,8 @@ def main() -> int:
                      "src/repro/kernels/flash_attention.py:26",
                      serve_qwen["launches"] + sum(
                          z["launches"] for z in zserve.values())
-                     + ep["launches"], flash,
+                     + ep["launches"] + tp["launches"]["flash_attention"],
+                     flash,
                      library_ms=flash["library_ms"],
                      in_prefill_ms=serve_qwen["in_prefill_ms"],
                      cc_kernel_ms=flash["cc_ms"],
@@ -6049,6 +6529,9 @@ def main() -> int:
                                    for a, z in zserve.items()},
                      ep_launches=ep["launches"],
                      ep_one_process=ep["one_process"], ep_ranks=ep["ranks"],
+                     tp_launches=tp["launches"]["flash_attention"],
+                     tp_one_process=tp["one_process"]["qwen3-4b"],
+                     tp_ranks=[r["qwen3-4b"] for r in tp["ranks"]],
                      zoo_tc_launches={a: z["launches"] * (z["route"] == "tc")
                                       for a, z in zserve.items()},
                      zoo_in_prefill_ms={a: z["in_prefill_ms"]
@@ -6060,7 +6543,10 @@ def main() -> int:
                          for k, v in zflash.items()}),
         kernel_entry("rwkv6_scan", src + "rwkv6_scan.cu",
                      "src/repro/kernels/rwkv6_scan.py:30",
-                     serve_rwkv["launches"], scan,
+                     serve_rwkv["launches"] + tp["launches"]["rwkv6_scan"],
+                     scan, tp_launches=tp["launches"]["rwkv6_scan"],
+                     tp_one_process=tp["one_process"]["rwkv6-7b"],
+                     tp_ranks=[r["rwkv6-7b"] for r in tp["ranks"]],
                      in_prefill_ms=serve_rwkv["in_prefill_ms"],
                      **{key: scan[key] for key in (
                          "blocks_per_head", "threads", "smem_bytes",

@@ -51,8 +51,8 @@ from typing import Any
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.distributed.sharding import (Mesh, fit_spec, spec_axes,
-                                              use_mesh)
+from repro_torch.distributed.sharding import (Mesh, add_f32, fit_spec,
+                                              spec_axes, use_mesh)
 
 
 # ------------------------------------------------------------- specs ----
@@ -200,14 +200,6 @@ def reduce_data(g: torch.Tensor, mesh: Mesh, dim: int | None
     return add_f32(parts).to(g.dtype)
 
 
-def add_f32(parts) -> torch.Tensor:
-    """The float32 sum of ``parts``, in order."""
-    out = parts[0].float()
-    for p in parts[1:]:
-        out = out + p.float()
-    return out
-
-
 def gather_leaf(x: torch.Tensor, mesh: Mesh, gspec) -> torch.Tensor:
     """This rank's shard ``x`` gathered over the axes of ``gspec`` (see
     the module docstring for its backward)."""
@@ -219,7 +211,7 @@ def gather_leaf(x: torch.Tensor, mesh: Mesh, gspec) -> torch.Tensor:
 
 class Gathered:
     """Reads a rank's shards, each gathered where the model reads it
-    (``transformer.forward``'s ``read``)."""
+    (``transformer.loss_fn``'s ``read``)."""
 
     def __init__(self, mesh: Mesh, gather_specs: dict):
         self.mesh = mesh
@@ -237,6 +229,19 @@ class Gathered:
         return gather_leaf(params[name], self.mesh, self.gspecs[name])
 
 
+def _gather_dims(x: torch.Tensor, mesh: Mesh, dims) -> torch.Tensor:
+    """``x`` all-gathered over each ``(dim, axis)`` of ``dims`` (no
+    autograd), timed as a gather."""
+    if not dims:
+        return x
+    t0 = mesh._tick()
+    for dim, ax in dims:
+        x = torch.cat(mesh.gather_axis(x.contiguous(), ax).unbind(0),
+                      dim=dim)
+    mesh._tock(t0, "gather")
+    return x
+
+
 @torch.no_grad()
 def gather_whole(tree: Any, specs: Any, mesh: Mesh) -> dict:
     """A rank's shards gathered into the whole tree over every axis of
@@ -244,15 +249,61 @@ def gather_whole(tree: Any, specs: Any, mesh: Mesh) -> dict:
     one-process mesh's tree is whole already)."""
     if mesh.local:
         return tree
+    return tree_lib.tree_map(lambda x, s: _gather_dims(x, mesh, _dims(s)),
+                             tree, specs)
 
-    def one(x, spec):
-        t0 = mesh._tick()
-        for dim, ax in _dims(spec):
-            x = torch.cat(mesh.gather_axis(x.contiguous(), ax).unbind(0),
-                          dim=dim)
-        mesh._tock(t0, "gather")
-        return x
-    return tree_lib.tree_map(one, tree, specs)
+
+class Served:
+    """The serve steps' reader on a mesh (``transformer.forward`` and
+    ``decode_step``'s ``read``): each leaf as a list with one entry for
+    each model shard this process computes, in axis order, the tensor
+    parallelism over ``model`` of ``launch.steps.make_serve_fns``.
+
+    On a rank, which holds its shards (``specs``, from ``specs_for``), a
+    leaf is all-gathered over ``data`` (its FSDP dimension) where the
+    model reads it, and keeps its ``model`` dimension as this rank's
+    shard: its heads, d_ff columns, vocab rows or experts. On the
+    one-process mesh, which holds the whole tree, entry m is model shard
+    m's block, a contiguous copy as a rank's gathered leaf is; a leaf with
+    no ``model`` dimension is the whole one, shared by the entries."""
+
+    def __init__(self, mesh: Mesh, specs: dict):
+        self.mesh = mesh
+        self.specs = specs
+
+    def _parts(self, x: torch.Tensor, spec) -> list[torch.Tensor]:
+        mesh = self.mesh
+        if not mesh.local:
+            return [_gather_dims(x, mesh, [(d, a) for d, a in _dims(spec)
+                                           if a == "data" and mesh.data > 1])]
+        on_model = tuple(e if "model" in spec_axes(e) else None
+                         for e in spec)
+        if not any(on_model) or mesh.model == 1:
+            return [x] * mesh.model
+        return [shard_of(x, on_model, mesh, (0, m)).contiguous()
+                for m in mesh.shards("model")]
+
+    def layer(self, params: dict, layer: int) -> list[dict]:
+        pl = tree_lib.leaves_with_paths(params["blocks"])
+        specs = tree_lib.leaves(self.specs["blocks"], is_leaf=_is_spec)
+        cols = [self._parts(x[layer], s[1:])
+                for (_, x), s in zip(pl, specs, strict=True)]
+        paths = [p for p, _ in pl]
+        return [tree_lib.unflatten(paths, [c[i] for c in cols])
+                for i in range(len(cols[0]))]
+
+    def leaf(self, params: dict, name: str) -> list[torch.Tensor]:
+        return self._parts(params[name], self.specs[name])
+
+
+def cut_for(model, tree: dict, mesh: Mesh) -> dict:
+    """A whole tree (drawn, or ``params.from_jax``) cut into this rank's
+    shards by ``model``'s specs under ``arch_rules`` (the one-process mesh
+    keeps the whole tree)."""
+    if mesh.local:
+        return tree
+    specs, _ = specs_for(model, mesh)
+    return cut(tree, specs, mesh, mesh.coords)
 
 
 # --------------------------------------------------------- local step ----

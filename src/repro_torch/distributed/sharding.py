@@ -70,7 +70,7 @@ def default_rules(*, kv_divisible: bool = True,
     }
 
 
-COLLECTIVES = ("a2a", "gather", "rs")
+COLLECTIVES = ("a2a", "gather", "rs", "sum")
 
 
 @dataclasses.dataclass
@@ -81,7 +81,8 @@ class MeshStats:
     entry a shard) and the tokens that lost a pair to the capacity, the
     slot-(0, 0) overwrite included (``lost``, ``[shards, t_loc]`` bool);
     and, keyed by ``COLLECTIVES`` (the all-to-all exchanges, the
-    parameter gathers, the gradient reduce-scatters), the seconds spent in
+    parameter gathers, the gradient reduce-scatters, the model-axis sums
+    and gathers of tensor-parallel serving), the seconds spent in
     each kind and its calls, each timed by the host clock between two
     synchronisations of the device. A recomputed layer (the backward's
     checkpoint) records no drops a second time; its exchanges and gathers
@@ -198,6 +199,31 @@ class Mesh:
         return all_gather(t, self.size, self.group, self.backend,
                           self.staging)
 
+    def model_sum(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The sum over the ``model`` axis of each model shard's partial
+        (``parts``: one for each model shard this process computes, in
+        axis order; a rank all-gathers the others'), added in rank order
+        in float32 and cast back: alike on every model rank (no
+        autograd)."""
+        if self.model == 1:
+            return parts[0]
+        t0 = self._tick()
+        if not self.local:
+            parts = list(self.gather_axis(parts[0], "model").unbind(0))
+        out = add_f32(parts).to(parts[0].dtype)
+        self._tock(t0, "sum")
+        return out
+
+    def model_gather(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Every model shard's tensor, in axis order (``parts`` as in
+        ``model_sum``; no autograd)."""
+        if self.local or self.model == 1:
+            return list(parts)
+        t0 = self._tick()
+        out = list(self.gather_axis(parts[0], "model").unbind(0))
+        self._tock(t0, "sum")
+        return out
+
     def exchange(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The tiled all-to-all of one ``[n, ...]`` tensor over ``axis``
         (no autograd)."""
@@ -276,6 +302,14 @@ def _sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     out = parts[0]
     for p in parts[1:]:
         out = out + p
+    return out
+
+
+def add_f32(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The float32 sum of ``parts``, in order."""
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
     return out
 
 

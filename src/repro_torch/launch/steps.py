@@ -14,20 +14,25 @@ bit. As in the reference, it needs a mesh (``local_mesh(1, 1, device)``
 is one device's plain step, the MoE on ``moe_ref``).
 
 ``make_serve_fns`` returns the reference's pair ``(prefill_fn,
-decode_fn)``, each run under ``use_mesh``, so that the model's MoE layers
-take the expert-parallel paths: the prefill's full-sequence blocks the
-all-to-all path, the decode step the replicated one.
-
-Both take the global batch, as the reference's do, and return the global
-logits. Rank ``(d, m)`` computes the batch rows of data index ``d`` (the
-reference's ``batch -> data`` rule), the layers other than the MoE whole
-on those rows, and all-gathers the logits over the data axis. The decode
-state a rank passes holds its own rows only (``Model.init_decode_state``
-at ``global_batch / data``); the one-process mesh passes the state of
-every row, and computes each data index's rows in turn, on views of its
-rows, with the ranks' shapes. The serve steps read whole parameters (on a
-rank, its experts only). ``decode_state_specs`` and serving from sharded
-parameters are not ported.
+decode_fn)``, each run under ``use_mesh`` and the arch rules. Both take
+the global batch, as the reference's do, and return the global logits.
+On a mesh, serving is tensor parallel over ``model`` as the reference's
+rules split it (``models/transformer.py``): rank ``(d, m)`` holds its
+shards of the parameters (``fsdp.specs_for``: FSDP on ``data``; heads,
+kv heads, d_ff, vocab and experts on ``model``; ``fsdp.cut_for`` cuts a
+whole tree, ``Model.init(mesh=, specs=)`` draws them) and its shard of
+the decode state (``decode_state_specs``,
+``Model.init_decode_state(mesh=)``). It computes the batch rows of data
+index ``d`` (the reference's ``batch -> data`` rule), gathers each
+layer's leaves over ``data`` only (``fsdp.Served``), computes its heads,
+d_ff columns and vocab columns, adds the partials over ``model`` in rank
+order in float32 (``Mesh.model_sum``), and all-gathers the logits over
+``model`` and then ``data``. The MoE's experts stay expert parallel on
+the same axis. The one-process mesh (``local_mesh``) takes the whole tree
+and the whole state, and computes each ``(data, model)`` shard in turn at
+the ranks' shapes: the ranks equal it bit for bit. hymba is refused at
+``model > 1`` (``transformer.check_servable``). Without a mesh the steps
+read whole parameters on one device.
 """
 from __future__ import annotations
 
@@ -39,8 +44,11 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ShapeCell
 from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import Mesh, use_mesh
-from repro_torch.models.model import Model
-from repro_torch.models.transformer import DecodeState
+from repro_torch.models.model import Model, arch_rules
+# decode_state_specs and decode_shard_shapes live here too, where the
+# reference keeps its decode_state_specs
+from repro_torch.models.transformer import (  # noqa: F401
+    DecodeState, check_servable, decode_shard_shapes, decode_state_specs)
 from repro_torch.optim import adamw as adamw_lib
 
 
@@ -141,20 +149,29 @@ def make_serve_fns(model: Model, mesh: Mesh | None, cell: ShapeCell):
 
     ``prefill_fn(params, batch, use_kernel=False)``: the logits ``[B, S,
     V]`` of the global ``batch`` (``tokens`` [B, S] or ``embeds``);
-    ``use_kernel`` goes through to ``Model.prefill``.
+    ``use_kernel`` goes through to ``Model.prefill`` (on a mesh, the
+    kernel runs on each model shard's heads).
     ``decode_fn(params, state, inputs)``: one step of ``inputs["token"]``
     [B] (or ``inputs["embed_in"]`` [B, D]) at ``max_len = cell.seq_len``;
-    returns (logits [B, V], the next state). ``params`` on a rank hold its
-    experts only (``params.shard_experts``, ``Model.init(mesh=)``).
+    returns (logits [B, V], the next state). On a rank ``params`` and
+    ``state`` are its shards (see the module docstring); on the
+    one-process mesh, and without a mesh, the whole tree and state.
     """
+    cfg = model.cfg
+    if mesh is None:
+        read, rules = None, None
+    else:
+        check_servable(cfg, mesh)
+        read = fsdp.Served(mesh, fsdp.specs_for(model, mesh)[0])
+        rules = arch_rules(cfg, mesh)
 
     def prefill_fn(params, batch, use_kernel: bool = False):
         outs = []
         for d, n in _data_shards(mesh):
             sub = {k: fsdp.rows(v, d, n) for k, v in batch.items()}
-            with use_mesh(mesh):
-                outs.append(model.prefill(params, sub,
-                                          use_kernel=use_kernel))
+            with use_mesh(mesh, rules):
+                outs.append(model.prefill(params, sub, use_kernel=use_kernel,
+                                          read=read))
         return _join(mesh, outs)
 
     def decode_fn(params, state: DecodeState, inputs):
@@ -167,13 +184,13 @@ def make_serve_fns(model: Model, mesh: Mesh | None, cell: ShapeCell):
                     name: type(entry)(*(fsdp.rows(t, d, n, 1) if t.dim() > 1
                                         else t for t in entry))
                     for name, entry in state.cache.items()})
-            with use_mesh(mesh):
+            with use_mesh(mesh, rules):
                 logits, _ = model.decode_step(
                     params, sub, fsdp.rows(inputs.get("token"), d, n),
                     max_len=cell.seq_len,
-                    embed_in=fsdp.rows(inputs.get("embed_in"), d, n))
+                    embed_in=fsdp.rows(inputs.get("embed_in"), d, n),
+                    read=read)
             outs.append(logits)
         return _join(mesh, outs), state._replace(pos=state.pos + 1)
 
     return prefill_fn, decode_fn
-

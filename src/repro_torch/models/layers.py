@@ -1,5 +1,13 @@
 """Shared building blocks: norms, RoPE, SwiGLU MLP, embeddings (port of
-``repro/models/layers.py``)."""
+``repro/models/layers.py``).
+
+The ``*_tp`` forms are the tensor-parallel serve path's
+(``launch.steps.make_serve_fns``): ``parts`` holds one entry for each
+model shard the process computes (``distributed.fsdp.Served``), and a
+leaf that the arch rules put on ``model`` is that shard's block (its
+vocab rows, d_ff columns). Where the rules leave it whole, the product is
+computed whole, once.
+"""
 from __future__ import annotations
 
 import torch
@@ -55,6 +63,15 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"]
 
 
+def mlp_apply_tp(cfg: ArchConfig, mesh, parts: list[dict],
+                 x: torch.Tensor) -> torch.Tensor:
+    """The MLP on each shard's d_ff columns (``wi_gate``/``wi_up``) and
+    rows (``wo``, row-parallel), the partials summed over ``model``."""
+    if parts[0]["wi_gate"].shape[-1] == cfg.d_ff:
+        return mlp_apply(parts[0], x)
+    return mesh.model_sum([mlp_apply(p, x) for p in parts])
+
+
 # ----------------------------------------------------------- embeddings -----
 def embed_defs(cfg: ArchConfig, dtype) -> dict:
     out = {"embed": ParamDef((cfg.vocab, cfg.d_model), dtype, init="embed",
@@ -72,3 +89,31 @@ def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     return x @ w
+
+
+def embed_tokens_tp(cfg: ArchConfig, mesh, parts: list[torch.Tensor],
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on each shard's vocab rows, zeros for the ids outside
+    them, summed over ``model``: exact, as one shard holds each id."""
+    rows = parts[0].shape[0]
+    if rows == cfg.vocab:
+        return F.embedding(tokens, parts[0])
+    outs = []
+    for m, table in zip(mesh.shards("model"), parts):
+        ids = tokens - m * rows
+        inside = (ids >= 0) & (ids < rows)
+        e = F.embedding(ids.clamp(0, rows - 1), table)
+        outs.append(torch.where(inside[..., None], e, 0))
+    return mesh.model_sum(outs)
+
+
+def unembed_tp(cfg: ArchConfig, mesh, parts: list[torch.Tensor],
+               x: torch.Tensor) -> torch.Tensor:
+    """The logits of each shard's vocab columns (``lm_head``, or the tied
+    ``embed``'s rows), all-gathered over ``model``."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    outs = [unembed(cfg, {key: w}, x) for w in parts]
+    vocab = parts[0].shape[0 if cfg.tie_embeddings else 1]
+    if vocab == cfg.vocab:
+        return outs[0]
+    return torch.cat(mesh.model_gather(outs), dim=-1)

@@ -83,23 +83,30 @@ class Model:
         the in-pod sharded local step (``distributed.fsdp``)."""
         return tf.loss_fn(self.cfg, params, batch, **kw)
 
-    def prefill(self, params: dict, batch: dict,
-                use_kernel: bool = False) -> torch.Tensor:
+    def prefill(self, params: dict, batch: dict, use_kernel: bool = False,
+                read=None) -> torch.Tensor:
         """Full-sequence logits of ``batch["tokens"]`` [B, S] (or
         ``batch["embeds"]`` [B, S, D]); with ``use_kernel`` the attention or
-        time-mix runs its kernel (see ``transformer.forward``)."""
+        time-mix runs its kernel (see ``transformer.forward``); with the
+        serve reader ``read`` (``distributed.fsdp.Served``) split over the
+        mesh's ``model`` axis."""
         return tf.forward(self.cfg, params, tokens=batch.get("tokens"),
-                          embeds=batch.get("embeds"), use_kernel=use_kernel)
+                          embeds=batch.get("embeds"), use_kernel=use_kernel,
+                          read=read)
 
     def init_decode_state(self, batch: int, max_len: int,
-                          device: torch.device | str) -> tf.DecodeState:
-        return tf.init_decode_state(self.cfg, batch, max_len, device)
+                          device: torch.device | str, mesh=None
+                          ) -> tf.DecodeState:
+        """The empty decode state; on a rank of ``mesh`` (``batch`` the
+        global batch) its shard only (``transformer.init_decode_state``)."""
+        return tf.init_decode_state(self.cfg, batch, max_len, device,
+                                    mesh=mesh)
 
     def decode_step(self, params: dict, state: tf.DecodeState,
                     token: torch.Tensor | None, *, max_len: int,
-                    embed_in: torch.Tensor | None = None):
+                    embed_in: torch.Tensor | None = None, read=None):
         return tf.decode_step(self.cfg, params, state, token,
-                              max_len=max_len, embed_in=embed_in)
+                              max_len=max_len, embed_in=embed_in, read=read)
 
 
 def build_model(cfg: ArchConfig) -> Model:

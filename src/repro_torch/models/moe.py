@@ -205,10 +205,16 @@ def _dispatch_local(cfg, x_flat, top_i, top_w, ep, e_local, cap):
     return buf, meta, plan
 
 
-def _local_experts(p: dict, mesh: Mesh, m: int, e_local: int):
+def _local_experts(p: dict | list, mesh: Mesh, m: int, e_local: int):
     """Model shard m's ``wg``, ``wu``, ``wd``: sliced from a whole tree
     (the one-process mesh's, or a whole tree on a rank); a rank's sharded
-    tree holds only its own experts."""
+    tree holds only its own experts; a list holds each computed model
+    shard's leaves (``transformer``'s blocks), or one whole tree."""
+    if isinstance(p, list) and len(p) > 1:
+        p = p[mesh.shards("model").index(m)]
+        return [p[name] for name in ("wg", "wu", "wd")]
+    if isinstance(p, list):
+        p = p[0]
     ws = [p[name] for name in ("wg", "wu", "wd")]
     n = ws[0].shape[0]
     if n == e_local * mesh.model:
@@ -217,6 +223,11 @@ def _local_experts(p: dict, mesh: Mesh, m: int, e_local: int):
         raise ValueError(f"model rank {m} holds {n} experts, want its "
                          f"{e_local} or all {e_local * mesh.model}")
     return ws
+
+
+def _router(p: dict | list) -> torch.Tensor:
+    """The router (whole on every shard)."""
+    return (p[0] if isinstance(p, list) else p)["router"]
 
 
 def _record(mesh: Mesh, plans: list, t_loc: int) -> None:
@@ -262,7 +273,7 @@ def _moe_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh: Mesh,
     shards = mesh.shards(axis)
     bufs, metas, plans = [], [], []
     for xm, router in zip(mesh.split(x, axis, 1),
-                          mesh.replicate(p["router"], axis)):
+                          mesh.replicate(_router(p), axis)):
         xm = xm.reshape(t_loc, d)
         top_i, top_w = _route(cfg, router, xm)
         buf, meta, plan = _dispatch_local(cfg, xm, top_i, top_w, ep,
@@ -305,7 +316,7 @@ def _moe_repl(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh: Mesh,
     e_local = cfg.moe.num_experts // ep
     x_flat = x.reshape(-1, d)
     t_loc = x_flat.shape[0]
-    top_i, top_w = _route(cfg, p["router"], x_flat)
+    top_i, top_w = _route(cfg, _router(p), x_flat)
     pair_tok = torch.arange(t_loc, device=x.device).repeat_interleave(k)
     pair_exp = top_i.reshape(-1)
     parts = []
@@ -341,12 +352,14 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     ``model`` axis of 1 or one that does not divide the experts,
     ``moe_ref``; otherwise expert parallelism over ``model``, the
     all-to-all path, or with ``decode`` the replicated path. Nothing
-    switches path on an error.
+    switches path on an error. The tensor-parallel serve path passes
+    ``p`` as a list of each computed model shard's leaves (its experts;
+    whole where ``moe_ref`` runs) and x replicated over ``model``.
     """
     mesh = current_mesh()
     axis = "model"
     if mesh is None or mesh.shape[axis] == 1 \
             or cfg.moe.num_experts % mesh.shape[axis] != 0:
-        return moe_ref(cfg, p, x)
+        return moe_ref(cfg, p[0] if isinstance(p, list) else p, x)
     fn = _moe_repl if decode else _moe_a2a
     return fn(cfg, p, x, mesh, axis)

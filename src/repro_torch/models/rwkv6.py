@@ -16,6 +16,17 @@ launcher's prefill does. The reference's GSPMD/XLA knobs (``TIME_UNROLL``,
 defaults: no unroll, an f32 row-parallel product, the per-step recurrence
 without the kernel. ``wkv_chunked``, the chunked formulation in plain ops,
 is kept for its tests.
+
+``time_mix`` and ``channel_mix`` take ``parts``, each computed model
+shard's leaves: ``[p]`` for a whole layer (training, one device), or the
+tensor-parallel serve path's shards (``distributed.fsdp.Served``,
+``launch.steps.make_serve_fns``). The time-mix runs on the shard's
+heads: the ``heads_flat`` columns of ``wr``/``wk``/``wv``/
+``wg``, the heads' bonus and decay, the group norm and the scan on them,
+and its rows of ``wo_tm`` (row-parallel, summed over ``model``); the
+token-shift mix and the decay's low-rank product are whole, computed
+once. The channel-mix splits ``cm_wk``/``cm_wv`` over ``mlp``, with
+``cm_wr`` whole.
 """
 from __future__ import annotations
 
@@ -157,47 +168,67 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, heads: int,
             * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
-def time_mix(cfg: ArchConfig, p: dict, x: torch.Tensor,
-             state: RWKVState | None, use_kernel: bool = False
-             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (y, s_final, last_x)."""
+def time_mix(cfg: ArchConfig, mesh, parts: list[dict], x: torch.Tensor,
+             states: list[RWKVState] | None, use_kernel: bool = False
+             ) -> tuple[torch.Tensor, list[torch.Tensor], torch.Tensor]:
+    """The time-mix on each model shard's heads (``parts``: each computed
+    shard's leaves, ``[p]`` for the whole layer, for which ``mesh`` is not
+    read; ``states``: each shard's block of the state, its heads' ``s``).
+    Returns (y summed over ``model``, each shard's final ``s``, last_x)."""
     b, s, d = x.shape
-    hh, hd = cfg.n_heads, cfg.head_dim
-    prev = state.prev_tm if state is not None \
+    hd = cfg.head_dim
+    p0 = parts[0]
+    d_loc = p0["wr"].shape[-1]
+    h_loc = d_loc // hd
+    whole = d_loc == d
+    shards = [0] if whole else mesh.shards("model")
+    prev = states[0].prev_tm if states is not None \
         else torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, prev)
-    mr, mk, mv, mw, mg = _ddlerp(p, x, xs)
-    r = (mr @ p["wr"]).reshape(b, s, hh, hd)
-    k = (mk @ p["wk"]).reshape(b, s, hh, hd)
-    v = (mv @ p["wv"]).reshape(b, s, hh, hd)
-    g = F.silu(mg @ p["wg"])
-    decay_logit = p["decay_base"][None, None, :] \
-        + torch.tanh(mw @ p["td_w1"]) @ p["td_w2"]
-    w = torch.exp(-torch.exp(decay_logit.to(torch.float32)))
-    w = w.reshape(b, s, hh, hd)
-    s0 = state.s if state is not None \
-        else torch.zeros((b, hh, hd, hd), dtype=torch.float32,
-                         device=x.device)
-    if use_kernel:
-        from repro_torch.kernels import ops as kops
-        y, s_last = kops.rwkv6_scan(r, k, v, w, p["bonus_u"], s0)
-    else:
-        y, s_last = wkv_ref(r, k, v, w, p["bonus_u"], s0)
-    y = _group_norm(y.to(x.dtype).reshape(b, s, d), p["ln_x"], hh,
-                    cfg.norm_eps * 64)
-    y = (y * g) @ p["wo_tm"]
-    return y, s_last, x[:, -1, :]
+    mr, mk, mv, mw, mg = _ddlerp(p0, x, xs)
+    decay_logit = p0["decay_base"][None, None, :] \
+        + torch.tanh(mw @ p0["td_w1"]) @ p0["td_w2"]
+    w_all = torch.exp(-torch.exp(decay_logit.to(torch.float32)))
+    ys, s_lasts = [], []
+    for i, (m, p) in enumerate(zip(shards, parts)):
+        cols = slice(m * d_loc, (m + 1) * d_loc)
+        r = (mr @ p["wr"]).reshape(b, s, h_loc, hd)
+        k = (mk @ p["wk"]).reshape(b, s, h_loc, hd)
+        v = (mv @ p["wv"]).reshape(b, s, h_loc, hd)
+        g = F.silu(mg @ p["wg"])
+        w = w_all[..., cols].reshape(b, s, h_loc, hd).contiguous()
+        u = p0["bonus_u"][m * h_loc:(m + 1) * h_loc]
+        s0 = states[i].s.contiguous() if states is not None \
+            else torch.zeros((b, h_loc, hd, hd), dtype=torch.float32,
+                             device=x.device)
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+            y, s_last = kops.rwkv6_scan(r, k, v, w, u, s0)
+        else:
+            y, s_last = wkv_ref(r, k, v, w, u, s0)
+        y = _group_norm(y.to(x.dtype).reshape(b, s, d_loc), p0["ln_x"][cols],
+                        h_loc, cfg.norm_eps * 64)
+        ys.append((y * g) @ p["wo_tm"])
+        s_lasts.append(s_last)
+    y = ys[0] if whole else mesh.model_sum(ys)
+    return y, s_lasts, x[:, -1, :]
 
 
-def channel_mix(cfg: ArchConfig, p: dict, x: torch.Tensor,
+def channel_mix(cfg: ArchConfig, mesh, parts: list[dict], x: torch.Tensor,
                 state: RWKVState | None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The channel-mix with ``cm_wk``'s columns and ``cm_wv``'s rows on
+    each model shard (``parts`` as in ``time_mix``), the partials summed
+    over ``model``; ``cm_wr`` whole."""
     b, s, d = x.shape
+    p0 = parts[0]
+    whole = p0["cm_wk"].shape[-1] == cfg.d_ff
     prev = state.prev_cm if state is not None \
         else torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, prev)
-    xk = x + (xs - x) * p["cm_maa_k"][None, None, :]
-    xr = x + (xs - x) * p["cm_maa_r"][None, None, :]
-    kk = torch.square(torch.relu(xk @ p["cm_wk"]))
-    rr = torch.sigmoid(xr @ p["cm_wr"])
-    return rr * (kk @ p["cm_wv"]), x[:, -1, :]
+    xk = x + (xs - x) * p0["cm_maa_k"][None, None, :]
+    xr = x + (xs - x) * p0["cm_maa_r"][None, None, :]
+    kv = [torch.square(torch.relu(xk @ p["cm_wk"])) @ p["cm_wv"]
+          for p in (parts[:1] if whole else parts)]
+    rr = torch.sigmoid(xr @ p0["cm_wr"])
+    return rr * (kv[0] if whole else mesh.model_sum(kv)), x[:, -1, :]

@@ -823,3 +823,71 @@ def test_cuda_inpod_node_ring_sharded_equals_replicated():
     assert bool((b[..., cols[0]] > 0).any())
     np.testing.assert_allclose(a[..., cols].numpy(), b[..., cols].numpy(),
                                rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen3-4b", "glm4-9b", "moonshot",
+                                  "musicgen", "rwkv6-7b", "qwen3-4b-seq",
+                                  "qwen3-4b-window"])
+def test_cuda_tp_serve_matches_cpu(name):
+    """Tensor-parallel serving on the card: each case of
+    ``tests/torch_tp_cases.py`` on its one-process mesh, float32, from one
+    seed's weights, against the same on the CPU (which
+    ``tests/test_torch_tp_serve.py`` holds against the reference): the
+    prefill's and the decode steps' logits within 1e-4 of max|logit|; and
+    the prefill with ``use_kernel`` (the flash kernel, or the scan, on each
+    model shard's heads) within the same bound of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_tp_cases as tp
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import local_mesh
+    shape = tp.SERVE_CASES[name][1]
+    cfg = tp.port_cfg(name)
+    model, params = tp.drawn(name)
+    want = tp.run_serve(model, local_mesh(*shape, "cpu"), params,
+                        tp.torch_inputs(cfg), tp.steps_of(name))
+    on_card = tree_lib.tree_map(lambda x: x.cuda(), params)
+    for use_kernel in (False, True):
+        before = ops.flash_attention.launches + ops.rwkv6_scan.launches
+        got = tp.run_serve(model, local_mesh(*shape, "cuda"), on_card,
+                           tp.torch_inputs(cfg, "cuda"), tp.steps_of(name),
+                           use_kernel=use_kernel)
+        launched = ops.flash_attention.launches + ops.rwkv6_scan.launches \
+            - before
+        assert launched == (cfg.n_layers * shape[0] * shape[1]
+                            if use_kernel else 0)
+        for what in ("prefill", "decode"):
+            w = want[what].numpy()
+            np.testing.assert_allclose(
+                got[what].cpu().numpy(), w, rtol=0,
+                atol=1e-4 * float(np.abs(w).max()), err_msg=what)
+
+
+@pytest.mark.cuda
+def test_cuda_tp_gloo_ranks_equal_one_process(tmp_path):
+    """Tensor-parallel serving as 4 gloo ranks sharing the card (a data 2
+    x model 2 mesh, the gathers staged through pinned host buffers), each
+    holding its shards only: every rank's prefill and decode logits equal
+    the one-process mesh's on the card bit for bit, and its parameter
+    bytes are its shards'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import torch_tp_cases as tp
+    from repro_torch.distributed import fsdp, local_mesh
+    from torch_ranks_cases import spawn
+    spawn(tp.ranks_worker, 4, tmp_path, str(tmp_path), "cuda",
+          timeout=600)
+    mesh = local_mesh(*tp.RANKS_MESH, "cuda")
+    for name in tp.RANKS_CASES:
+        model, params = tp.drawn(name, "cuda")
+        want = tp.run_serve(model, mesh, params,
+                            tp.torch_inputs(tp.port_cfg(name), "cuda"),
+                            tp.steps_of(name))
+        for r in range(4):
+            got = torch.load(tmp_path / f"rank{r}.pt")
+            for what in ("prefill", "decode"):
+                assert torch.equal(got[f"{name}/{what}"],
+                                   want[what].cpu()), (r, name, what)
+            assert int(got[f"{name}/param_bytes"]) == \
+                fsdp.shard_bytes(model, mesh)["params"]

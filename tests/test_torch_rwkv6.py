@@ -242,9 +242,9 @@ def test_time_mix_matches_reference(reference, tag, use_kernel):
     """time_mix with the per-step recurrence and with the scan's path (on
     the CPU, its plain version) against the reference's wkv_ref path."""
     tp, x, st = _port_block()
-    y, s_last, last = rwkv6.time_mix(_block_cfg(), tp["rwkv"], x,
-                                     st if tag == "carried" else None,
-                                     use_kernel=use_kernel)
+    y, (s_last,), last = rwkv6.time_mix(
+        _block_cfg(), None, [tp["rwkv"]], x,
+        [st] if tag == "carried" else None, use_kernel=use_kernel)
     _close(y, reference[f"time_mix/{tag}/y"], "y")
     _close(s_last, reference[f"time_mix/{tag}/s"], "s")
     _close(last, reference[f"time_mix/{tag}/last"], "last")
@@ -253,7 +253,7 @@ def test_time_mix_matches_reference(reference, tag, use_kernel):
 @pytest.mark.parametrize("tag", ["fresh", "carried"])
 def test_channel_mix_matches_reference(reference, tag):
     tp, x, st = _port_block()
-    y, last = rwkv6.channel_mix(_block_cfg(), tp["rwkv"], x,
+    y, last = rwkv6.channel_mix(_block_cfg(), None, [tp["rwkv"]], x,
                                 st if tag == "carried" else None)
     _close(y, reference[f"channel_mix/{tag}/y"], "y")
     _close(last, reference[f"channel_mix/{tag}/last"], "last")

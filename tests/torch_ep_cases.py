@@ -83,8 +83,7 @@ def run_ep(mesh, p, x, params, toks, cf=CAPACITY_FACTORS[-1]):
         model, mesh, ShapeCell("ep", s, b, "decode"))
     with torch.inference_mode():
         out["prefill"] = prefill_fn(params, {"tokens": toks})
-        rows = b // (1 if mesh.local else mesh.data)
-        state = model.init_decode_state(rows, s, mesh.device)
+        state = model.init_decode_state(b, s, mesh.device, mesh=mesh)
         steps = []
         for i in range(DECODE_STEPS):
             logits, state = decode_fn(params, state, {"token": toks[:, i]})
@@ -102,11 +101,15 @@ def unit_on(device):
 
 def served_on(device, mesh=None):
     """The served model's parameters, drawn from seed 0 on ``device`` (on a
-    rank of ``mesh``, its experts only), and its prompts."""
+    rank of ``mesh``, its shards only: its experts, heads, d_ff columns and
+    vocab rows), and its prompts."""
+    from repro_torch.distributed import fsdp
     from repro_torch.models import build_model
     cfg = serve_cfg()
-    params = build_model(cfg).init(torch.Generator(device).manual_seed(0),
-                                   device, mesh=mesh)
+    model = build_model(cfg)
+    specs = None if mesh is None else fsdp.specs_for(model, mesh)[0]
+    params = model.init(torch.Generator(device).manual_seed(0), device,
+                        mesh=mesh, specs=specs)
     return params, torch.from_numpy(tokens(cfg.vocab)).long().to(device)
 
 
